@@ -1,0 +1,7 @@
+from difflexmm_tpu_torch.geometry.polygon import (  # noqa: F401
+    compute_inertia,
+    polygon_area,
+    polygon_centroid,
+    polygon_polar_moment,
+)
+from difflexmm_tpu_torch.geometry.quad import QuadGeometry  # noqa: F401

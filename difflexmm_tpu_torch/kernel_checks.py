@@ -1,0 +1,168 @@
+"""Inputs for holding the trajectory kernel against its plain version.
+
+Used by ``chip_smoke.py`` and the CUDA-gated tests. Every input is made
+from the flagship physics (``models/flagship.py``) and a seed, on the
+device and in the dtype asked for.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from difflexmm_tpu_torch.models.flagship import paper_config
+from difflexmm_tpu_torch.models.quads_focusing import ForwardProblem
+from difflexmm_tpu_torch.ops.kernels import core
+from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
+    quad_grid_energy_planes,
+    quad_void_angles_planes,
+)
+
+
+def small_problem(n1=8, n2=6, n_timepoints=12, n_substeps=4, device="cpu",
+                  dtype=torch.float64, method="auto",
+                  simulation_time=1.5e-3) -> ForwardProblem:
+    """The flagship physics on a small lattice, with the pulse sped up to
+    fit its short window: 600 Hz with no delay over 1.5 ms, so a substep
+    is about as long as the flagship's (34 us at 12 timepoints and 4
+    substeps). 8 x 6 is the smallest lattice whose clamped corners stay
+    clear of the driven strip."""
+
+    cfg = paper_config(method, n_substeps, device, dtype)
+    cfg.update(
+        n1_blocks=n1, n2_blocks=n2, n_timepoints=n_timepoints,
+        damping=np.broadcast_to(cfg["damping"][0], (n1 * n2, 3)),
+        loading_rate=600.0, input_delay=0.0, simulation_time=simulation_time,
+    )
+    problem = ForwardProblem(**cfg)
+    problem.setup()
+    return problem
+
+
+def random_design(problem: ForwardProblem, rng: np.random.Generator, scale=0.05):
+    """The 25-degree rotated-square design with every hinge shifted by
+    ``scale * N(0, 1)`` (mm)."""
+
+    base = problem.geometry.get_design_from_rotated_square(25 * math.pi / 180)
+    return tuple(
+        torch.as_tensor(
+            x.numpy() + scale * rng.standard_normal(tuple(x.shape)),
+            device=torch.device(problem.device), dtype=problem.dtype,
+        )
+        for x in base
+    )
+
+
+def batched_args(problem: ForwardProblem, designs, state0=None) -> core.TrajectoryArgs:
+    """Trajectory inputs of several designs of one problem, stacked on the
+    batch dimension."""
+
+    state0 = problem.state0 if state0 is None else state0
+    with torch.no_grad():
+        per = [
+            problem.solve_dynamics.trajectory_args(
+                state0, problem.timepoints, problem.control_params(d)
+            )
+            for d in designs
+        ]
+    cat = lambda xs: torch.cat(xs).contiguous()  # noqa: E731
+    return core.TrajectoryArgs(
+        per[0].spec,
+        cat([a.U0 for a in per]), cat([a.V0 for a in per]), cat([a.A0 for a in per]),
+        per[0].dts, cat([a.drive for a in per]),
+        tuple(cat(list(leaves)) for leaves in zip(*(a.fixed for a in per))),
+    )
+
+
+def contact_energy_of(U, fixed):
+    """Contact part of the plane energy: total minus strain."""
+
+    with torch.no_grad():
+        total = quad_grid_energy_planes(U, *fixed[:13], use_contact=True)
+        strain = quad_grid_energy_planes(U, *fixed[:13], use_contact=False)
+    return float(total - strain)
+
+
+def contact_probe(device="cpu", dtype=torch.float64, n_timepoints=6, n_substeps=4):
+    """A small lattice whose contact barrier is engaged from the start,
+    integrated over 20 us: the barrier's forces are large, and substeps of
+    1 us keep the trajectory smooth enough to compare two codes on it.
+
+    Each free block of the 25-degree rotated-square design is turned by
+    ``-parity * mag`` (parity = (-1)^(i+j)), the counter-rotating mode that
+    closes the 40-degree voids; ``mag`` is bisected so that the closing
+    voids sit in the middle of the barrier window [min_angle, cutoff).
+    Returns ``(args, mag)``.
+    """
+
+    problem = small_problem(n_timepoints=n_timepoints, n_substeps=n_substeps,
+                            device=device, dtype=dtype, simulation_time=2e-5)
+    design = problem.geometry.get_design_from_rotated_square(
+        25 * math.pi / 180, device=device, dtype=dtype
+    )
+    n1, n2 = problem.n1_blocks, problem.n2_blocks
+    I, J = np.meshgrid(np.arange(n1), np.arange(n2), indexing="xy")
+    parity = torch.as_tensor(((-1.0) ** (I + J)).reshape(-1), device=device, dtype=dtype)
+    target = (problem.min_angle + problem.cutoff_angle) / 2
+
+    def args_at(mag):
+        state0 = torch.zeros_like(problem.state0)
+        state0[0, :, 2] = -parity * mag
+        return batched_args(problem, [design], state0)
+
+    def closing_void(mag):
+        """Smallest void angle in (-90, 90) degrees: voids that closed past
+        zero, not the ones that wrapped around to near -180."""
+
+        args = args_at(mag)
+        mask = args.fixed[-1]
+        U = args.U0 * mask + core.drive_planes(args.drive[:, 0], args.spec, args.U0)
+        voids = torch.cat([
+            v.flatten() for v in quad_void_angles_planes(U, args.fixed[0], args.fixed[1])
+        ])
+        return float(voids[voids.abs() < math.pi / 2].min())
+
+    lo, hi = 0.0, 35 * math.pi / 180  # voids open at lo, overlapping at hi
+    for _ in range(50):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if closing_void(mid) > target else (lo, mid)
+    mag = (lo + hi) / 2
+    return args_at(mag), mag
+
+
+def kernel_force(args: core.TrajectoryArgs):
+    """The force ``-mask * dE/dU_eff`` at ``args.U0`` and drive row 0, as the
+    trajectory kernel computes it: one substep from rest with unit inertia
+    and no damping leaves ``U1 = U0`` and ``A1 = F * mask = F``."""
+
+    spec = args.spec._replace(n_substeps=1)
+    fixed = args.fixed[:-3] + (
+        torch.ones_like(args.fixed[-3]), torch.zeros_like(args.fixed[-2]), args.fixed[-1]
+    )
+    zero = torch.zeros_like(args.U0)
+    _, _, outA = spec.forward(
+        args.U0, zero, zero, args.dts[:1].contiguous(),
+        args.drive[:, :1].contiguous(), fixed, spec,
+    )
+    return outA[:, 0]
+
+
+def plain_force(args: core.TrajectoryArgs):
+    """The same force through autograd of the plain energy."""
+
+    return core.force(args.U0, args.drive[:, 0], args.fixed, args.spec)
+
+
+def cast(args: core.TrajectoryArgs, dtype) -> core.TrajectoryArgs:
+    """The same trajectory inputs in another floating dtype."""
+
+    return args._replace(
+        **{k: getattr(args, k).to(dtype) for k in ("U0", "V0", "A0", "dts", "drive")},
+        fixed=tuple(f.to(dtype) for f in args.fixed),
+    )
+
+
+def max_rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+
+    return float((a - b).abs().max() / b.abs().max())

@@ -1,0 +1,183 @@
+"""Shared building blocks of the models layer (counterpart of the parts of
+``difflexmm_tpu/models/base.py`` that the quads-focusing forward path
+uses): boundary-condition index builders, the raised-cosine pulse and
+dict (de)serialization. The fabrication constraints are ROADMAP A5.
+"""
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from difflexmm_tpu_torch.utils.types import SolutionData
+
+
+def all_dofs_pairs(block_ids: np.ndarray) -> np.ndarray:
+    """[block, DOF] pairs covering all 3 DOFs of the given blocks: all DOF-0
+    pairs, then DOF-1, then DOF-2."""
+
+    block_ids = np.asarray(block_ids).reshape(-1)
+    return np.stack(
+        [np.tile(block_ids, 3), np.repeat(np.arange(3), len(block_ids))], axis=1
+    )
+
+
+def driven_side_pairs(
+    n1_blocks: int,
+    n2_blocks: int,
+    n_excited_blocks: int,
+    loaded_side: str,
+    input_shift: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Constrained pairs for a driven strip of edge blocks, centred (plus
+    ``input_shift``) on the chosen side; all three DOFs are constrained,
+    the side-normal translation is driven and the other two are pinned.
+
+    Returns (pairs (3k, 2), drive_mask (3k,)): drive_mask is 1 on the
+    driven DOF entries, 0 on the pinned ones.
+    """
+
+    k = n_excited_blocks
+    if loaded_side in ("left", "right"):
+        rows = np.arange((n2_blocks - k) // 2 + input_shift,
+                         (n2_blocks + k) // 2 + input_shift)
+        col = 0 if loaded_side == "left" else n1_blocks - 1
+        blocks = rows * n1_blocks + col
+        dof_order = [0, 1, 2]  # drive x
+    elif loaded_side in ("bottom", "top"):
+        cols = np.arange((n1_blocks - k) // 2 + input_shift,
+                         (n1_blocks + k) // 2 + input_shift)
+        row = 0 if loaded_side == "bottom" else n2_blocks - 1
+        blocks = row * n1_blocks + cols
+        dof_order = [1, 0, 2]  # drive y
+    else:
+        raise ValueError(
+            f"Unknown loaded_side: {loaded_side!r}; expected left/right/bottom/top."
+        )
+    pairs = np.stack([np.tile(blocks, 3), np.repeat(dof_order, k)], axis=1)
+    drive_mask = np.zeros(3 * k)
+    drive_mask[:k] = 1.0
+    return pairs, drive_mask
+
+
+def corner_block_ids(n1_blocks: int, n2_blocks: int, n_clamped: int) -> np.ndarray:
+    """Blocks forming the four L-shaped clamped corners (2n-1 blocks each)."""
+
+    n = n_clamped
+    nb = n1_blocks * n2_blocks
+    bl = np.concatenate([np.arange(n), np.arange(1, n) * n1_blocks])
+    br = np.concatenate(
+        [np.arange(n1_blocks - n, n1_blocks), (np.arange(1, n) + 1) * n1_blocks - 1]
+    )
+    tr = np.concatenate([np.arange(nb - n, nb), nb - 1 - np.arange(1, n) * n1_blocks])
+    tl = np.concatenate(
+        [np.arange(nb - n1_blocks, nb - n1_blocks + n),
+         nb - n1_blocks - np.arange(1, n) * n1_blocks]
+    )
+    return np.concatenate([bl, br, tr, tl])
+
+
+def clamped_corner_pairs(n1_blocks: int, n2_blocks: int, n_clamped: int) -> np.ndarray:
+    """All-DOF constrained pairs for the four clamped corners."""
+
+    return all_dofs_pairs(corner_block_ids(n1_blocks, n2_blocks, n_clamped))
+
+
+def check_disjoint_constrained_pairs(**groups: np.ndarray) -> None:
+    """Fail loudly when constraint groups claim the same [block, DOF].
+
+    Duplicate constrained pairs resolve last-write-wins, so e.g. a corner
+    clamp that overlaps the driven strip would silently zero the drive.
+    """
+
+    names = list(groups)
+    keysets = {
+        name: {(int(b), int(d)) for b, d in np.asarray(pairs).reshape(-1, 2)}
+        for name, pairs in groups.items()
+    }
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            overlap = keysets[a] & keysets[b]
+            if overlap:
+                sample = sorted(overlap)[:6]
+                raise ValueError(
+                    f"Constrained [block, DOF] pairs of '{a}' and '{b}' "
+                    f"overlap on {len(overlap)} entries (e.g. {sample}); "
+                    "the scatter is last-write-wins, so the earlier group's "
+                    "drive would be silently overwritten. Shrink the clamps "
+                    "or excited strip (or reduce input_shift) so the groups "
+                    "are disjoint."
+                )
+
+
+def target_patch_ids(
+    n1_blocks: int,
+    n2_blocks: int,
+    target_size: Tuple[int, int],
+    target_shift: Tuple[int, int],
+) -> np.ndarray:
+    """Block ids of a centred (shifted) rectangular target patch; i (column)
+    outer, j (row) inner."""
+
+    i0 = (n1_blocks - target_size[0]) // 2 + target_shift[0]
+    j0 = (n2_blocks - target_size[1]) // 2 + target_shift[1]
+    I, J = np.meshgrid(
+        np.arange(i0, i0 + target_size[0]),
+        np.arange(j0, j0 + target_size[1]),
+        indexing="ij",
+    )
+    return (J * n1_blocks + I).reshape(-1)
+
+
+def pulse(t, amplitude, loading_rate):
+    """Raised-cosine displacement pulse of duration 1/loading_rate."""
+
+    t = torch.as_tensor(t)
+    active = (t > 0.0) & (t < 1.0 / loading_rate)
+    wave = (1.0 - torch.cos(2.0 * math.pi * loading_rate * t)) / 2.0
+    return amplitude * torch.where(active, wave, torch.zeros_like(wave))
+
+
+# ---------------------------------------------------------------------------
+# (De)serialization helpers
+# ---------------------------------------------------------------------------
+
+
+def solution_to_dict(solution):
+    if solution is None:
+        return None
+    if isinstance(solution, list):
+        return [s._asdict() for s in solution]
+    return solution._asdict()
+
+
+def solution_from_dict(data):
+    if data is None:
+        return None
+    if isinstance(data, list):
+        return [SolutionData(**d) for d in data]
+    if isinstance(data, dict):
+        return SolutionData(**data)
+    return data
+
+
+def problem_to_dict(problem) -> dict:
+    """Dataclass -> plain dict with SolutionData converted to dicts."""
+
+    out = dataclasses.asdict(problem)
+    if "solution_data" in out:
+        out["solution_data"] = solution_to_dict(getattr(problem, "solution_data", None))
+    return out
+
+
+def forward_problem_from_dict(cls, dict_in: dict):
+    """Rebuild a ForwardProblem-style dataclass from a dict."""
+
+    data = dict(dict_in)
+    if "solution_data" in data:
+        data["solution_data"] = solution_from_dict(data["solution_data"])
+    problem = cls(**data)
+    problem.is_setup = False
+    return problem

@@ -1,0 +1,245 @@
+"""Energy focusing on a quad lattice: the flagship inverse-design problem
+(counterpart of ``difflexmm_tpu/models/quads_focusing.py``).
+
+A pulse enters from one side of an aperiodic quad lattice; the design
+(hinge shift grids) is optimized to maximize the kinetic energy delivered
+to a target patch. This module ports the forward problem and the
+objective; the fabrication constraints and the MMA loop are ROADMAP A5
+and A7.
+"""
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Any, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from difflexmm_tpu_torch.geometry.polygon import compute_inertia
+from difflexmm_tpu_torch.geometry.quad import QuadGeometry
+from difflexmm_tpu_torch.models import base
+from difflexmm_tpu_torch.ops.observables import kinetic_energy
+from difflexmm_tpu_torch.solver.dynamics import setup_dynamic_solver
+from difflexmm_tpu_torch.utils.types import (
+    ContactParams,
+    ControlParams,
+    GeometricalParams,
+    LigamentParams,
+    MechanicalParams,
+    SolutionData,
+)
+
+
+@dataclass
+class ForwardProblem:
+    """Pulse-driven quad lattice with clamped corners.
+
+    ``setup()`` installs ``self.solve(design) -> SolutionData`` where
+    ``design = (horizontal_shifts, vertical_shifts)``, tensors on
+    ``device`` in ``dtype`` (every physical parameter is cast to them).
+    ``method`` is one of ``solver.dynamics.FAST_METHODS``; the JAX
+    package's default, the dense ``"verlet"``, is ROADMAP A4.
+    """
+
+    # Geometry
+    n1_blocks: int
+    n2_blocks: int
+    spacing: Any
+    bond_length: Any
+
+    # Mechanical
+    k_stretch: Any
+    k_shear: Any
+    k_rot: Any
+    density: Any
+    damping: Any
+
+    # Dynamic loading
+    amplitude: Any
+    loading_rate: Any
+    input_delay: Any
+    n_excited_blocks: int
+    loaded_side: str
+    input_shift: int = 0
+
+    # Analysis
+    simulation_time: Any = 1.0
+    n_timepoints: int = 100
+    linearized_strains: bool = False
+
+    # Contact
+    use_contact: bool = True
+    k_contact: Any = 1.0
+    min_angle: Any = 0.0
+    cutoff_angle: Any = 5.0 * math.pi / 180
+
+    n_blocks_clamped_corner: int = 2
+
+    solution_data: Optional[Union[SolutionData, List[SolutionData]]] = None
+
+    # Solver configuration.
+    method: str = "auto"
+    n_substeps: int = 20
+    guard: Any = None
+    device: Any = "cpu"
+    dtype: Any = torch.float64
+
+    is_setup: bool = False
+    name: str = "quads_focusing"
+
+    def setup(self) -> None:
+        like = dict(device=torch.device(self.device), dtype=self.dtype)
+        geometry = QuadGeometry(
+            n1_blocks=self.n1_blocks,
+            n2_blocks=self.n2_blocks,
+            spacing=self.spacing,
+            bond_length=self.bond_length,
+        )
+        block_centroids, centroid_node_vectors, bond_connectivity, reference_bond_vectors = (
+            geometry.get_parametrization()
+        )
+        bonds = bond_connectivity()
+        ref_bond_vectors = reference_bond_vectors().to(**like)
+
+        driven_pairs, drive_mask = base.driven_side_pairs(
+            self.n1_blocks, self.n2_blocks, self.n_excited_blocks,
+            self.loaded_side, self.input_shift,
+        )
+        clamped_pairs = base.clamped_corner_pairs(
+            self.n1_blocks, self.n2_blocks, self.n_blocks_clamped_corner
+        )
+        base.check_disjoint_constrained_pairs(
+            driven=driven_pairs, clamped_corners=clamped_pairs
+        )
+        constrained_pairs = np.concatenate([driven_pairs, clamped_pairs])
+        drive_vector = torch.as_tensor(
+            np.concatenate([drive_mask, np.zeros(len(clamped_pairs))]), **like
+        )
+
+        def constrained_DOFs_fn(t, amplitude, loading_rate, input_delay):
+            return base.pulse(t - input_delay, amplitude, loading_rate)[..., None] * drive_vector
+
+        solve_dynamics = setup_dynamic_solver(
+            geometry=geometry,
+            constrained_block_DOF_pairs=constrained_pairs,
+            constrained_DOFs_fn=constrained_DOFs_fn,
+            damped_blocks=np.arange(geometry.n_blocks),
+            method=self.method,
+            n_substeps=self.n_substeps,
+            quad_grid=dict(
+                n1=self.n1_blocks,
+                n2=self.n2_blocks,
+                linearized=self.linearized_strains,
+                use_contact=self.use_contact,
+            ),
+            guard=self.guard,
+        )
+
+        timepoints = torch.as_tensor(
+            np.linspace(0.0, float(self.simulation_time), self.n_timepoints), **like
+        )
+        state0 = torch.zeros((2, geometry.n_blocks, 3), **like)
+        # Push inward from whichever side is loaded.
+        sign = 1.0 if self.loaded_side in ("left", "bottom") else -1.0
+
+        def scalar(x):
+            return torch.as_tensor(x, **like)
+
+        bond_params = LigamentParams(
+            k_stretch=scalar(self.k_stretch),
+            k_shear=scalar(self.k_shear),
+            k_rot=scalar(self.k_rot),
+            reference_vector=ref_bond_vectors,
+        )
+        contact_params = ContactParams(
+            min_angle=scalar(self.min_angle),
+            cutoff_angle=scalar(self.cutoff_angle),
+            k_contact=scalar(self.k_contact),
+        )
+        damping = torch.as_tensor(np.array(self.damping, dtype=np.float64), **like)
+
+        def control_params(design) -> ControlParams:
+            """The solver's parameters for a design."""
+
+            horizontal_shifts, vertical_shifts = design
+            return ControlParams(
+                geometrical_params=GeometricalParams(
+                    block_centroids(horizontal_shifts, vertical_shifts),
+                    centroid_node_vectors(horizontal_shifts, vertical_shifts),
+                ),
+                mechanical_params=MechanicalParams(
+                    bond_params=bond_params,
+                    density=scalar(self.density),
+                    damping=damping,
+                    contact_params=contact_params,
+                ),
+                constraint_params=dict(
+                    amplitude=sign * scalar(self.amplitude),
+                    loading_rate=scalar(self.loading_rate),
+                    input_delay=scalar(self.input_delay),
+                ),
+            )
+
+        def forward(design: Tuple[torch.Tensor, torch.Tensor]) -> SolutionData:
+            cp = control_params(design)
+            gp = cp.geometrical_params
+            return SolutionData(
+                block_centroids=gp.block_centroids,
+                centroid_node_vectors=gp.centroid_node_vectors,
+                bond_connectivity=bonds,
+                timepoints=timepoints,
+                fields=solve_dynamics(state0, timepoints, cp),
+            )
+
+        self.solve = forward
+        self.control_params = control_params
+        self.solve_dynamics = solve_dynamics
+        self.timepoints = timepoints
+        self.state0 = state0
+        self.geometry = geometry
+        self.is_setup = True
+
+    def to_dict(self) -> dict:
+        return base.problem_to_dict(self)
+
+    @staticmethod
+    def from_dict(dict_in: dict) -> "ForwardProblem":
+        return base.forward_problem_from_dict(ForwardProblem, dict_in)
+
+
+@dataclass
+class OptimizationProblem:
+    """Maximize target-patch kinetic energy over the hinge-shift design
+    (objective only; constraints and optimizer loops are ROADMAP A5/A7)."""
+
+    forward_problem: ForwardProblem
+    target_size: Tuple[int, int]
+    target_shift: Tuple[int, int] = (0, 0)
+    name: str = "quads_focusing"
+    is_setup: bool = False
+
+    def setup_objective(self) -> None:
+        if not self.forward_problem.is_setup:
+            self.forward_problem.setup()
+        fp = self.forward_problem
+        target_blocks = base.target_patch_ids(
+            fp.n1_blocks, fp.n2_blocks, self.target_size, self.target_shift
+        )
+        target = torch.as_tensor(target_blocks, device=torch.device(fp.device))
+
+        def target_kinetic_energy(design):
+            solution = fp.solve(design)
+            inertia = compute_inertia(solution.centroid_node_vectors, fp.density)
+            return kinetic_energy(
+                solution.fields[:, 1, target, :], inertia[target]
+            )
+
+        self.objective_fn = target_kinetic_energy
+        self.target_blocks = target_blocks
+        self.is_setup = True
+
+    def to_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        out["forward_problem"] = self.forward_problem.to_dict()
+        return out

@@ -1,0 +1,82 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled with nvcc
+into ``build/kernels/lib<name>-<hash>.so`` beside the package (the hash is
+of the source and flags, so an edited source rebuilds), then loaded with
+``ctypes``. Building happens at first use, never at import: the CPU tests
+import every module on machines without nvcc.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PACKAGE / "csrc"
+BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_LIBS = {}
+
+#: name -> {"seconds": build seconds (0.0 when the library was already
+#: built), "log": nvcc's output (ptxas register and spill report)}.
+BUILD_INFO = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor under CUDA_HOME): the CUDA "
+        "kernels of difflexmm_tpu_torch are built from source at first use."
+    )
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    target = BUILD_DIR / f"lib{name}-{digest}.so"
+    if target.exists():
+        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    t0 = time.perf_counter()
+    result = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if result.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed to build {source.name} (exit {result.returncode}):\n"
+            f"{' '.join(cmd)}\n{result.stdout}\n{result.stderr}"
+        )
+    os.replace(tmp, target)
+    BUILD_INFO[name] = {"seconds": seconds, "log": result.stdout + result.stderr}
+    return target
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build(name)))
+    return _LIBS[name]

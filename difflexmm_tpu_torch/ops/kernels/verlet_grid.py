@@ -1,0 +1,320 @@
+"""Quad-lattice trajectory: plane layout, plane energy and the kernel wrapper.
+
+Counterpart of ``difflexmm_tpu/ops/pallas/verlet_grid.py``. Every field is
+a stack of component planes of shape ``(n2, n1)``: state ``(B, 3, n2, n1)``
+(ux, uy, theta), corner geometry ``(B, 4, 2, n2, n1)``, horizontal bond
+data ``(B, ., n2, n1-1)``, vertical ``(B, ., n2-1, n1)``. The design batch B
+leads; the JAX package puts channels first and has no batch.
+
+The kernel (``csrc/verlet_quad.cu``) integrates the whole trajectory for
+CUDA tensors; :func:`quad_grid_energy_planes` is its plain PyTorch
+version, which the plain body (``core.plain_trajectory``) differentiates
+with autograd for CPU tensors and which the adjoint replays.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from difflexmm_tpu_torch.ops.contact import contact_energy
+from difflexmm_tpu_torch.ops.kernels import build, core
+
+# Fixed (per-design) leaves, in order, each with the design batch leading:
+# cnv (B,4,2,n2,n1), centroids (B,2,n2,n1), ref_h (B,2,n2,n1-1),
+# ref_v (B,2,n2-1,n1), ks_h, ksh_h, kr_h (B,n2,n1-1), ks_v, ksh_v, kr_v
+# (B,n2-1,n1), cmin, ccut, kc (B,1,1), inertia, damping, mask (B,3,n2,n1).
+N_FIXED_ARRAYS = 16
+
+
+# ---------------------------------------------------------------------------
+# Layout conversion
+# ---------------------------------------------------------------------------
+
+
+def to_planes(field: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """(nb, C) block field -> (C, n2, n1) planes."""
+
+    C = field.shape[-1]
+    return torch.movedim(field.reshape(n2, n1, C), -1, 0)
+
+
+def cnv_to_planes(cnv: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
+    """(nb, 4, 2) centroid-node vectors -> (4, 2, n2, n1)."""
+
+    return cnv.reshape(n2, n1, 4, 2).permute(2, 3, 0, 1)
+
+
+def fields_from_planes(out: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """(T-1, 2, 3, n2, n1) stacked (U, V) planes -> (T-1, 2, nb, 3)."""
+
+    return torch.movedim(out, 2, -1).reshape(out.shape[0], 2, n_blocks, 3)
+
+
+# ---------------------------------------------------------------------------
+# Plane physics (the kernel's plain version)
+# ---------------------------------------------------------------------------
+
+
+def _ligament_planes(dUx, dUy, th1, th2, refx, refy, ks, ksh, kr, linearized):
+    """Per-bond ligament energy on planes."""
+
+    l0sq = refx * refx + refy * refy
+    dRot = th2 - th1
+    if linearized:
+        axial = (dUx * refx + dUy * refy) / l0sq
+        shear = (refx * dUy - refy * dUx) / l0sq - (th1 + th2) / 2
+    else:
+        rx = dUx + refx
+        ry = dUy + refy
+        axial = torch.sqrt((rx * rx + ry * ry) / l0sq) - 1.0
+        mean = (th1 + th2) / 2
+        c, s = torch.cos(mean), torch.sin(mean)
+        px = c * refx - s * refy
+        py = s * refx + c * refy
+        shear = torch.atan2(px * ry - py * rx, px * rx + py * ry)
+    return (ks * axial**2 * l0sq + ksh * shear**2 * l0sq + kr * dRot**2) / 2
+
+
+def _angle(ax, ay, bx, by):
+    """Signed angle from (ax, ay) to (bx, by) planes."""
+
+    return torch.atan2(ax * by - ay * bx, ax * bx + ay * by)
+
+
+def _corner_displacements(U, cnv):
+    """Displacements (dx, dy) of all four corners, (..., 4, n2, n1) each."""
+
+    ux, uy, th = U.unbind(-3)
+    cth, sth = torch.cos(th), torch.sin(th)
+    cx, cy = cnv.unbind(-3)
+    cm1 = (cth - 1.0).unsqueeze(-3)
+    s = sth.unsqueeze(-3)
+    dx = ux.unsqueeze(-3) + cm1 * cx - s * cy
+    dy = uy.unsqueeze(-3) + s * cx + cm1 * cy
+    return dx, dy
+
+
+def _void_angles(dx, dy, cnv, centroids):
+    """(vh1, vh2, vv1, vv2): the two void angles at every horizontal and
+    every vertical bond."""
+
+    cx, cy = cnv.unbind(-3)
+    px = centroids[..., 0, :, :].unsqueeze(-3) + cx + dx
+    py = centroids[..., 1, :, :].unsqueeze(-3) + cy + dy
+    # Edge vectors from each corner to the next and to the previous corner.
+    nx, ny = torch.roll(px, -1, -3) - px, torch.roll(py, -1, -3) - py
+    qx, qy = torch.roll(px, 1, -3) - px, torch.roll(py, 1, -3) - py
+
+    def voids(c1, c2, s1, s2):
+        """Void angles at bonds joining corner c1 (blocks s1) to corner c2
+        (blocks s2)."""
+
+        a = (..., c1) + s1
+        b = (..., c2) + s2
+        return _angle(qx[b], qy[b], nx[a], ny[a]), _angle(qx[a], qy[a], nx[b], ny[b])
+
+    all_ = slice(None)
+    return (
+        *voids(0, 2, (all_, slice(None, -1)), (all_, slice(1, None))),
+        *voids(1, 3, (slice(None, -1), all_), (slice(1, None), all_)),
+    )
+
+
+def quad_void_angles_planes(U, cnv, centroids):
+    """The void-angle planes ``(vh1, vh2, vv1, vv2)`` of a state ``U``."""
+
+    return _void_angles(*_corner_displacements(U, cnv), cnv, centroids)
+
+
+def quad_grid_energy_planes(
+    U,  # (..., 3, n2, n1): ux, uy, theta
+    cnv,  # (..., 4, 2, n2, n1)
+    centroids,  # (..., 2, n2, n1)
+    ref_h, ref_v,  # (..., 2, n2, n1-1), (..., 2, n2-1, n1)
+    ks_h, ksh_h, kr_h, ks_v, ksh_v, kr_v,
+    cmin, ccut, kc,
+    linearized: bool = False,
+    use_contact: bool = True,
+):
+    """Total strain plus contact energy of the quad lattice on planes,
+    summed over any leading (batch) dimensions.
+
+    Same physics as ``quad_grid_energy_planes`` of the JAX package, with
+    the true ``atan2``. Horizontal bonds join corner 0 of block (j, i) to
+    corner 2 of (j, i+1), vertical bonds corner 1 of (j, i) to corner 3 of
+    (j+1, i); each bond has two void angles under the contact barrier.
+    """
+
+    th = U[..., 2, :, :]
+    dx, dy = _corner_displacements(U, cnv)
+    e_h = _ligament_planes(
+        dx[..., 2, :, 1:] - dx[..., 0, :, :-1],
+        dy[..., 2, :, 1:] - dy[..., 0, :, :-1],
+        th[..., :-1], th[..., 1:], ref_h[..., 0, :, :], ref_h[..., 1, :, :],
+        ks_h, ksh_h, kr_h, linearized,
+    )
+    e_v = _ligament_planes(
+        dx[..., 3, 1:, :] - dx[..., 1, :-1, :],
+        dy[..., 3, 1:, :] - dy[..., 1, :-1, :],
+        th[..., :-1, :], th[..., 1:, :], ref_v[..., 0, :, :], ref_v[..., 1, :, :],
+        ks_v, ksh_v, kr_v, linearized,
+    )
+    energy = torch.sum(e_h) + torch.sum(e_v)
+    if not use_contact:
+        return energy
+    contact = sum(
+        torch.sum(contact_energy(g, cmin, ccut, kc))
+        for g in _void_angles(dx, dy, cnv, centroids)
+    )
+    return energy + contact
+
+
+def _energy_of(U_eff, fixed, linearized, use_contact):
+    return quad_grid_energy_planes(
+        U_eff, *fixed[:13], linearized=linearized, use_contact=use_contact
+    )
+
+
+# ---------------------------------------------------------------------------
+# The kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _shapes(B, n1, n2):
+    """Expected shapes of the fixed leaves, in order."""
+
+    h, v, full = (B, n2, n1 - 1), (B, n2 - 1, n1), (B, 3, n2, n1)
+    return (
+        (B, 4, 2, n2, n1), (B, 2, n2, n1), (B, 2, n2, n1 - 1), (B, 2, n2 - 1, n1),
+        h, h, h, v, v, v, (B, 1, 1), (B, 1, 1), (B, 1, 1), full, full, full,
+    )
+
+
+def _load_library():
+    lib = build.load("verlet_quad")
+    if not getattr(lib, "_typed", False):
+        lib.verlet_quad_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.verlet_quad_launch.restype = ctypes.c_int
+        lib.verlet_quad_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.verlet_quad_scratch_bytes.restype = ctypes.c_longlong
+        lib.verlet_quad_max_smem.argtypes = []
+        lib.verlet_quad_max_smem.restype = ctypes.c_longlong
+        lib.verlet_quad_error_string.argtypes = [ctypes.c_int]
+        lib.verlet_quad_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def carry_bytes(n1: int, n2: int, dtype) -> tuple:
+    """(bytes of carry one design needs, bytes of shared memory a block of
+    the current CUDA device may use). The kernel keeps the carry in shared
+    memory when it fits and in a global workspace otherwise."""
+
+    lib = _load_library()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    available = lib.verlet_quad_max_smem()
+    if available < 0:
+        raise RuntimeError("verlet_quad: cannot query the device's shared memory")
+    return lib.verlet_quad_scratch_bytes(n1, n2, itemsize), available
+
+
+def verlet_quad_trajectory(
+    U0, V0, A0, dts, drive, fixed, spec, *, linearized, use_contact, drive_map
+):
+    """Whole quad trajectory: ``(B, 3, n2, n1)`` initial state, ``(T-1,)``
+    substep sizes, ``(B, (T-1) * n_sub, k)`` drive table and the
+    :data:`N_FIXED_ARRAYS` fixed leaves -> ``(outU, outV, outA)``, each
+    ``(B, T-1, 3, n2, n1)``.
+
+    CPU tensors go through the plain body (``core.plain_trajectory``).
+    CUDA tensors launch ``csrc/verlet_quad.cu`` or raise: there is no
+    fallback. Each launch adds one to ``verlet_quad_trajectory.launches``.
+    """
+
+    if U0.device.type == "cpu":
+        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec)
+    if U0.device.type != "cuda":
+        raise ValueError(f"verlet_quad_trajectory: unsupported device {U0.device}")
+
+    tensors = (U0, V0, A0, dts, drive, *fixed)
+    dtype = U0.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"verlet_quad_trajectory: dtype {dtype} (float32/float64 only)")
+    B, C, n2, n1 = U0.shape
+    n_sub = spec.n_substeps
+    n_int = dts.shape[0]
+    expected = ((B, 3, n2, n1),) * 3 + ((n_int,), (B, n_int * n_sub, drive.shape[-1]))
+    expected += _shapes(B, n1, n2)
+    if len(fixed) != N_FIXED_ARRAYS or C != 3 or drive.shape[-1] < 1:
+        raise ValueError("verlet_quad_trajectory: malformed arguments")
+    for i, (t, shape) in enumerate(zip(tensors, expected)):
+        if t.device != U0.device or t.dtype != dtype:
+            raise ValueError(f"argument {i}: {t.device}/{t.dtype}, want {U0.device}/{dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"argument {i}: shape {tuple(t.shape)}, want contiguous {shape}")
+    if (drive_map.device != U0.device or drive_map.dtype != torch.int32
+            or tuple(drive_map.shape) != (3, n2, n1) or not drive_map.is_contiguous()):
+        raise ValueError("verlet_quad_trajectory: drive_map must be contiguous int32 (3, n2, n1)")
+
+    itemsize = U0.element_size()
+    with torch.cuda.device(U0.device):
+        outs = tuple(torch.empty((B, n_int, 3, n2, n1), dtype=dtype, device=U0.device)
+                     for _ in range(3))
+        scratch, max_smem = carry_bytes(n1, n2, dtype)
+        workspace = None
+        if scratch > max_smem:
+            workspace = torch.empty(B * scratch // itemsize, dtype=dtype, device=U0.device)
+        pointers = [t.data_ptr() for t in (U0, V0, A0, dts, drive, drive_map, *fixed, *outs)]
+        pointers.append(workspace.data_ptr() if workspace is not None else None)
+        ptrs = (ctypes.c_void_p * len(pointers))(*pointers)
+        dims = (ctypes.c_int * 6)(B, n1, n2, n_int, n_sub, drive.shape[-1])
+        stream = torch.cuda.current_stream(U0.device).cuda_stream
+        err = _load_library().verlet_quad_launch(
+            ptrs, dims, itemsize, int(linearized), int(use_contact), stream
+        )
+    if err != 0:
+        message = _load_library().verlet_quad_error_string(err).decode()
+        raise RuntimeError(f"verlet_quad launch failed: {message} ({err})")
+    verlet_quad_trajectory.launches += 1
+    return outs
+
+
+verlet_quad_trajectory.launches = 0
+
+
+def quad_trajectory_spec(
+    n1: int,
+    n2: int,
+    n_substeps: int,
+    drive_slots,
+    drive_cols,
+    device,
+    linearized: bool = False,
+    use_contact: bool = True,
+    kernel: bool = True,
+) -> core.TrajectorySpec:
+    """The quad lattice's :class:`core.TrajectorySpec`.
+
+    ``drive_slots``/``drive_cols``: flat ``(3, n2, n1)`` plane index of each
+    driven slot and the drive-table column it takes (one entry per slot).
+    ``kernel=False`` makes the forward the plain body on every device (the
+    JAX package's ``verlet_ckpt``: same math and adjoint, no kernel).
+    """
+
+    slots = torch.as_tensor(drive_slots, dtype=torch.int64, device=device)
+    cols = torch.as_tensor(drive_cols, dtype=torch.int64, device=device)
+    drive_map = torch.full((3 * n2 * n1,), -1, dtype=torch.int32, device=device)
+    drive_map[slots] = cols.to(torch.int32)
+    if kernel:
+        forward = functools.partial(
+            verlet_quad_trajectory, linearized=linearized, use_contact=use_contact,
+            drive_map=drive_map.view(3, n2, n1),
+        )
+    else:
+        forward = core.plain_trajectory
+    energy_of = functools.partial(_energy_of, linearized=linearized, use_contact=use_contact)
+    return core.TrajectorySpec(n_substeps, energy_of, forward, slots, cols)

@@ -1,0 +1,220 @@
+"""Dynamic solver: the quad-grid fast path of
+``difflexmm_tpu/solver/dynamics.py`` (``setup_dynamic_solver``,
+``dynamics.py:584-616``, ``:817-868`` and ``:870-964``).
+
+The state stays dense, ``(2, n_blocks, 3)`` with a free-DOF mask. Forces on
+constrained DOFs are masked, their displacements come from the drive
+function, and after the solve the driven DOFs are overwritten with the
+drive values and their exact time derivatives (one forward-mode jvp).
+"""
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from difflexmm_tpu_torch.geometry.polygon import compute_inertia
+from difflexmm_tpu_torch.ops.grid import split_grid_bond_data
+from difflexmm_tpu_torch.ops.kernels import core
+from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
+    cnv_to_planes,
+    fields_from_planes,
+    quad_trajectory_spec,
+    to_planes,
+)
+from difflexmm_tpu_torch.ops.kinematics import DOFSet
+from difflexmm_tpu_torch.ops.loading import build_damping_coefficients
+from difflexmm_tpu_torch.utils.types import ControlParams, LigamentParams
+
+_EMPTY_PAIRS = np.zeros((0, 2), dtype=np.int64)
+
+#: The methods of the fast path. "verlet_pallas" and "auto" run the
+#: hand-written trajectory kernel for CUDA tensors (the plain body for CPU
+#: tensors); "verlet_ckpt" runs the plain body on every device, with the
+#: same stored-boundary-state adjoint (the JAX package's XLA-forward twin).
+FAST_METHODS = ("verlet_pallas", "verlet_ckpt", "auto")
+
+
+def setup_dynamic_solver(
+    geometry,
+    loaded_block_DOF_pairs=None,
+    loading_fn: Optional[Callable] = None,
+    constrained_block_DOF_pairs=_EMPTY_PAIRS,
+    constrained_DOFs_fn: Callable = lambda t, **kwargs: 0.0,
+    damped_blocks=None,
+    method: str = "auto",
+    n_substeps: int = 64,
+    quad_grid: Optional[dict] = None,
+    kagome_grid: Optional[dict] = None,
+    guard=None,
+):
+    """Set up the quad-grid dynamic solver.
+
+    Returns ``solve_dynamics(state0, timepoints, control_params)``: an
+    initial ``(2, n_blocks, 3)`` state and ``(T,)`` timepoints to the full
+    ``(T, 2, n_blocks, 3)`` solution, differentiable with respect to every
+    tensor in ``control_params`` and ``state0``. Device and dtype follow
+    the centroid-node vectors of ``control_params``.
+
+    ``constrained_DOFs_fn(t, **constraint_params)`` takes a tensor ``t`` of
+    any shape and returns values broadcastable to ``t.shape + (k,)`` for
+    the k constrained pairs (the JAX version takes scalar times).
+    ``quad_grid``: dict with n1, n2 and optional linearized / use_contact.
+
+    Options of the JAX solver that this port does not implement yet raise
+    ``NotImplementedError`` naming the ROADMAP item; none is ignored.
+    """
+
+    if guard is not None:
+        raise NotImplementedError(
+            "guard (reactive substep escalation) is not ported yet: ROADMAP A6 / B2."
+        )
+    if kagome_grid is not None:
+        raise NotImplementedError("kagome lattices are not ported yet: ROADMAP A9 / B4.")
+    if loaded_block_DOF_pairs is not None or loading_fn is not None:
+        raise NotImplementedError(
+            "external force loading is not ported yet: ROADMAP A10 / B3."
+        )
+    if method not in FAST_METHODS:
+        raise NotImplementedError(
+            f"method={method!r} is not ported yet (ROADMAP A4: dense 'verlet'; "
+            f"A12: 'rk4', 'semi_implicit', 'odeint'); use one of {FAST_METHODS}."
+        )
+    if quad_grid is None:
+        raise ValueError(
+            f"method={method!r} requires quad_grid={{'n1':..., 'n2':...}}."
+        )
+    unknown = set(quad_grid) - {"n1", "n2", "linearized", "use_contact"}
+    if unknown:
+        raise ValueError(f"unknown quad_grid keys: {sorted(unknown)}")
+
+    n_blocks = geometry if isinstance(geometry, int) else geometry.n_blocks
+    n1, n2 = quad_grid["n1"], quad_grid["n2"]
+    if n1 * n2 != n_blocks:
+        raise ValueError(f"quad_grid {n1}x{n2} does not match {n_blocks} blocks")
+    linearized = quad_grid.get("linearized", False)
+    use_contact = quad_grid.get("use_contact", True)
+
+    dof_set = DOFSet(n_blocks, constrained_block_DOF_pairs)
+    # One write per constrained slot; duplicates keep the last pair.
+    c_blocks, c_dofs, c_ids = dof_set.last_write_pairs()
+    plane_slots = c_dofs * n_blocks + c_blocks  # flat (3, n2, n1) index
+
+    if damped_blocks is not None:
+        damping_coeffs = build_damping_coefficients(n_blocks, damped_blocks)
+    else:
+        def damping_coeffs(damping):
+            return damping.new_zeros((n_blocks, 3))
+
+    specs = {}
+
+    def spec_for(device):
+        if device not in specs:
+            specs[device] = quad_trajectory_spec(
+                n1, n2, n_substeps, plane_slots, c_ids, device,
+                linearized=linearized, use_contact=use_contact,
+                kernel=method != "verlet_ckpt",
+            )
+        return specs[device]
+
+    def fixed_leaves(control_params: ControlParams, inertia, mask, like):
+        """The 16 fixed leaves, each with a leading design batch of 1."""
+
+        mp = control_params.mechanical_params
+        gp = control_params.geometrical_params
+        contact_on = use_contact and mp.contact_params is not None
+        if contact_on:
+            cmin, ccut, kc = mp.contact_params
+        else:
+            cmin, ccut, kc = 0.0, 1.0, 0.0
+        bp = LigamentParams(*(torch.as_tensor(x, **like) for x in mp.bond_params))
+        ref_h, ref_v, ks_h, ks_v, ksh_h, ksh_v, kr_h, kr_v = split_grid_bond_data(bp, n1, n2)
+
+        def ref_planes(ref, shape):
+            if ref.ndim == 1:  # one shared (2,) reference vector
+                return torch.broadcast_to(ref[:, None, None], (2,) + shape)
+            return torch.movedim(ref, -1, 0)
+
+        h, v = (n2, n1 - 1), (n2 - 1, n1)
+        damping = damping_coeffs(torch.as_tensor(mp.damping, **like))
+        leaves = (
+            cnv_to_planes(gp.centroid_node_vectors, n1, n2),
+            to_planes(gp.block_centroids, n1, n2),
+            ref_planes(ref_h, h), ref_planes(ref_v, v),
+            *(torch.broadcast_to(k, h) for k in (ks_h, ksh_h, kr_h)),
+            *(torch.broadcast_to(k, v) for k in (ks_v, ksh_v, kr_v)),
+            *(torch.as_tensor(x, **like).reshape(1, 1) for x in (cmin, ccut, kc)),
+            to_planes(inertia, n1, n2),
+            to_planes(damping, n1, n2),
+            to_planes(mask, n1, n2),
+        )
+        return tuple(x[None].contiguous() for x in leaves)
+
+    def prepare(state0, timepoints, control_params: ControlParams):
+        """(trajectory args, masked y0, timepoints, drive_values)."""
+
+        mp = control_params.mechanical_params
+        cnv = control_params.geometrical_params.centroid_node_vectors
+        like = dict(dtype=cnv.dtype, device=cnv.device)
+        spec = spec_for(cnv.device)
+        inertia = mp.inertia if mp.inertia is not None else compute_inertia(cnv, mp.density)
+        mask = torch.as_tensor(dof_set.free_mask, **like)
+        y0 = torch.as_tensor(state0, **like) * mask
+        ts = torch.as_tensor(timepoints, **like)
+        fixed = fixed_leaves(control_params, torch.as_tensor(inertia, **like), mask, like)
+        cparams = control_params.constraint_params
+
+        def drive_values(t):
+            values = torch.as_tensor(constrained_DOFs_fn(t, **cparams), **like)
+            return torch.broadcast_to(values, t.shape + (dof_set.n_constrained,))
+
+        def drive_table(t):
+            """(..., n_drive) drive values, zero-padded to one column."""
+
+            if dof_set.n_constrained == 0:
+                return t.new_zeros(t.shape + (1,))
+            return drive_values(t)
+
+        # Substep end times with JAX's operations and order:
+        # dt = (t1 - t0) / n, t_start = t0 + i * dt, t_end = t_start + dt.
+        dts = (ts[1:] - ts[:-1]) / n_substeps
+        i = torch.arange(n_substeps, **like)
+        t_end = (ts[:-1, None] + i[None, :] * dts[:, None]) + dts[:, None]
+        drive = drive_table(t_end.reshape(-1))[None].contiguous()
+
+        U0 = to_planes(y0[0], n1, n2)[None].contiguous()
+        V0 = to_planes(y0[1], n1, n2)[None].contiguous()
+        inertia_p, damping_p, mask_p = fixed[-3:]
+        F0 = core.force(
+            U0, drive_table(ts[0])[None], fixed, spec,
+            create_graph=torch.is_grad_enabled(),
+        )
+        A0 = (F0 - damping_p * V0) * (mask_p / inertia_p)
+        args = core.TrajectoryArgs(spec, U0, V0, A0, dts, drive, fixed)
+        return args, y0, ts, drive_values
+
+    def trajectory_args(state0, timepoints, control_params: ControlParams):
+        """The trajectory's inputs for one design (batch of 1), as
+        :class:`core.TrajectoryArgs`."""
+
+        return prepare(state0, timepoints, control_params)[0]
+
+    def solve_dynamics(state0, timepoints, control_params: ControlParams) -> torch.Tensor:
+        """Integrate the dynamics; output (T, 2, n_blocks, 3)."""
+
+        args, y0, ts, drive_values = prepare(state0, timepoints, control_params)
+        outU, outV, _ = core.VerletTrajectory.apply(*args[:-1], *args.fixed)
+        out = torch.stack([outU[0], outV[0]], dim=1)  # (T-1, 2, 3, n2, n1)
+        ys = torch.cat([y0[None], fields_from_planes(out, n_blocks)])
+
+        if dof_set.n_constrained == 0:
+            return ys
+        # Driven displacements and their exact time derivatives.
+        c_vals, c_rates = torch.func.jvp(drive_values, (ts,), (torch.ones_like(ts),))
+        u, v = ys[:, 0].clone(), ys[:, 1].clone()
+        u[:, c_blocks, c_dofs] = c_vals[:, c_ids]
+        v[:, c_blocks, c_dofs] = c_rates[:, c_ids]
+        return torch.stack([u, v], dim=1)
+
+    solve_dynamics.trajectory_args = trajectory_args
+    return solve_dynamics
