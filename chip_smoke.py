@@ -3,22 +3,30 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written trajectory kernel from ``difflexmm_tpu_torch/csrc``
-into ``build/kernels``, holds it against its plain PyTorch version, drives
-the paper flagship's value-and-gradient (24 x 16 quads, 200 timepoints,
-10 substeps) through ``OptimizationProblem.objective_fn`` with the kernel,
-checks the objective against the JAX package's float64 value, and times
-the kernel against the plain body. Fails (non-zero exit, no result line)
-without a CUDA device or outside a checkout of the repository. Imports
-no JAX.
+Builds the hand-written trajectory kernels from ``difflexmm_tpu_torch/csrc``
+into ``build/kernels`` and holds each against its plain PyTorch version:
+the unguarded kernel (kernel 1) and the guarded kernel (kernel 1g, per-
+substep decisions identical at float64). Then it drives the two main
+paths of the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps):
+the value and design gradient of ``OptimizationProblem.objective_fn``
+(kernel 1), and the guarded constrained optimizer
+``OptimizationProblem.run_optimization_mma`` (kernel 1g, two iterations at
+float64 held against the JAX package's recorded history and gradients,
+two at float32 timed). Objectives and float64 design gradients are checked
+against the JAX package's float64 values, and the kernels are timed
+against their plain versions. Fails (non-zero
+exit, no result line) without a CUDA device or outside a checkout of the
+repository. Imports no JAX.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernels with their launches on the main
-path, errors and times.
+paths, errors, times and bounds; the card's name and power limit come
+before that.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -31,7 +39,8 @@ sys.path.insert(0, REPO)
 # - float64 kernel vs plain body on the same inputs: the two differ only in
 #   rounding (fused multiply-adds, the order in which each DOF sums its
 #   bonds' partials), which over the flagship's 1,990 damped substeps stays
-#   within 1e-9 of each field's scale.
+#   within 1e-9 of each field's scale. The guarded kernel's per-substep
+#   decisions must equal the plain body's exactly at float64.
 # - float32: rounding at float32 resolution is amplified by cancellation
 #   (the acceleration is a small difference of stiff ligament forces), so
 #   the kernel and the plain body are each held against the float64 plain
@@ -39,15 +48,32 @@ sys.path.insert(0, REPO)
 #   times the plain body's (or 1e-5 of the field scale, where both are tiny).
 F64_TRAJ_TOL = 1e-9
 F32_TRAJ_FACTOR, F32_TRAJ_FLOOR = 3.0, 1e-5
+# Where the guard fired nowhere, the guarded kernel runs the unguarded
+# kernel's steps, so the two agree to rounding at float64.
+GUARD_NOOP_TOL = 1e-12
 # Force at one state (no integration): rounding of one energy gradient at
 # float64; at float32 the same rule as for trajectories.
 F64_FORCE_TOL = 1e-12
-# Flagship objective against the JAX float64 verlet value.
+# Flagship objectives against the JAX float64 values.
 OBJECTIVE_TOL = {"float64": 1e-8, "float32": 1e-4}
-# Float64 design gradient with the kernel forward vs with the plain forward:
-# both share the plain adjoint, so they differ by the forwards' rounding.
-# At float32 the rule for trajectories holds against the float64 gradient.
-GRAD64_TOL = 1e-7
+# Float64 design gradients against JAX's, compared as (|g|, sum g, g . r)
+# (models/flagship.py) relative to the largest of the three: the adjoint
+# replays the same plain body as JAX in the same order, so the kernel
+# forward's rounding (1e-9 of the field scale) is all that separates them
+# (the gradient with the kernel forward and with the plain one differ by
+# ~1e-12). At float32 the trajectory rule holds against the float64
+# gradient of this run, with the plain body's float32 error on the velocity
+# plane of the flagship as its measure: the objective is a kinetic energy.
+GRAD_TOL = 1e-7
+# Float64 guarded MMA against the JAX history: the kernel forward differs
+# from JAX's by rounding (1e-9 of the field scale), which reaches the
+# objective at ~1e-12 and the gradient at ~1e-9 relative; the first MMA step
+# moves every hinge by the move limit, so it depends on the gradient's
+# signs only, and the iterate's objective differs by the rounding of one
+# more trajectory. 1e-7 relative leaves room above that and is far below
+# any change of step (a move of 0.84 mm changes the objective by O(1)).
+MMA_TOL = 1e-7
+MMA_ITERATIONS = 2
 
 
 def log(*parts):
@@ -73,60 +99,11 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: error {err:.3e} above tolerance {tol:.1e}")
 
 
-def kernel_vs_plain(torch, kc, args64, label):
-    """The kernel against the plain body on the same inputs, at float64 and
-    at float32 (see the tolerances above). Returns the kernel's largest
-    difference from the plain body over U, V and A: absolute at float64,
-    and relative to each field's scale at float64 and at float32."""
+def stats_err(got, ref):
+    """Largest difference of two ``(|g|, sum g, g . r)`` summaries, relative
+    to the largest entry of ``ref``."""
 
-    from difflexmm_tpu_torch.ops.kernels import core
-
-    def run(args, kernel):
-        if kernel:
-            return args.spec.forward(*args[1:], args.spec)
-        return core.plain_trajectory(*args[1:], args.spec)
-
-    def finite(outs, what):
-        for name, x in zip("UVA", outs):
-            if not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"{label}: {what} {name} is not finite")
-
-    f64 = torch.float64
-    k64, p64 = run(args64, True), run(args64, False)
-    finite(k64, "float64 kernel")
-    for name, k, p in zip("UVA", k64, p64):
-        check(f"{label} float64 {name}", kc.max_rel_err(k, p), F64_TRAJ_TOL)
-
-    args32 = kc.cast(args64, torch.float32)
-    ref = run(kc.cast(args32, torch.float64), False)
-    k32, p32 = run(args32, True), run(args32, False)
-    finite(k32, "float32 kernel")
-    for name, k, p, r in zip("UVA", k32, p32, ref):
-        e_plain = kc.max_rel_err(p.double(), r)
-        log(f"  {label} float32 {name}: plain body vs float64 {e_plain:.3e}, "
-            f"kernel vs plain {kc.max_rel_err(k, p):.3e}")
-        check(f"{label} float32 {name} kernel vs float64",
-              kc.max_rel_err(k.double(), r), max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
-    torch.cuda.synchronize()
-    return {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(k64, p64)),
-        "max_rel_err": {dtype_name(dt): max(kc.max_rel_err(k, p) for k, p in zip(ks, ps))
-                        for dt, ks, ps in ((f64, k64, p64), (torch.float32, k32, p32))},
-    }
-
-
-def force_vs_plain(torch, kc, args64, label):
-    """The kernel's force against autograd of the plain energy at the state
-    ``args64.U0`` and drive row 0, at float64 and at float32."""
-
-    check(f"{label} force float64",
-          kc.max_rel_err(kc.kernel_force(args64), kc.plain_force(args64)), F64_FORCE_TOL)
-    args32 = kc.cast(args64, torch.float32)
-    ref = kc.plain_force(kc.cast(args32, torch.float64))
-    e_plain = kc.max_rel_err(kc.plain_force(args32).double(), ref)
-    check(f"{label} force float32 kernel vs float64 (plain float32 {e_plain:.3e})",
-          kc.max_rel_err(kc.kernel_force(args32).double(), ref),
-          max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+    return max(abs(a - b) for a, b in zip(got, ref)) / max(abs(x) for x in ref)
 
 
 def main():
@@ -135,65 +112,215 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     device = torch.device("cuda")
+    started = time.perf_counter()
+
+    def phase_done(name):
+        log(f"[{name} done at {time.perf_counter() - started:.1f} s]")
+
     card_line = card()
     log(card_line)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    import numpy as np
+
     from difflexmm_tpu_torch import kernel_checks as kc
-    from difflexmm_tpu_torch.models.flagship import JAX_F64_OBJECTIVE, build_flagship
+    from difflexmm_tpu_torch.models import flagship as fl
     from difflexmm_tpu_torch.ops.kernels import build, core
     from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
-    import numpy as np
+
+    f64, f32 = torch.float64, torch.float32
+    dtypes = (f64, f32)
+    results = {"verlet_quad": {}, "verlet_quad_guarded": {}}
+
+    def plain(args, **kwargs):
+        return core.plain_trajectory(*args[1:7], args.spec, args.micro, **kwargs)
+
+    def finite(outs, label):
+        for name, x in zip("UVA", outs):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{label}: {name} is not finite")
+
+    def against_plain(args64, label, plain64=None):
+        """The kernel (``args.spec.forward``) against the plain body on the
+        same inputs, at float64 and at float32 (tolerances above). Returns
+        ``(kernel outputs, plain outputs)`` at float64 and the errors."""
+
+        k64 = core.trajectory_forward(args64)
+        p64 = plain(args64) if plain64 is None else plain64
+        finite(k64[:3], f"{label} float64 kernel")
+        for name, k, p in zip("UVA", k64, p64):
+            check(f"{label} float64 {name}", kc.max_rel_err(k, p), F64_TRAJ_TOL)
+        if args64.spec.guard is not None:
+            if not torch.equal(k64[4], p64[4]) or not torch.equal(k64[3], p64[3]):
+                raise AssertionError(f"{label}: float64 decisions of kernel and plain body differ")
+            log(f"  {label} float64: decisions identical, {int(k64[4].sum())} of "
+                f"{k64[4].numel()} substeps fired")
+        args32 = kc.cast(args64, f32)
+        ref = plain(kc.cast(args32, f64))
+        k32 = core.trajectory_forward(args32)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        p32 = plain(args32)
+        stop.record()
+        torch.cuda.synchronize()
+        finite(k32[:3], f"{label} float32 kernel")
+        plain_errors = {}
+        for name, k, p, r in zip("UVA", k32, p32, ref):
+            e_plain = plain_errors[name] = kc.max_rel_err(p.double(), r)
+            log(f"  {label} float32 {name}: plain body vs float64 {e_plain:.3e}, "
+                f"kernel vs plain {kc.max_rel_err(k, p):.3e}")
+            check(f"{label} float32 {name} kernel vs float64",
+                  kc.max_rel_err(k.double(), r), max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+        if args64.spec.guard is not None:
+            log(f"  {label} float32: {int(k32[4].sum())} substeps fired in the kernel, "
+                f"{int(p32[4].sum())} in the plain body, decisions "
+                f"{'identical' if torch.equal(k32[4], p32[4]) else 'differ'}")
+        torch.cuda.synchronize()
+        errors = {
+            "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(k64[:3], p64[:3])),
+            "max_rel_err": {dtype_name(dt): max(kc.max_rel_err(k, p) for k, p in zip(ks, ps))
+                            for dt, ks, ps in ((f64, k64[:3], p64[:3]), (f32, k32[:3], p32[:3]))},
+            "plain_float32_rel_err": plain_errors,
+            # The float32 plain body's time on these inputs (one run).
+            "plain_ms": start.elapsed_time(stop),
+        }
+        return k64, p64, errors
+
+    def force_vs_plain(args64, label):
+        check(f"{label} force float64",
+              kc.max_rel_err(kc.kernel_force(args64), kc.plain_force(args64)), F64_FORCE_TOL)
+        args32 = kc.cast(args64, f32)
+        ref = kc.plain_force(kc.cast(args32, f64))
+        e_plain = kc.max_rel_err(kc.plain_force(args32).double(), ref)
+        check(f"{label} force float32 kernel vs float64 (plain float32 {e_plain:.3e})",
+              kc.max_rel_err(kc.kernel_force(args32).double(), ref),
+              max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+
+    def unguarded(args):
+        """The same inputs on the unguarded kernel."""
+
+        spec = args.spec._replace(guard=None)
+        return core.trajectory_forward(args._replace(spec=spec, micro=()))
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
     build.load("verlet_quad")
     info = build.BUILD_INFO["verlet_quad"]
-    log(f"build: verlet_quad in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {info['seconds']:.1f} s)")
+    log(f"build: verlet_quad in {time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s)")
+    registers = build.ptxas_registers(info["log"])
+    for key in sorted(registers):
+        log(f"  ptxas {key[0]} linearized={key[1]} contact={key[2]} guard={key[3]}: "
+            f"{registers[key]} registers")
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
             log(f"  ptxas: {line.strip()}")
 
-    # -- kernel against the plain body ----------------------------------------
+    phase_done("build")
     rng = np.random.default_rng(0)
-    f64 = torch.float64
     small = kc.small_problem(device=device, dtype=f64)
+
+    # -- kernel 1 against its plain body --------------------------------------
     for B in (1, 4):
         designs = [kc.random_design(small, rng) for _ in range(B)]
-        kernel_vs_plain(torch, kc, kc.batched_args(small, designs), f"small 8x6 B={B}")
+        against_plain(kc.batched_args(small, designs), f"small 8x6 B={B}")
 
     # A lattice whose carry does not fit in shared memory: global workspace.
-    big = kc.small_problem(n1=56, n2=48, n_timepoints=3, n_substeps=4, device=device, dtype=f64,
-                          simulation_time=2.7e-4)
-    for dtype in (f64, torch.float32):
+    big = kc.small_problem(n1=56, n2=48, n_timepoints=3, n_substeps=4, device=device,
+                           dtype=f64, simulation_time=2.7e-4)
+    for dtype in dtypes:
         need, have = carry_bytes(56, 48, dtype)
         log(f"  56x48 {dtype_name(dtype)}: carry {need} B per design, shared memory {have} B")
         if need <= have:
             raise AssertionError("56x48 was meant to exercise the workspace path")
-    kernel_vs_plain(torch, kc, kc.batched_args(big, [kc.random_design(big, rng)] * 2),
-                    "workspace 56x48 B=2")
+    against_plain(kc.batched_args(big, [kc.random_design(big, rng)] * 2), "workspace 56x48 B=2")
 
     probe, mag = kc.contact_probe(device=device, dtype=f64)
-    U_eff = probe.U0 * probe.fixed[-1] + core.drive_planes(probe.drive[:, 0], probe.spec, probe.U0)
+    U_eff = probe.U0 * probe.fixed[-1] + core.drive_planes(probe.drive[:, 0], probe.spec,
+                                                           probe.U0)
     energy = kc.contact_energy_of(U_eff, probe.fixed)
     log(f"  contact probe: mag {np.degrees(mag):.3f} deg, contact energy {energy:.6e}")
     if not energy > 0:
         raise AssertionError("contact probe: the barrier is not engaged")
-    force_vs_plain(torch, kc, probe, "contact probe")
-    kernel_vs_plain(torch, kc, probe, "contact probe")
+    force_vs_plain(probe, "contact probe")
+    against_plain(probe, "contact probe")
 
-    optimization, design = build_flagship(device=device, dtype=f64)
-    flagship = kc.batched_args(optimization.forward_problem, [design])
-    flagship_err = kernel_vs_plain(torch, kc, flagship, "flagship 24x16")
+    flagship_opt, flagship_design = fl.build_flagship(device=device, dtype=f64)
+    flagship = kc.batched_args(flagship_opt.forward_problem, [flagship_design])
+    k64, _, errors = against_plain(flagship, "flagship 24x16")
+    results["verlet_quad"].update(errors)
+    results["verlet_quad"].update(kc.trajectory_bound(kc.cast(flagship, f32), k64[0]))
     # The force at a state mid-pulse (the initial state is at rest).
-    outU, _, _ = flagship.spec.forward(*flagship[1:], flagship.spec)
-    mid = flagship._replace(U0=outU[:, 20].contiguous(),
+    mid = flagship._replace(U0=k64[0][:, 20].contiguous(),
                             drive=flagship.drive[:, 200:].contiguous())
-    force_vs_plain(torch, kc, mid, "flagship mid-pulse")
+    force_vs_plain(mid, "flagship mid-pulse")
 
-    # -- main path: flagship value and gradient through the kernel -----------
+    phase_done("kernel")
+
+    # -- kernel 1g against its plain body -----------------------------------
+    guarded_cases = [
+        # Both the proximity and the hard term fire.
+        ("contact probe auto", kc.contact_probe(device=device, dtype=f64, guard="auto")[0]),
+        # Tame: nothing fires.
+        ("small 8x6 tame auto", kc.batched_args(
+            kc.small_problem(device=device, guard="auto", amplitude_scale=0.01),
+            [kc.random_design(small, rng)])),
+    ]
+    flagship_auto = fl.build_flagship(device=device, dtype=f64, guard="auto")[0]
+    guarded_cases.append(("flagship 24x16 auto", kc.batched_args(
+        flagship_auto.forward_problem, [flagship_design])))
+    for label, args in guarded_cases:
+        plain64, summary = kc.guard_terms(args)
+        log(f"  {label}: fired {summary['fired']} of {summary['substeps']} substeps "
+            f"({summary['fired_hard']} by the hard term, {summary['fired_proximity']} by "
+            f"proximity alone), closest travel/threshold {summary['closest_ratio']:.6f}, "
+            f"gap needed on {summary['gaps']} substeps, smallest gap/proximity there "
+            f"{summary['closest_gap_ratio']:.4f}")
+        k64, p64, errors = against_plain(args, label, plain64)
+        if label.startswith("contact") and not (summary["fired_hard"]
+                                                and summary["fired_proximity"]):
+            raise AssertionError(f"{label}: both guard terms were meant to fire")
+        if summary["fired"] == 0:
+            free = unguarded(args)
+            for name, g, u in zip("UVA", k64, free):
+                check(f"{label} guarded vs unguarded kernel {name}", kc.max_rel_err(g, u),
+                      GUARD_NOOP_TOL)
+        if label.startswith("flagship"):
+            results["verlet_quad_guarded"].update(errors)
+            results["verlet_quad_guarded"]["summary"] = summary
+            results["verlet_quad_guarded"].update(
+                kc.trajectory_bound(kc.cast(args, f32), k64[0], summary))
+            flagship_guarded = args
+    # levels > 1 is the plain body's only.
+    deep = flagship_guarded.spec._replace(guard=dict(flagship_guarded.spec.guard, levels=2))
+    try:
+        core.trajectory_forward(flagship_guarded._replace(spec=deep))
+    except NotImplementedError as err:
+        log(f"  levels=2 on the card: NotImplementedError ({err})")
+    else:
+        raise AssertionError("the guarded kernel accepted levels=2")
+
+    phase_done("guarded")
+
+    # -- the guarded flagship objective --------------------------------------
+    for dt in dtypes:
+        opt, design = fl.build_flagship(device=device, dtype=dt, guard="auto")
+        launches = verlet_quad_trajectory.guarded_launches
+        calls = core.plain_trajectory.calls
+        with torch.no_grad():
+            value = float(opt.objective_fn(design))
+        if verlet_quad_trajectory.guarded_launches != launches + 1 \
+                or core.plain_trajectory.calls != calls:
+            raise AssertionError("the guarded objective did not run the guarded kernel")
+        rel = abs(value - fl.JAX_F64_GUARDED_OBJECTIVE) / fl.JAX_F64_GUARDED_OBJECTIVE
+        log(f"  guarded flagship {dtype_name(dt)}: objective {value!r} "
+            f"(JAX f64 {fl.JAX_F64_GUARDED_OBJECTIVE!r})")
+        check(f"guarded flagship {dtype_name(dt)} objective vs JAX float64", rel,
+              OBJECTIVE_TOL[dtype_name(dt)])
+
+    phase_done("objective")
+
+    # -- main path 1: flagship value and gradient through kernel 1 -----------
     def value_and_grad(opt, design):
         d = tuple(x.detach().clone().requires_grad_() for x in design)
         torch.cuda.synchronize()
@@ -204,42 +331,159 @@ def main():
         grad = torch.cat([x.grad.flatten() for x in d])
         return float(value.detach()), grad, time.perf_counter() - t0
 
-    dtypes = (torch.float64, torch.float32)
-    kernel_path = {dt: build_flagship(device=device, dtype=dt) for dt in dtypes}
-    plain_path = {dt: build_flagship(method="verlet_ckpt", device=device, dtype=dt)[0]
-                  for dt in dtypes}
+    kernel_path = {dt: fl.build_flagship(device=device, dtype=dt) for dt in dtypes}
     verlet_quad_trajectory.launches = 0
     core.plain_trajectory.calls = 0
     main = {dt: value_and_grad(*kernel_path[dt]) for dt in dtypes}
     launches = verlet_quad_trajectory.launches
     plain_calls = core.plain_trajectory.calls
-    log(f"main path: {launches} kernel launches, {plain_calls} plain-body forwards")
+    log(f"main path 1 (flagship value and gradient): {launches} kernel launches, "
+        f"{plain_calls} plain-body forwards")
     if launches < len(dtypes) or plain_calls != 0:
-        raise AssertionError("the main path did not run through the kernel")
-
-    # The same value and gradient with the plain-body forward (same adjoint).
-    plain = {dt: value_and_grad(plain_path[dt], kernel_path[dt][1]) for dt in dtypes}
+        raise AssertionError("main path 1 did not run through kernel 1")
+    results["verlet_quad"]["launches"] = launches
     for dt in dtypes:
         name = dtype_name(dt)
         value, grad, seconds = main[dt]
-        rel = abs(value - JAX_F64_OBJECTIVE) / JAX_F64_OBJECTIVE
-        log(f"  flagship {name}: objective {value!r} (JAX f64 {JAX_F64_OBJECTIVE!r}, "
-            f"rel {rel:.3e}), fwd+grad {seconds:.2f} s (plain forward {plain[dt][2]:.2f} s)")
+        rel = abs(value - fl.JAX_F64_OBJECTIVE) / fl.JAX_F64_OBJECTIVE
+        log(f"  flagship {name}: objective {value!r} (JAX f64 {fl.JAX_F64_OBJECTIVE!r}), "
+            f"fwd+grad {seconds:.2f} s")
         check(f"flagship {name} objective vs JAX float64", rel, OBJECTIVE_TOL[name])
         if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0):
             raise AssertionError(f"flagship {name} gradient is not finite and non-zero")
-    ref = plain[torch.float64][1]
-    check("flagship float64 gradient, kernel vs plain forward",
-          kc.max_rel_err(main[torch.float64][1], ref), GRAD64_TOL)
-    e_plain = kc.max_rel_err(plain[torch.float32][1].double(), ref)
-    check(f"flagship float32 gradient vs float64 (plain forward float32 {e_plain:.3e})",
-          kc.max_rel_err(main[torch.float32][1].double(), ref),
-          max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+    grad64, grad32 = main[f64][1], main[f32][1]
+    stats = fl.vector_stats(grad64.cpu().numpy())
+    log(f"  flagship float64 gradient (|g|, sum g, g.r) {stats} (JAX {fl.JAX_F64_GRAD_STATS})")
+    check("flagship float64 gradient vs JAX float64", stats_err(stats, fl.JAX_F64_GRAD_STATS),
+          GRAD_TOL)
+    e_plain = results["verlet_quad"]["plain_float32_rel_err"]["V"]
+    check(f"flagship float32 gradient vs float64 (plain body float32 V {e_plain:.3e})",
+          kc.max_rel_err(grad32.double(), grad64), max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+    timings = {"fwd_grad_kernel_s": main[f32][2], "fwd_grad_kernel_s_float64": main[f64][2]}
 
-    # -- timing (flagship) -------------------------------------------------
-    # The kernel is timed over several runs; the plain body, tens of seconds
-    # a run, once. The main path's and the plain check's value-and-gradient
-    # runs are the first samples of fwd+grad.
+    phase_done("main")
+
+    # -- main path 2: the guarded constrained MMA through kernel 1g ----------
+    def capturing(opt, grads):
+        """Keep the design gradient of every value-and-gradient call of
+        ``opt.objective_fn`` (the MMA's), flattened, in ``grads``."""
+
+        objective_fn = opt.objective_fn
+
+        def objective(design):
+            value = objective_fn(design)
+            if value.requires_grad:
+                got = [None] * len(design)
+                grads.append(got)
+                for i, x in enumerate(design):
+                    def keep(g, i=i, got=got):
+                        got[i] = g.detach().flatten()
+                    x.register_hook(keep)
+            return value
+
+        opt.objective_fn = objective
+
+    mma = {}
+    mma_grads = []
+    verlet_quad_trajectory.guarded_launches = 0
+    core.plain_trajectory.calls = 0
+    for dt in dtypes:
+        if dt == f64:
+            # Built guarded, as the JAX reference was, so that the objective
+            # whose gradients are kept is the one the MMA runs.
+            opt, design = fl.build_flagship(device=device, dtype=dt, guard="auto")
+            capturing(opt, mma_grads)
+        else:
+            # Built unguarded: run_optimization_mma re-arms the guard.
+            opt, design = fl.build_flagship(device=device, dtype=dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.run_optimization_mma(design, n_iterations=MMA_ITERATIONS, verbose=False,
+                                 **fl.MMA_SETTINGS)
+        torch.cuda.synchronize()
+        mma[dt] = (opt, design, time.perf_counter() - t0)
+    launches = verlet_quad_trajectory.guarded_launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 2 (guarded flagship MMA, {MMA_ITERATIONS} iterations at float64 and "
+        f"at float32): {launches} guarded kernel launches, {plain_calls} plain-body forwards")
+    if launches < 2 * MMA_ITERATIONS or plain_calls != 0:
+        raise AssertionError("main path 2 did not run through the guarded kernel")
+    results["verlet_quad_guarded"]["launches"] = launches
+    opt, design, seconds = mma[f64]
+    if len(opt.objective_values) != len(fl.JAX_F64_MMA_VALUES):
+        raise AssertionError(f"float64 MMA made {len(opt.objective_values)} history entries")
+    if len(mma_grads) != len(fl.JAX_F64_MMA_GRAD_STATS):
+        raise AssertionError(f"float64 MMA took {len(mma_grads)} gradients")
+    scale = max(abs(x) for s in fl.JAX_F64_MMA_DESIGN_STATS for x in s)
+    for k, (value, ref) in enumerate(zip(opt.objective_values, fl.JAX_F64_MMA_VALUES)):
+        stats = fl.design_stats(opt.design_values[k], design)
+        ref_stats = fl.JAX_F64_MMA_DESIGN_STATS[k]
+        log(f"  MMA float64 iteration {k}: objective {value!r} (JAX {ref!r}), "
+            f"design (|dx|, sum dx, dx.r) {stats} (JAX {ref_stats})")
+        check(f"MMA float64 iteration {k} objective vs JAX", abs(value - ref) / abs(ref),
+              MMA_TOL)
+        check(f"MMA float64 iteration {k} design vs JAX",
+              max(abs(a - b) for a, b in zip(stats, ref_stats)) / scale, MMA_TOL)
+        grad_stats = fl.vector_stats(torch.cat(mma_grads[k]).cpu().numpy())
+        ref_grad = fl.JAX_F64_MMA_GRAD_STATS[k]
+        log(f"  MMA float64 iteration {k}: gradient (|g|, sum g, g.r) {grad_stats} "
+            f"(JAX {ref_grad})")
+        check(f"MMA float64 iteration {k} gradient vs JAX", stats_err(grad_stats, ref_grad),
+              GRAD_TOL)
+    # How often the guard fires at each iterate (one kernel run each):
+    # fired intervals replay through the guarded body in the adjoint.
+    for k, d in enumerate(opt.design_values):
+        with torch.no_grad():
+            fired = core.trajectory_forward(kc.batched_args(opt.forward_problem, [d]))[4]
+        n_int = fired.shape[1] // opt.forward_problem.n_substeps
+        intervals = int(fired.view(n_int, -1).any(-1).sum())
+        log(f"  MMA float64 iterate {k}: guard fired on {int(fired.sum())} of "
+            f"{fired.numel()} substeps, in {intervals} of {n_int} intervals")
+    opt, design, seconds = mma[f32]
+    violation = max(v[-1] for v in opt.constraints_violation.values())
+    values = opt.objective_values
+    if not all(np.isfinite(values)):
+        raise AssertionError(f"float32 MMA objective values {values}")
+    log(f"  MMA float32: objectives {values}, final constraint violation {violation!r}, "
+        f"{seconds:.2f} s for {MMA_ITERATIONS} iterations "
+        f"({seconds / MMA_ITERATIONS:.2f} s/iter, host clock)")
+    timings.update(mma_float32_s_per_iter=seconds / MMA_ITERATIONS,
+                   mma_float64_s_per_iter=mma[f64][2] / MMA_ITERATIONS,
+                   mma_float32_final_violation=violation)
+
+    # Where an iteration's time goes besides fwd+grad: the constraints
+    # with their Jacobian, and one MMA update, each timed alone.
+    from difflexmm_tpu_torch.models.runner import ravel_design
+    from difflexmm_tpu_torch.optim.mma import mma_init, mma_update
+
+    flat, unflatten = ravel_design(design)
+    fns = [fn for _, fn in opt._design_constraints(
+        fl.MMA_SETTINGS["min_void_angle"], fl.MMA_SETTINGS["min_block_angle"],
+        fl.MMA_SETTINGS["min_edge_length"])]
+
+    def stacked(x):
+        return torch.cat([fn(unflatten(x)) for fn in fns])
+
+    def host_seconds(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (fi, dfi), jac_s = host_seconds(lambda: (stacked(flat), torch.func.jacrev(stacked)(flat)))
+    lo = torch.full_like(flat, fl.MMA_SETTINGS["lower_bound"])
+    hi = torch.full_like(flat, fl.MMA_SETTINGS["upper_bound"])
+    _, update_s = host_seconds(lambda: mma_update(
+        mma_init(flat, lo, hi), torch.ones_like(flat), fi, dfi, lo, hi,
+        move_limit=fl.MMA_SETTINGS["move_limit"]))
+    log(f"  MMA float32 pieces (host clock, one call each): constraints and Jacobian "
+        f"{tuple(dfi.shape)} {jac_s:.3f} s, MMA update {update_s:.3f} s")
+    timings.update(mma_float32_jacobian_s=jac_s, mma_float32_update_s=update_s)
+
+    phase_done("mma")
+
+    # -- timing (flagship) ---------------------------------------------------
     def event_ms(fn, reps):
         times = []
         for _ in range(reps):
@@ -252,76 +496,75 @@ def main():
             times.append(start.elapsed_time(stop))
         return statistics.median(times)
 
-    def host_s(fn, reps):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return times
-
-    def trajectory(args, kernel=True):
-        forward = args.spec.forward if kernel else core.plain_trajectory
-        return lambda: forward(*args[1:], args.spec)
+    def trajectory(args):
+        return lambda: core.trajectory_forward(args)
 
     def repeated(args, B):
         """One design's trajectory inputs, B times on the batch dimension."""
 
         rep = lambda x: x.expand(B, *x.shape[1:]).contiguous()  # noqa: E731
         return args._replace(U0=rep(args.U0), V0=rep(args.V0), A0=rep(args.A0),
-                             drive=rep(args.drive), fixed=tuple(rep(f) for f in args.fixed))
+                             drive=rep(args.drive), fixed=tuple(rep(f) for f in args.fixed),
+                             micro=tuple(rep(m) for m in args.micro))
 
-    dtype = torch.float32
-    optimization, design = kernel_path[dtype]
-    plain_opt = plain_path[dtype]
-    args = kc.batched_args(optimization.forward_problem, [design])
-    kernel_ms = event_ms(trajectory(args), 5)
-    plain_ms = event_ms(trajectory(args, kernel=False), 1)
-    kernel_ms_f64 = event_ms(trajectory(flagship), 5)
+    args32 = kc.cast(flagship, f32)
+    g32 = kc.cast(flagship_guarded, f32)
+    core.trajectory_forward(g32)  # warm up
+    # Kernels alternate: unguarded, guarded, guarded, unguarded.
+    t = {
+        "kernel_ms": event_ms(trajectory(args32), 3),
+        "guarded_ms": event_ms(trajectory(g32), 3),
+        "guarded_ms_2": event_ms(trajectory(g32), 3),
+        "kernel_ms_2": event_ms(trajectory(args32), 3),
+        "kernel_ms_float64": event_ms(trajectory(flagship), 5),
+        "guarded_ms_float64": event_ms(trajectory(flagship_guarded), 5),
+    }
     # Designs per launch (one thread block each): 1, one per SM, four per SM.
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    batch_ms = {B: event_ms(trajectory(repeated(args, B)), 3) for B in (1, n_sm, 4 * n_sm)}
+    batch_ms = {B: event_ms(trajectory(repeated(args32, B)), 3) for B in (1, n_sm, 4 * n_sm)}
 
-    def fwd(opt):
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with torch.no_grad():
-            return opt.objective_fn(design)
-
-    def fwd_grad(opt):
-        value_and_grad(opt, design)
-
-    timings = {
-        "fwd_kernel_s": statistics.median(host_s(lambda: fwd(optimization), 3)),
-        "fwd_plain_s": statistics.median(host_s(lambda: fwd(plain_opt), 1)),
-        "fwd_grad_kernel_s": statistics.median(
-            [main[dtype][2]] + host_s(lambda: fwd_grad(optimization), 2)),
-        "fwd_grad_plain_s": plain[dtype][2],
-    }
-    backward_share = 1 - timings["fwd_kernel_s"] / timings["fwd_grad_kernel_s"]
-    log(f"timing ({card_line}), flagship float32 unless named; kernel medians of 5 (batch: 3), "
-        f"plain body 1 run: trajectory kernel {kernel_ms:.3f} ms (float64 {kernel_ms_f64:.3f} ms) "
-        f"vs plain body {plain_ms:.1f} ms")
+            kernel_path[f32][0].objective_fn(kernel_path[f32][1])
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    timings["fwd_kernel_s"] = statistics.median(host)
+    timings["backward_share"] = 1 - timings["fwd_kernel_s"] / timings["fwd_grad_kernel_s"]
+    log(f"timing ({card_line}), flagship float32 unless named, CUDA events, medians of 3 "
+        f"(float64: 5): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
     for B, ms in batch_ms.items():
         log(f"  kernel batch B={B}: {ms:.3f} ms, {B / ms * 1e3:.1f} designs/s")
-    log("  objective (s; kernel median of 3, plain 1 run): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in timings.items())
-        + f"; backward share of fwd+grad with the kernel {backward_share:.4f}")
+    log("  objective (s, host clock): " + ", ".join(
+        f"{k} {v:.4g}" for k, v in timings.items()))
+    results["verlet_quad"].update(ms=statistics.median([t["kernel_ms"], t["kernel_ms_2"]]),
+                                  ms_float64=t["kernel_ms_float64"],
+                                  batch_ms={str(B): ms for B, ms in batch_ms.items()})
+    results["verlet_quad_guarded"].update(
+        ms=statistics.median([t["guarded_ms"], t["guarded_ms_2"]]),
+        ms_float64=t["guarded_ms_float64"])
 
-    kernels = [{
-        "name": "verlet_quad",
-        "route": "cuda",
-        "source": "difflexmm_tpu_torch/csrc/verlet_quad.cu",
-        "replaces": "difflexmm_tpu/ops/pallas/core.py:822",
-        "launches": launches,
-        **flagship_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "ms_float64": kernel_ms_f64,
-        "batch_ms": {str(B): ms for B, ms in batch_ms.items()},
-    }]
-    print(json.dumps({"kernels": kernels, "card": card_line, **timings,
-                      "backward_share": backward_share}))
+    phase_done("timing")
+
+    replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
+                "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "
+                                       "core.py:330-625, verlet_grid.py:201-262)"}
+    kernels = []
+    for name, r in results.items():
+        entry = {"name": name, "route": "cuda", "source": "difflexmm_tpu_torch/csrc/verlet_quad.cu",
+                 "replaces": replaces[name], "launches": r["launches"],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"],
+                 # No single PyTorch call integrates a trajectory of
+                 # dependent substeps.
+                 "library_ms": None}
+        entry.update({k: v for k, v in r.items() if k not in entry})
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels, "card": card_line, "registers": {
+        " ".join(map(str, k)): v for k, v in sorted(registers.items())}, **timings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -38,9 +38,31 @@
 // deterministic. The contact term is evaluated on duals only when one of
 // the bond's void angles lies in [min_angle, cutoff): elsewhere it and its
 // derivative are zero.
+//
+// The guarded variant (GUARD = true) replaces the same call with a substep
+// guard (difflexmm_tpu/ops/pallas/core.py:330-625: make_interval_body with
+// emit_risk=True, make_guarded_stepper at levels = 1, guard_travel,
+// make_risk_predicate; the quad gap function of
+// difflexmm_tpu/ops/pallas/verlet_grid.py:201-262). Before each substep the
+// block evaluates the risk predicate on its carry (U, V, A):
+//     travel = max over theta of |v| dt + dt^2/2 |a|
+//              [+ the same over neighbour differences of the x and y planes
+//                 along n1 and n2, / length_scale]
+//     gap    = min void angle of U - cutoff   (+inf without contact)
+//     risky  = (!(travel <= threshold) && gap < proximity)
+//              || !(travel <= hard)
+// The maxima and the minimum are block-wide reductions that propagate NaN
+// as jnp.max does, and the gap is reduced only where it can change the
+// answer. The decision is uniform across the block, so every thread takes
+// the same branch and the barriers stay legal: a risky substep runs
+// `refine` micro-steps of dt / refine with drive rows from the micro-step
+// table. Each substep's decision and each interval's "any fired" flag are
+// written as bytes. The guard costs two reductions a substep (three near
+// the barrier) and, where it fires, refine - 1 extra steps.
 
 #include <cuda_runtime.h>
 #include <float.h>
+#include <math.h>
 #include <stddef.h>
 
 namespace {
@@ -316,6 +338,15 @@ __device__ __forceinline__ Dual<T> ligament(const Dual<T>& dUx, const Dual<T>& d
          T(2);
 }
 
+// The resolved guard (core.resolve_guard), thresholds in the working type
+// as torch compares them.
+template <typename T>
+struct Guard {
+  T threshold, proximity, hard, length_scale;
+  bool has_proximity, has_hard, has_length_scale, relative;
+  int refine;
+};
+
 template <typename T>
 struct Params {
   int B, n1, n2, n_int, n_sub, k_drive;
@@ -345,6 +376,13 @@ struct Params {
   T* outV;
   T* outA;
   T* workspace;
+  // Guarded only: the micro-step drive table (B, n_int * n_sub * refine,
+  // k_drive), the per-substep decisions (B, n_int * n_sub) and the
+  // per-interval flags (B, n_int).
+  const T* micro;
+  unsigned char* decisions;
+  unsigned char* flags;
+  Guard<T> guard;
 };
 
 __host__ __device__ inline size_t scratch_elems(int n1, int n2) {
@@ -432,15 +470,14 @@ __device__ __forceinline__ void bond_partials(const Params<T>& p, int b, int q, 
   for (int s = 0; s < kSeeds; ++s) sP[s * nbond + q] = energy.d[s];
 }
 
+// One velocity-Verlet (micro-)step of size dt (hdt = dt / 2, hdt2 = dt^2 / 2)
+// on the carry S with the drive row drow. With `last`, the new state is also
+// written to the interval's outputs at obase.
 template <typename T, bool LIN, bool CONTACT>
-__global__ void __launch_bounds__(kThreads) verlet_quad_kernel(const Params<T> p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x;
+__device__ __forceinline__ void verlet_step(const Params<T>& p, int b, T dt, T hdt, T hdt2,
+                                            const T* drow, T* S, bool last, size_t obase) {
   const int n1 = p.n1, n2 = p.n2, nb = n1 * n2, ne = 3 * nb;
   const int nh = n2 * (n1 - 1), nbond = nh + (n2 - 1) * n1;
-  const int n_steps = p.n_int * p.n_sub;
-  T* S = p.workspace ? p.workspace + (size_t)b * scratch_elems(n1, n2)
-                     : reinterpret_cast<T*>(smem_raw);
   T* sU = S;
   T* sV = S + ne;
   T* sA = S + 2 * ne;
@@ -450,80 +487,266 @@ __global__ void __launch_bounds__(kThreads) verlet_quad_kernel(const Params<T> p
   const T* mask = p.mask + off;
   const T* inertia = p.inertia + off;
   const T* damping = p.damping + off;
-
+  // Position update and the driven, masked state the force sees.
   for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    sU[e] = p.U0[off + e];
-    sV[e] = p.V0[off + e];
-    sA[e] = p.A0[off + e];
+    const T u1 = sU[e] + dt * sV[e] + hdt2 * sA[e];
+    sU[e] = u1;
+    const int col = p.drive_map[e];
+    sUe[e] = u1 * mask[e] + (col >= 0 ? drow[col] : T(0));
   }
+  __syncthreads();
+  for (int q = threadIdx.x; q < nbond; q += blockDim.x) {
+    if (q < nh)
+      bond_partials<T, LIN, CONTACT, true>(p, b, q, sUe, sP);
+    else
+      bond_partials<T, LIN, CONTACT, false>(p, b, q, sUe, sP);
+  }
+  __syncthreads();
+  // Gather each DOF's bonds in a fixed order, then the velocity update.
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const int c = e / nb, blk = e % nb, j = blk / n1, ii = blk % n1;
+    T g = T(0);
+    if (ii > 0) g += sP[(3 + c) * nbond + j * (n1 - 1) + ii - 1];
+    if (ii < n1 - 1) g += sP[c * nbond + j * (n1 - 1) + ii];
+    if (j > 0) g += sP[(3 + c) * nbond + nh + blk - n1];
+    if (j < n2 - 1) g += sP[c * nbond + nh + blk];
+    const T m = mask[e], inert = inertia[e], damp = damping[e];
+    const T f = -(m * g);
+    const T inv_m = m / inert;
+    const T v_hat = sV[e] + hdt * (sA[e] + f * inv_m);
+    const T v1 = v_hat / (T(1) + hdt * damp / inert) * m;
+    const T a1 = (f - damp * v1) * inv_m;
+    sV[e] = v1;
+    sA[e] = a1;
+    if (last) {
+      const size_t o = obase + e;
+      p.outU[o] = sU[e];
+      p.outV[o] = v1;
+      p.outA[o] = a1;
+    }
+  }
+  // No barrier here: the next position update touches only this thread's
+  // own elements and sUe, which no thread reads any more.
+}
 
+// ---------------------------------------------------------------------------
+// The substep guard
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+
+// max and min that return NaN when either argument is NaN (jnp.maximum,
+// jnp.minimum); fmax and fmin would drop it.
+template <typename T>
+__device__ __forceinline__ T max_nan(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T min_nan(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+
+// Block-wide max (MIN = false) or min of every thread's v, NaN when any v
+// is NaN. Every thread returns the same value. red holds kWarps values; the
+// caller puts a barrier between two uses of the same red.
+template <typename T, bool MIN>
+__device__ __forceinline__ T block_reduce(T v, T* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = MIN ? min_nan(v, w) : max_nan(v, w);
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T r = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) r = MIN ? min_nan(r, red[w]) : max_nan(r, red[w]);
+  return r;
+}
+
+__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
+__device__ __forceinline__ double abs_(double x) { return fabs(x); }
+
+// |v| dt + dt^2/2 |a| (guard_travel's travel, same order).
+template <typename T>
+__device__ __forceinline__ T travel_of(T v, T a, T dt, T hdt2) {
+  return abs_(v) * dt + hdt2 * abs_(a);
+}
+
+// Corner c of a block at the carry's U, as quad_min_void_gap_planes writes
+// it: centroid + u + R(th) r.
+template <typename T>
+__device__ __forceinline__ void gap_corner(T ux, T uy, T cth, T sth, const Corners<T>& g, int c,
+                                           T& x, T& y) {
+  x = g.px + ux + cth * g.cx[c] - sth * g.cy[c];
+  y = g.py + uy + sth * g.cx[c] + cth * g.cy[c];
+}
+
+// The smaller of bond q's two void angles at the carry's U (corners and
+// bond order as in bond_partials).
+template <typename T, bool HORIZ>
+__device__ __forceinline__ T bond_gap(const Params<T>& p, int b, int q, const T* sU) {
+  const int n1 = p.n1, n2 = p.n2, nb = n1 * n2, nh = n2 * (n1 - 1);
+  const int blk_a = HORIZ ? (q / (n1 - 1)) * n1 + q % (n1 - 1) : q - nh;
+  const int blk_b = HORIZ ? blk_a + 1 : blk_a + n1;
+  constexpr int c1 = HORIZ ? 0 : 1, c2 = HORIZ ? 2 : 3;
+  const Corners<T> ga = load_corners(p, b, blk_a);
+  const Corners<T> gb = load_corners(p, b, blk_b);
+  const T tha = sU[2 * nb + blk_a], thb = sU[2 * nb + blk_b];
+  const T ca = cos_(tha), sa = sin_(tha), cb = cos_(thb), sb = sin_(thb);
+  const T uxa = sU[blk_a], uya = sU[nb + blk_a], uxb = sU[blk_b], uyb = sU[nb + blk_b];
+  T a0x, a0y, anx, any, apx, apy, b0x, b0y, bnx, bny, bpx, bpy;
+  gap_corner(uxa, uya, ca, sa, ga, c1, a0x, a0y);
+  gap_corner(uxa, uya, ca, sa, ga, (c1 + 1) & 3, anx, any);
+  gap_corner(uxa, uya, ca, sa, ga, (c1 + 3) & 3, apx, apy);
+  gap_corner(uxb, uyb, cb, sb, gb, c2, b0x, b0y);
+  gap_corner(uxb, uyb, cb, sb, gb, (c2 + 1) & 3, bnx, bny);
+  gap_corner(uxb, uyb, cb, sb, gb, (c2 + 3) & 3, bpx, bpy);
+  const T n1x = anx - a0x, n1y = any - a0y, p1x = apx - a0x, p1y = apy - a0y;
+  const T n2x = bnx - b0x, n2y = bny - b0y, p2x = bpx - b0x, p2y = bpy - b0y;
+  return min_nan(angle(p2x, p2y, n1x, n1y), angle(p1x, p1y, n2x, n2y));
+}
+
+// The guard's risk predicate on the carry for a substep of dt
+// (make_risk_predicate). Uniform across the block. red: 3 * kWarps values.
+template <typename T, bool CONTACT>
+__device__ __forceinline__ bool guard_risky(const Params<T>& p, int b, T dt, T hdt2, const T* S,
+                                            T* red) {
+  const Guard<T>& g = p.guard;
+  const int n1 = p.n1, n2 = p.n2, nb = n1 * n2, ne = 3 * nb;
+  const T* sU = S;
+  const T* sV = S + ne;
+  const T* sA = S + 2 * ne;
+  // Travel is >= 0 or NaN, so 0 is the identity of both maxima (and the
+  // translational term of a one-block lattice, as in guard_travel).
+  T th = T(0), tr = T(0);
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const int c = e / nb;
+    if (c == 2) {
+      th = max_nan(th, travel_of(sV[e], sA[e], dt, hdt2));
+    } else if (g.has_length_scale) {
+      if (!g.relative) {
+        tr = max_nan(tr, travel_of(sV[e], sA[e], dt, hdt2));
+      } else {
+        const int blk = e - c * nb, j = blk / n1, ii = blk % n1;
+        if (ii < n1 - 1)
+          tr = max_nan(tr, travel_of(sV[e + 1] - sV[e], sA[e + 1] - sA[e], dt, hdt2));
+        if (j < n2 - 1)
+          tr = max_nan(tr, travel_of(sV[e + n1] - sV[e], sA[e + n1] - sA[e], dt, hdt2));
+      }
+    }
+  }
+  th = block_reduce<T, false>(th, red);
+  T travel = th;
+  if (g.has_length_scale) travel = travel + block_reduce<T, false>(tr, red + kWarps) / g.length_scale;
+  const bool fast = !(travel <= g.threshold);
+  const bool hard = g.has_hard && !(travel <= g.hard);
+  if (!g.has_proximity || hard || !fast) return fast || hard;
+  // Only here can the gap change the answer.
+  T gap = T(INFINITY);
+  if (CONTACT && p.kc[b] > T(0)) {
+    const int nbond = n2 * (n1 - 1) + (n2 - 1) * n1;
+    T m = T(INFINITY);
+    const int nh = n2 * (n1 - 1);
+    for (int q = threadIdx.x; q < nbond; q += blockDim.x)
+      m = min_nan(m, q < nh ? bond_gap<T, true>(p, b, q, sU) : bond_gap<T, false>(p, b, q, sU));
+    gap = block_reduce<T, true>(m, red + 2 * kWarps) - p.ccut[b];
+  }
+  return gap < g.proximity;
+}
+
+// The guarded trajectory of design b on the carry S (levels = 1).
+template <typename T, bool LIN, bool CONTACT>
+__device__ __forceinline__ void guarded_trajectory(const Params<T>& p, int b, T* S) {
+  __shared__ T red[3 * kWarps];
+  const int ne = 3 * p.n1 * p.n2;
+  const int n_steps = p.n_int * p.n_sub;
+  const int refine = p.guard.refine;
   for (int k = 0; k < p.n_int; ++k) {
     const T dt = p.dts[k];
     const T hdt = T(0.5) * dt;
     const T hdt2 = T(0.5) * dt * dt;
+    const T ddt = dt / T(refine);
+    const T mhdt = T(0.5) * ddt;
+    const T mhdt2 = T(0.5) * ddt * ddt;
+    const size_t obase = ((size_t)b * p.n_int + k) * ne;
+    bool fired = false;
     for (int i = 0; i < p.n_sub; ++i) {
-      const T* drow = p.drive + ((size_t)b * n_steps + (size_t)k * p.n_sub + i) * p.k_drive;
-      // Position update and the driven, masked state the force sees.
-      for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-        const T u1 = sU[e] + dt * sV[e] + hdt2 * sA[e];
-        sU[e] = u1;
-        const int col = p.drive_map[e];
-        sUe[e] = u1 * mask[e] + (col >= 0 ? drow[col] : T(0));
-      }
-      __syncthreads();
-      for (int q = threadIdx.x; q < nbond; q += blockDim.x) {
-        if (q < nh)
-          bond_partials<T, LIN, CONTACT, true>(p, b, q, sUe, sP);
-        else
-          bond_partials<T, LIN, CONTACT, false>(p, b, q, sUe, sP);
-      }
-      __syncthreads();
-      // Gather each DOF's bonds in a fixed order, then the velocity update.
+      const size_t step = (size_t)b * n_steps + (size_t)k * p.n_sub + i;
       const bool last = i == p.n_sub - 1;
-      for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-        const int c = e / nb, blk = e % nb, j = blk / n1, ii = blk % n1;
-        T g = T(0);
-        if (ii > 0) g += sP[(3 + c) * nbond + j * (n1 - 1) + ii - 1];
-        if (ii < n1 - 1) g += sP[c * nbond + j * (n1 - 1) + ii];
-        if (j > 0) g += sP[(3 + c) * nbond + nh + blk - n1];
-        if (j < n2 - 1) g += sP[c * nbond + nh + blk];
-        const T m = mask[e], inert = inertia[e], damp = damping[e];
-        const T f = -(m * g);
-        const T inv_m = m / inert;
-        const T v_hat = sV[e] + hdt * (sA[e] + f * inv_m);
-        const T v1 = v_hat / (T(1) + hdt * damp / inert) * m;
-        const T a1 = (f - damp * v1) * inv_m;
-        sV[e] = v1;
-        sA[e] = a1;
-        if (last) {
-          const size_t o = ((size_t)b * p.n_int + k) * ne + e;
-          p.outU[o] = sU[e];
-          p.outV[o] = v1;
-          p.outA[o] = a1;
-        }
+      __syncthreads();  // the predicate reads other threads' carry
+      const bool risky = guard_risky<T, CONTACT>(p, b, dt, hdt2, S, red);
+      if (!risky) {
+        verlet_step<T, LIN, CONTACT>(p, b, dt, hdt, hdt2, p.drive + step * p.k_drive, S, last,
+                                     obase);
+      } else {
+        for (int j = 0; j < refine; ++j)
+          verlet_step<T, LIN, CONTACT>(p, b, ddt, mhdt, mhdt2,
+                                       p.micro + (step * refine + j) * p.k_drive, S,
+                                       last && j == refine - 1, obase);
       }
-      // No barrier here: the next position update touches only this
-      // thread's own elements and sUe, which no thread reads any more.
+      if (threadIdx.x == 0) p.decisions[step] = risky;
+      fired = fired || risky;
+    }
+    if (threadIdx.x == 0) p.flags[(size_t)b * p.n_int + k] = fired;
+  }
+}
+
+template <typename T, bool LIN, bool CONTACT, bool GUARD>
+__global__ void __launch_bounds__(kThreads) verlet_quad_kernel(const Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int ne = 3 * p.n1 * p.n2;
+  T* S = p.workspace ? p.workspace + (size_t)b * scratch_elems(p.n1, p.n2)
+                     : reinterpret_cast<T*>(smem_raw);
+  const size_t off = (size_t)b * ne;
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    S[e] = p.U0[off + e];
+    S[ne + e] = p.V0[off + e];
+    S[2 * ne + e] = p.A0[off + e];
+  }
+
+  if constexpr (GUARD) {
+    guarded_trajectory<T, LIN, CONTACT>(p, b, S);
+  } else {
+    const int n_steps = p.n_int * p.n_sub;
+    for (int k = 0; k < p.n_int; ++k) {
+      const T dt = p.dts[k];
+      const T hdt = T(0.5) * dt;
+      const T hdt2 = T(0.5) * dt * dt;
+      const size_t obase = ((size_t)b * p.n_int + k) * ne;
+      for (int i = 0; i < p.n_sub; ++i)
+        verlet_step<T, LIN, CONTACT>(
+            p, b, dt, hdt, hdt2,
+            p.drive + ((size_t)b * n_steps + (size_t)k * p.n_sub + i) * p.k_drive, S,
+            i == p.n_sub - 1, obase);
     }
   }
 }
 
-template <typename T, bool LIN, bool CONTACT>
+template <typename T, bool LIN, bool CONTACT, bool GUARD>
 cudaError_t launch_typed(const Params<T>& p, cudaStream_t stream) {
   size_t smem = 0;
   if (!p.workspace) {
     smem = scratch_elems(p.n1, p.n2) * sizeof(T);
-    cudaError_t err = cudaFuncSetAttribute(verlet_quad_kernel<T, LIN, CONTACT>,
+    cudaError_t err = cudaFuncSetAttribute(verlet_quad_kernel<T, LIN, CONTACT, GUARD>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  verlet_quad_kernel<T, LIN, CONTACT><<<p.B, kThreads, smem, stream>>>(p);
+  verlet_quad_kernel<T, LIN, CONTACT, GUARD><<<p.B, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, bool LIN, bool CONTACT>
+cudaError_t launch_guarded(const Params<T>& p, bool guard, cudaStream_t stream) {
+  return guard ? launch_typed<T, LIN, CONTACT, true>(p, stream)
+               : launch_typed<T, LIN, CONTACT, false>(p, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int use_contact,
-                   cudaStream_t stream) {
+                   const double* guard, cudaStream_t stream) {
   Params<T> p;
   p.B = dims[0];
   p.n1 = dims[1];
@@ -558,14 +781,35 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
   p.outV = const_cast<T*>(f[23]);
   p.outA = const_cast<T*>(f[24]);
   p.workspace = const_cast<T*>(f[25]);
+  p.micro = nullptr;
+  p.decisions = nullptr;
+  p.flags = nullptr;
+  p.guard = Guard<T>{};
   if (p.B <= 0 || p.n1 <= 0 || p.n2 <= 0 || p.n_int <= 0 || p.n_sub <= 0 || p.k_drive <= 0)
     return cudaErrorInvalidValue;
-  if (linearized) {
-    return use_contact ? launch_typed<T, true, true>(p, stream)
-                       : launch_typed<T, true, false>(p, stream);
+  if (guard) {
+    p.micro = f[26];
+    p.decisions = reinterpret_cast<unsigned char*>(const_cast<void*>(ptrs[27]));
+    p.flags = reinterpret_cast<unsigned char*>(const_cast<void*>(ptrs[28]));
+    Guard<T>& g = p.guard;
+    g.threshold = T(guard[0]);
+    g.has_proximity = guard[1] != 0.0;
+    g.proximity = T(guard[2]);
+    g.has_hard = guard[3] != 0.0;
+    g.hard = T(guard[4]);
+    g.has_length_scale = guard[5] != 0.0;
+    g.length_scale = T(guard[6]);
+    g.refine = (int)guard[7];
+    g.relative = guard[8] != 0.0;
+    if (!p.micro || !p.decisions || !p.flags || g.refine < 2) return cudaErrorInvalidValue;
   }
-  return use_contact ? launch_typed<T, false, true>(p, stream)
-                     : launch_typed<T, false, false>(p, stream);
+  const bool guarded = guard != nullptr;
+  if (linearized) {
+    return use_contact ? launch_guarded<T, true, true>(p, guarded, stream)
+                       : launch_guarded<T, true, false>(p, guarded, stream);
+  }
+  return use_contact ? launch_guarded<T, false, true>(p, guarded, stream)
+                     : launch_guarded<T, false, false>(p, guarded, stream);
 }
 
 }  // namespace
@@ -578,27 +822,32 @@ long long verlet_quad_scratch_bytes(int n1, int n2, int dtype_bytes) {
   return (long long)(scratch_elems(n1, n2) * (size_t)dtype_bytes);
 }
 
-// Largest dynamic shared memory one block of the current device may use,
-// or -1 on error.
+// Largest dynamic shared memory one block of the current device may use
+// beside the guarded kernel's static reduction buffer, or -1 on error.
 long long verlet_quad_max_smem(void) {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
       cudaSuccess)
     return -1;
-  return bytes;
+  return bytes - 3 * kWarps * (long long)sizeof(double);
 }
 
 // ptrs: U0, V0, A0, dts, drive, drive_map, cnv, cen, ref_h, ref_v, ks_h,
 //       ksh_h, kr_h, ks_v, ksh_v, kr_v, cmin, ccut, kc, inertia, damping,
-//       mask, outU, outV, outA, workspace (NULL: carry in shared memory).
+//       mask, outU, outV, outA, workspace (NULL: carry in shared memory),
+//       and when guarded: micro, decisions, flags.
 // dims: B, n1, n2, n_int, n_sub, k_drive.
+// guard: NULL (unguarded) or threshold, has_proximity, proximity, has_hard,
+//        hard, has_length_scale, length_scale, refine, relative.
 // Returns the launch's cudaError_t (0 on success).
 int verlet_quad_launch(const void* const* ptrs, const int* dims, int dtype_bytes,
-                       int linearized, int use_contact, void* stream) {
+                       int linearized, int use_contact, const double* guard, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype_bytes == 4) return (int)launch<float>(ptrs, dims, linearized, use_contact, s);
-  if (dtype_bytes == 8) return (int)launch<double>(ptrs, dims, linearized, use_contact, s);
+  if (dtype_bytes == 4)
+    return (int)launch<float>(ptrs, dims, linearized, use_contact, guard, s);
+  if (dtype_bytes == 8)
+    return (int)launch<double>(ptrs, dims, linearized, use_contact, guard, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -42,6 +42,22 @@ def polygon_polar_moment(vertices: torch.Tensor) -> torch.Tensor:
     return torch.abs(torch.sum(cross * quad, dim=-1) / 12)
 
 
+def compute_edge_lengths(centroid_node_vectors: torch.Tensor) -> torch.Tensor:
+    """Edge lengths of each block polygon. (n_blocks, V, 2) -> (n_blocks, V)."""
+
+    edges = torch.roll(centroid_node_vectors, 1, dims=-2) - centroid_node_vectors
+    return torch.linalg.norm(edges, dim=-1)
+
+
+def signed_angle(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Signed angle from u1 to u2 (counter-clockwise positive), (..., 2) ->
+    (...) in [-pi, pi]."""
+
+    cross = u1[..., 0] * u2[..., 1] - u1[..., 1] * u2[..., 0]
+    dot = u1[..., 0] * u2[..., 0] + u1[..., 1] * u2[..., 1]
+    return torch.atan2(cross, dot)
+
+
 def compute_inertia(vertices: torch.Tensor, density) -> torch.Tensor:
     """(n_blocks, 3) inertia [m, m, J] of each block polygon; ``density``
     is a scalar or (n_blocks,)."""

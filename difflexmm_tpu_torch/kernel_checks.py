@@ -19,20 +19,24 @@ from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
 )
 
 
-def small_problem(n1=8, n2=6, n_timepoints=12, n_substeps=4, device="cpu",
+def small_problem(n1=8, n2=6, n_timepoints=12, n_substeps=4, device="cuda",
                   dtype=torch.float64, method="auto",
-                  simulation_time=1.5e-3) -> ForwardProblem:
+                  simulation_time=1.5e-3, guard=None, amplitude_scale=1.0) -> ForwardProblem:
     """The flagship physics on a small lattice, with the pulse sped up to
     fit its short window: 600 Hz with no delay over 1.5 ms, so a substep
     is about as long as the flagship's (34 us at 12 timepoints and 4
     substeps). 8 x 6 is the smallest lattice whose clamped corners stay
-    clear of the driven strip."""
+    clear of the driven strip. The pulse is violent at that rate (blocks
+    turn up to 0.1 rad a substep), so the substep guard fires on most
+    substeps; ``amplitude_scale=0.01`` makes the run tame (no substep
+    fires under ``guard="auto"``)."""
 
     cfg = paper_config(method, n_substeps, device, dtype)
     cfg.update(
         n1_blocks=n1, n2_blocks=n2, n_timepoints=n_timepoints,
         damping=np.broadcast_to(cfg["damping"][0], (n1 * n2, 3)),
-        loading_rate=600.0, input_delay=0.0, simulation_time=simulation_time,
+        loading_rate=600.0, input_delay=0.0, simulation_time=simulation_time, guard=guard,
+        amplitude=amplitude_scale * cfg["amplitude"],
     )
     problem = ForwardProblem(**cfg)
     problem.setup()
@@ -71,6 +75,7 @@ def batched_args(problem: ForwardProblem, designs, state0=None) -> core.Trajecto
         cat([a.U0 for a in per]), cat([a.V0 for a in per]), cat([a.A0 for a in per]),
         per[0].dts, cat([a.drive for a in per]),
         tuple(cat(list(leaves)) for leaves in zip(*(a.fixed for a in per))),
+        tuple(cat(list(tables)) for tables in zip(*(a.micro for a in per))),
     )
 
 
@@ -83,7 +88,7 @@ def contact_energy_of(U, fixed):
     return float(total - strain)
 
 
-def contact_probe(device="cpu", dtype=torch.float64, n_timepoints=6, n_substeps=4):
+def contact_probe(device="cuda", dtype=torch.float64, n_timepoints=6, n_substeps=4, guard=None):
     """A small lattice whose contact barrier is engaged from the start,
     integrated over 20 us: the barrier's forces are large, and substeps of
     1 us keep the trajectory smooth enough to compare two codes on it.
@@ -96,7 +101,7 @@ def contact_probe(device="cpu", dtype=torch.float64, n_timepoints=6, n_substeps=
     """
 
     problem = small_problem(n_timepoints=n_timepoints, n_substeps=n_substeps,
-                            device=device, dtype=dtype, simulation_time=2e-5)
+                            device=device, dtype=dtype, simulation_time=2e-5, guard=guard)
     design = problem.geometry.get_design_from_rotated_square(
         25 * math.pi / 180, device=device, dtype=dtype
     )
@@ -130,6 +135,97 @@ def contact_probe(device="cpu", dtype=torch.float64, n_timepoints=6, n_substeps=
     return args_at(mag), mag
 
 
+def guard_terms(args: core.TrajectoryArgs):
+    """The plain guarded body on ``args`` with its guard traced: ``(outputs
+    of core.plain_trajectory, summary)``. The summary counts the substeps
+    that fired (decisions), those beyond the hard term, those that fired
+    by the proximity term alone and those whose predicate needed the gap,
+    and gives the travel/threshold ratio closest to 1 over all substeps and
+    the smallest gap/proximity ratio where the gap was needed (how near a
+    decision came to flipping).
+    """
+
+    guard, trace = args.spec.guard, []
+    outs = core.plain_trajectory(args.U0, args.V0, args.A0, args.dts, args.drive, args.fixed,
+                                 args.spec, args.micro, trace=trace)
+    decisions = outs[4]
+    travel = torch.stack([t for t, _ in trace], dim=1)
+    gap = torch.stack([g for _, g in trace], dim=1)
+    beyond = ~(travel <= guard["hard"]) if guard["hard"] is not None \
+        else torch.zeros_like(decisions)
+    # Substeps whose predicate needed the gap (the kernel reduces it only there).
+    needed = ~(travel <= guard["threshold"]) & ~beyond & (gap != float("inf"))
+    gaps = int(needed.sum()) if guard["proximity"] is not None else 0
+    ratio = (travel / guard["threshold"]).flatten()
+    closest = ratio[torch.argmin(ratio.log().abs())]
+    gap_ratio = float("nan")
+    if gaps:
+        gap_ratio = float((gap / guard["proximity"])[needed].min())
+    return outs, dict(fired=int(decisions.sum()), substeps=decisions.numel(),
+                      fired_hard=int((decisions & beyond).sum()),
+                      fired_proximity=int((decisions & ~beyond).sum()), gaps=gaps,
+                      closest_ratio=float(closest), closest_gap_ratio=gap_ratio)
+
+
+# Operations of one trajectory kernel, counted from csrc/verlet_quad.cu:
+# adds, multiplies and divides, and each sqrt, sin, cos and atan2 as one.
+# A dual number carries 6 partials, so a dual add costs 7, a dual product or
+# quotient 19, a dual sin or cos 8-9 and a dual atan2 29.
+OPS_BOND = 36 + 112 + 389 + 94  # block kinematics, 2 corners, ligament, void check
+OPS_BOND_CONTACT = 766  # dual void angles and two barrier terms, engaged bonds only
+OPS_DOF = 25  # position update, gather of <= 4 partials, velocity update
+OPS_TRAVEL_PER_BLOCK = 38  # guard: theta term and two neighbour differences of x, y
+OPS_GAP_PER_BOND = 75  # guard: 6 corners, 2 void angles, min
+H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
+H100_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # outside the tensor cores
+
+
+def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
+    """The least time an H100 could take for the trajectory of ``args``:
+    the larger of its bytes over the memory rate and its operations over
+    the peak rate of its type. Each input is read once and each output
+    (U, V, A at every interval boundary; guarded, the decisions and flags)
+    written once. The data-dependent work counts what this run needs:
+    contact bonds engaged at the interval boundaries of ``outU`` (the
+    kernel's U output, times the substeps of an interval) and, guarded
+    (``summary``: :func:`guard_terms`' for these inputs), guard gaps only
+    where the predicate needs them and micro-steps and their drive rows
+    only where the guard fired."""
+
+    spec = args.spec
+    B, _, n2, n1 = args.U0.shape
+    itemsize = args.U0.element_size()
+    nb, nbond = n1 * n2, n2 * (n1 - 1) + (n2 - 1) * n1
+    n_int = args.dts.shape[0]
+    n_steps = n_int * spec.n_substeps
+    steps = n_steps
+    inputs = [args.U0, args.V0, args.A0, args.dts, args.drive, *args.fixed]
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    nbytes += 4 * 3 * nb  # the int32 drive map
+    nbytes += 3 * B * n_int * 3 * nb * itemsize  # outputs U, V, A
+    ops = 0
+    if summary is not None:
+        refine = spec.guard["refine"]
+        steps += summary["fired"] * (refine - 1)
+        nbytes += B * (n_steps + n_int)  # decisions and flags, a byte each
+        nbytes += summary["fired"] * refine * args.drive.shape[-1] * itemsize
+        ops += B * n_steps * OPS_TRAVEL_PER_BLOCK * nb
+        ops += summary["gaps"] * OPS_GAP_PER_BOND * nbond
+    with torch.no_grad():
+        engaged = 0
+        cmin, ccut = args.fixed[10].flatten(), args.fixed[11].flatten()
+        for b in range(B):
+            voids = quad_void_angles_planes(outU[b], args.fixed[0][b], args.fixed[1][b])
+            on = [(v >= cmin[b]) & (v < ccut[b]) for v in voids]
+            bond_on = torch.cat([(on[0] | on[1]).flatten(1), (on[2] | on[3]).flatten(1)], 1)
+            engaged += int(bond_on.sum()) * spec.n_substeps
+    ops += steps * B * (nbond * OPS_BOND + 3 * nb * OPS_DOF) + engaged * OPS_BOND_CONTACT
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FLOPS[args.U0.dtype] * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def kernel_force(args: core.TrajectoryArgs):
     """The force ``-mask * dE/dU_eff`` at ``args.U0`` and drive row 0, as the
     trajectory kernel computes it: one substep from rest with unit inertia
@@ -159,6 +255,7 @@ def cast(args: core.TrajectoryArgs, dtype) -> core.TrajectoryArgs:
     return args._replace(
         **{k: getattr(args, k).to(dtype) for k in ("U0", "V0", "A0", "dts", "drive")},
         fixed=tuple(f.to(dtype) for f in args.fixed),
+        micro=tuple(m.to(dtype) for m in args.micro),
     )
 
 

@@ -1,7 +1,7 @@
-"""Shared building blocks of the models layer (counterpart of the parts of
-``difflexmm_tpu/models/base.py`` that the quads-focusing forward path
-uses): boundary-condition index builders, the raised-cosine pulse and
-dict (de)serialization. The fabrication constraints are ROADMAP A5.
+"""Shared building blocks of the models layer (counterpart of
+``difflexmm_tpu/models/base.py``): boundary-condition index builders, the
+model guard, the raised-cosine pulse, the fabrication constraints and
+dict (de)serialization.
 """
 
 import dataclasses
@@ -11,6 +11,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from difflexmm_tpu_torch.geometry.edges import compute_block_angles, compute_edge_angles
+from difflexmm_tpu_torch.geometry.polygon import compute_edge_lengths
 from difflexmm_tpu_torch.utils.types import SolutionData
 
 
@@ -131,6 +133,31 @@ def target_patch_ids(
     return (J * n1_blocks + I).reshape(-1)
 
 
+def resolve_model_guard(guard, min_angle, cutoff_angle, spacing):
+    """A model's ``guard`` field as a solver guard spec (JAX
+    ``models/base.py:167-200``).
+
+    ``None`` -> off; ``"auto"`` -> the proximity-gated production spec:
+    the travel term fires only within 2 barrier windows of the contact
+    cutoff, the hard term at 0.1 window anywhere (force spikes, NaN); the
+    window is ``cutoff_angle - min_angle`` and translational travel counts
+    at the lattice ``spacing``. A dict passes through with ``window`` and
+    ``length_scale`` filled in where absent.
+    """
+
+    if guard is None:
+        return None
+    if guard == "auto":
+        guard = {"proximity_windows": 2.0, "hard_fraction": 0.1}
+    elif not isinstance(guard, dict):
+        raise ValueError(f"guard must be None, 'auto', or a dict; got {guard!r}")
+    guard = dict(guard)
+    if "threshold" not in guard and "window" not in guard:
+        guard["window"] = float(cutoff_angle) - float(min_angle)
+    guard.setdefault("length_scale", float(spacing))
+    return guard
+
+
 def pulse(t, amplitude, loading_rate):
     """Raised-cosine displacement pulse of duration 1/loading_rate."""
 
@@ -138,6 +165,60 @@ def pulse(t, amplitude, loading_rate):
     active = (t > 0.0) & (t < 1.0 / loading_rate)
     wave = (1.0 - torch.cos(2.0 * math.pi * loading_rate * t)) / 2.0
     return amplitude * torch.where(active, wave, torch.zeros_like(wave))
+
+
+# ---------------------------------------------------------------------------
+# Fabrication constraints g(design) <= 0
+# ---------------------------------------------------------------------------
+
+
+def quad_boundary_node_ids(n1_blocks: int, n2_blocks: int) -> np.ndarray:
+    """Global node ids on the outer boundary of a quad lattice (ccw)."""
+
+    nb = n1_blocks * n2_blocks
+    bottom = np.arange(n1_blocks) * 4 + 3
+    right = (np.arange(n1_blocks - 1, nb, n1_blocks)) * 4 + 0
+    top = (np.arange(nb - 1, nb - n1_blocks - 1, -1)) * 4 + 1
+    left = (np.arange(0, nb, n1_blocks)) * 4 + 2
+    return np.concatenate([bottom, right, top, left])
+
+
+def build_angle_constraints(
+    centroid_node_vectors_fn,
+    bond_connectivity,
+    min_void_angle: float,
+    min_block_angle: float,
+    boundary_node_ids=None,
+):
+    """Angle constraints on voids and blocks, angles wrapped to [0, 2 pi);
+    optionally also on the boundary block wedges."""
+
+    def angle_constraints(design):
+        node_vectors = centroid_node_vectors_fn(*design)
+        v1, v2, b1, b2 = compute_edge_angles(node_vectors, bond_connectivity)
+        parts = [
+            min_void_angle - torch.remainder(v1, 2 * math.pi),
+            min_void_angle - torch.remainder(v2, 2 * math.pi),
+            min_block_angle - torch.remainder(b1, 2 * math.pi),
+            min_block_angle - torch.remainder(b2, 2 * math.pi),
+        ]
+        if boundary_node_ids is not None:
+            boundary = compute_block_angles(node_vectors, boundary_node_ids)
+            parts.append(min_block_angle - torch.remainder(boundary, 2 * math.pi))
+        return torch.cat(parts)
+
+    return angle_constraints
+
+
+def build_edge_length_constraints(centroid_node_vectors_fn, min_edge_length: float):
+    """Edge-length constraints: ``min_edge_length - length`` of every block
+    edge, flattened."""
+
+    def edge_length_constraints(design):
+        lengths = compute_edge_lengths(centroid_node_vectors_fn(*design))
+        return (min_edge_length - lengths).reshape(-1)
+
+    return edge_length_constraints
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,16 @@
 """The paper flagship configuration: 24 x 16 quads focusing a raised-cosine
-pulse onto a 2 x 2 target patch, in mm / N / s.
+pulse onto a 2 x 2 target patch, in mm / N / s, and its guarded
+constrained MMA run.
 
 The constants are copied from ``paper_config`` and ``build_flagship`` of
 the JAX package's ``bench.py`` (lines 42-106), which themselves follow the
-reference notebook ``quads_focusing_3dp_pla_shims.ipynb`` cell 8. They are
-copied rather than imported because ``bench.py`` imports jax.
+reference notebook ``quads_focusing_3dp_pla_shims.ipynb`` cell 8, and the
+MMA settings from ``tools/mma_flagship.py:89-103`` and
+``bench.py:300-367``. They are copied rather than imported because
+``bench.py`` imports jax. The reference values below were made with the
+JAX package at float64 on the CPU; the slow test
+``tests/test_torch_mma.py::test_flagship_references_match_jax`` makes them
+again and checks these constants.
 """
 
 import math
@@ -21,12 +27,92 @@ N_SUBSTEPS = 10
 #: N_SUBSTEPS (ACCURACY.json, verlet_substep_sweep["10"]).
 JAX_F64_OBJECTIVE = 4.9251240110676795
 
+#: Lattice spacing of the flagship (mm).
+SPACING = 15.0
 
-def paper_config(method="auto", n_substeps=N_SUBSTEPS, device="cpu", dtype=torch.float64) -> dict:
+#: The guarded constrained MMA of the flagship (``run_optimization_mma``
+#: keywords): hinge shifts within +-0.35 spacing, no negative void or block
+#: angle, edges at least 0.05 spacing long, 8% of the bound span per step.
+#: With ``guard="auto"`` the flagship's guard has window 5 degrees,
+#: threshold 0.02 window, proximity 2 windows, hard 0.1 window and
+#: length_scale SPACING.
+MMA_SETTINGS = dict(
+    lower_bound=-0.35 * SPACING,
+    upper_bound=0.35 * SPACING,
+    min_void_angle=0.0,
+    min_block_angle=0.0,
+    min_edge_length=0.05 * SPACING,
+    move_limit=0.08,
+    feasibility_tol=1e-6,
+    guard="auto",
+)
+
+#: Objective of the JAX package's f64 guarded flagship (``guard="auto"``,
+#: method "verlet_ckpt") at the 25-degree design. The guard fires on no
+#: substep of this trajectory, so the value equals the unguarded one to
+#: rounding.
+JAX_F64_GUARDED_OBJECTIVE = 4.925124011067685
+
+#: The JAX package's f64 guarded flagship MMA: ``run_optimization_mma`` from
+#: the 25-degree design with MMA_SETTINGS for 2 iterations (method
+#: "verlet_ckpt", the default device loop). The objective of each
+#: iteration, and each iteration's design as three numbers of its change dx
+#: from the start (the flat design, horizontal then vertical shifts):
+#: ``(|dx|, sum(dx), dx . r)`` with r standard normal from numpy's
+#: ``default_rng(MMA_DESIGN_PROBE_SEED)``. The first step moves every
+#: hinge by the move limit (0.84 mm).
+JAX_F64_MMA_VALUES = (4.925124011067685, 42.31786950978283)
+JAX_F64_MMA_DESIGN_STATS = (
+    (0.0, 0.0, 0.0),
+    (33.19860238022076, 13.440000000000005, -35.73928419363712),
+)
+MMA_DESIGN_PROBE_SEED = 0
+
+#: Design gradients of the JAX package's f64 flagship objective (method
+#: "verlet_ckpt", ``jax.value_and_grad`` of ``objective_fn``), each as
+#: ``(|g|, sum(g), g . r)`` with the r of JAX_F64_MMA_DESIGN_STATS: unguarded
+#: at the 25-degree design, and guarded (``guard="auto"``) at the two MMA
+#: iterates of JAX_F64_MMA_VALUES, the gradients the MMA steps from. The
+#: sum is zero to rounding: a uniform shift of every hinge leaves the
+#: objective as it is.
+JAX_F64_GRAD_STATS = (0.9012255894248804, -5.551115123125783e-17, -0.8084258280305556)
+JAX_F64_MMA_GRAD_STATS = (
+    (0.9012255894249632, -5.551115123125783e-17, -0.8084258280299957),
+    (5.601530841701871, 0.0, 1.2930103916175053),
+)
+
+
+def flat_numpy(design) -> np.ndarray:
+    """A design (tensors or arrays) as one float64 numpy vector."""
+
+    return np.concatenate([
+        (x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x))
+        .astype(np.float64).reshape(-1) for x in design
+    ])
+
+
+def vector_stats(v) -> tuple:
+    """``(|v|, sum(v), v . r)`` of a flat vector, r standard normal from
+    ``default_rng(MMA_DESIGN_PROBE_SEED)``."""
+
+    v = np.asarray(v, dtype=np.float64)
+    r = np.random.default_rng(MMA_DESIGN_PROBE_SEED).standard_normal(v.shape)
+    return float(np.linalg.norm(v)), float(v.sum()), float(v @ r)
+
+
+def design_stats(design, start) -> tuple:
+    """:func:`vector_stats` of a design's change from ``start`` (see
+    JAX_F64_MMA_DESIGN_STATS)."""
+
+    return vector_stats(flat_numpy(design) - flat_numpy(start))
+
+
+def paper_config(method="auto", n_substeps=N_SUBSTEPS, device="cuda", dtype=torch.float64,
+                 guard=None) -> dict:
     """The flagship ForwardProblem kwargs."""
 
     n1_blocks, n2_blocks = 24, 16
-    spacing = 15.0  # mm
+    spacing = SPACING
     k_stretch = 120.0  # N/mm
     k_shear = 1.19  # N/mm
     k_rot = 1.50  # N mm
@@ -63,16 +149,18 @@ def paper_config(method="auto", n_substeps=N_SUBSTEPS, device="cpu", dtype=torch
         n_timepoints=200,
         n_substeps=n_substeps,
         method=method,
+        guard=guard,
         device=device,
         dtype=dtype,
     )
 
 
-def build_flagship(method="auto", n_substeps=N_SUBSTEPS, device="cpu", dtype=torch.float64):
+def build_flagship(method="auto", n_substeps=N_SUBSTEPS, device="cuda", dtype=torch.float64,
+                   guard=None):
     """(OptimizationProblem with its objective set up, initial design): the
     rotated-square design at 25 degrees."""
 
-    problem = ForwardProblem(**paper_config(method, n_substeps, device, dtype))
+    problem = ForwardProblem(**paper_config(method, n_substeps, device, dtype, guard))
     optimization = OptimizationProblem(problem, target_size=(2, 2), target_shift=(4, 5))
     optimization.setup_objective()
     design = problem.geometry.get_design_from_rotated_square(

@@ -11,7 +11,7 @@ and A7.
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ import torch
 from difflexmm_tpu_torch.geometry.polygon import compute_inertia
 from difflexmm_tpu_torch.geometry.quad import QuadGeometry
 from difflexmm_tpu_torch.models import base
+from difflexmm_tpu_torch.models.runner import OptimizationRunnerMixin
 from difflexmm_tpu_torch.ops.observables import kinetic_energy
 from difflexmm_tpu_torch.solver.dynamics import setup_dynamic_solver
 from difflexmm_tpu_torch.utils.types import (
@@ -38,8 +39,10 @@ class ForwardProblem:
     ``setup()`` installs ``self.solve(design) -> SolutionData`` where
     ``design = (horizontal_shifts, vertical_shifts)``, tensors on
     ``device`` in ``dtype`` (every physical parameter is cast to them).
+    ``device`` is the CUDA device unless the caller asks for the CPU.
     ``method`` is one of ``solver.dynamics.FAST_METHODS``; the JAX
-    package's default, the dense ``"verlet"``, is ROADMAP A4.
+    package's default, the dense ``"verlet"``, is ROADMAP A4. ``guard``:
+    None, ``"auto"`` or a spec dict (``base.resolve_model_guard``).
     """
 
     # Geometry
@@ -82,7 +85,7 @@ class ForwardProblem:
     method: str = "auto"
     n_substeps: int = 20
     guard: Any = None
-    device: Any = "cpu"
+    device: Any = "cuda"
     dtype: Any = torch.float64
 
     is_setup: bool = False
@@ -133,7 +136,9 @@ class ForwardProblem:
                 linearized=self.linearized_strains,
                 use_contact=self.use_contact,
             ),
-            guard=self.guard,
+            guard=base.resolve_model_guard(
+                self.guard, self.min_angle, self.cutoff_angle, self.spacing
+            ),
         )
 
         timepoints = torch.as_tensor(
@@ -209,15 +214,25 @@ class ForwardProblem:
 
 
 @dataclass
-class OptimizationProblem:
+class OptimizationProblem(OptimizationRunnerMixin):
     """Maximize target-patch kinetic energy over the hinge-shift design
-    (objective only; constraints and optimizer loops are ROADMAP A5/A7)."""
+    (``run_optimization_mma`` from the runner mixin)."""
 
     forward_problem: ForwardProblem
     target_size: Tuple[int, int]
     target_shift: Tuple[int, int] = (0, 0)
+    objective_values: Optional[List[Any]] = None
+    design_values: Optional[List[Any]] = None
+    constraints_violation: Optional[Dict[str, List[Any]]] = None
     name: str = "quads_focusing"
     is_setup: bool = False
+
+    def __post_init__(self):
+        self.objective_values = self.objective_values or []
+        self.design_values = self.design_values or []
+        self.constraints_violation = self.constraints_violation or {
+            "angles": [], "edge_lengths": []
+        }
 
     def setup_objective(self) -> None:
         if not self.forward_problem.is_setup:

@@ -1,0 +1,246 @@
+"""The optimization-runner mixin of the model families (counterpart of
+``difflexmm_tpu/models/runner.py``: ``_ensure_guarded``,
+``_guarded_objective_fn``, ``_design_constraints``,
+``run_optimization_mma``, ``_history_extras`` and ``compute_best_forward``).
+
+A model's ``OptimizationProblem`` supplies ``setup_objective`` (installing
+``self.objective_fn``, maximized) and inherits the constrained MMA driver,
+the fabrication-constraint wiring and the iteration histories from here.
+Batched multistart (ROADMAP A8) and the optax driver are not ported yet.
+"""
+
+import copy
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from difflexmm_tpu_torch.models import base
+from difflexmm_tpu_torch.optim.mma import run_mma, run_mma_fused
+
+
+def ravel_design(design):
+    """A design (tuple of tensors) -> (flat (n,) tensor, unflatten)."""
+
+    shapes = [x.shape for x in design]
+    sizes = [x.numel() for x in design]
+
+    def unflatten(flat):
+        return tuple(part.reshape(shape) for part, shape in zip(torch.split(flat, sizes), shapes))
+
+    return torch.cat([x.reshape(-1) for x in design]), unflatten
+
+
+class OptimizationRunnerMixin:
+    """Drives ``self.objective_fn`` (maximized) with MMA.
+
+    Requires on self: ``objective_fn``, ``objective_values``,
+    ``design_values``, ``constraints_violation``, ``is_setup`` and
+    ``forward_problem``.
+    """
+
+    def _geometry(self):
+        return self.forward_problem.geometry
+
+    def _boundary_node_ids(self):
+        geometry = self._geometry()
+        return base.quad_boundary_node_ids(geometry.n1_blocks, geometry.n2_blocks)
+
+    def _design_constraints(
+        self,
+        min_void_angle: Optional[float],
+        min_block_angle: Optional[float],
+        min_edge_length: Optional[float],
+        boundary_angle_constraint: bool = False,
+    ) -> List:
+        """``[(name, design -> g(design)), ...]`` of the fabrication
+        constraints asked for (feasible where ``g <= 0``)."""
+
+        geometry = self._geometry()
+        constraints = []
+        if min_void_angle is not None and min_block_angle is not None:
+            boundary_ids = self._boundary_node_ids() if boundary_angle_constraint else None
+            self.angle_constraints = base.build_angle_constraints(
+                geometry.centroid_node_vectors,
+                geometry.bond_connectivity(),
+                min_void_angle,
+                min_block_angle,
+                boundary_ids,
+            )
+            constraints.append(("angles", self.angle_constraints))
+        if min_edge_length is not None:
+            self.edge_length_constraints = base.build_edge_length_constraints(
+                geometry.centroid_node_vectors, min_edge_length
+            )
+            constraints.append(("edge_lengths", self.edge_length_constraints))
+        return constraints
+
+    # Solver methods whose fixed-step integrator takes the substep guard.
+    _GUARDABLE_METHODS = ("verlet", "verlet_pallas", "verlet_ckpt", "auto")
+
+    def _guardable(self, fp) -> bool:
+        return (dataclasses.is_dataclass(fp) and hasattr(fp, "guard")
+                and getattr(fp, "method", None) in self._GUARDABLE_METHODS)
+
+    def _ensure_guarded(self, guard):
+        """Re-arm the forward problem's substep guard for an optimization:
+        an unguarded fixed-step objective is exploitable under optimization
+        pressure (the optimizer chases integrator error). A guardable
+        forward problem built without a guard is rebuilt with ``guard``;
+        ``guard=None`` keeps it exactly as configured."""
+
+        if guard is None:
+            return
+        fp = self.forward_problem
+        if self._guardable(fp) and fp.guard is None:
+            self.is_setup = False
+            self.forward_problem = dataclasses.replace(fp, guard=guard, is_setup=False)
+
+    def _guarded_objective_fn(self, guard):
+        """A guarded sibling's ``objective_fn`` without changing self: the
+        existing objective when the forward problem is already guarded,
+        None when it cannot take a guard."""
+
+        fp = self.forward_problem
+        if not self._guardable(fp):
+            return None
+        if fp.guard is not None:
+            return self.objective_fn
+        clone = copy.copy(self)
+        clone.forward_problem = dataclasses.replace(fp, guard=guard, is_setup=False)
+        clone.is_setup = False
+        clone.setup_objective()
+        return clone.objective_fn
+
+    def run_optimization_mma(
+        self,
+        initial_guess,
+        n_iterations: int,
+        lower_bound: Optional[float] = None,
+        upper_bound: Optional[float] = None,
+        min_void_angle: Optional[float] = None,
+        min_block_angle: Optional[float] = None,
+        min_edge_length: Optional[float] = None,
+        boundary_angle_constraint: bool = False,
+        verbose: bool = True,
+        move_limit: float = 0.2,
+        max_seconds: Optional[float] = None,
+        guard="auto",
+        device_loop: bool = True,
+        chunk: int = 10,
+        feasibility_tol: Optional[float] = 1e-6,
+    ):
+        """Constrained inverse design with MMA; returns the final design.
+
+        ``guard``: re-arm the forward solver's substep guard (default
+        "auto"; ``None`` keeps the problem as configured). ``device_loop``:
+        :func:`run_mma_fused` (trust-region bookkeeping on the device, one
+        readback per ``chunk`` iterations) instead of the host loop
+        :func:`run_mma` with its bisection backtracks. ``feasibility_tol``:
+        restore feasibility at termination (``None`` disables). The
+        objective values, designs and per-group constraint maxima of every
+        iteration are appended to ``self.objective_values``,
+        ``self.design_values`` and ``self.constraints_violation``. The JAX
+        package's ``metrics_logger``, ``checkpoint`` and ``resume`` are not
+        ported (ROADMAP A13).
+        """
+
+        self._ensure_guarded(guard)
+        if not self.is_setup:
+            self.setup_objective()
+
+        flat0, unflatten = ravel_design(initial_guess)
+        flat0 = flat0.detach()
+
+        def objective_and_grad(x):
+            x = x.detach().requires_grad_()
+            value = self.objective_fn(unflatten(x))
+            (grad,) = torch.autograd.grad(value, x)
+            return value.detach(), grad
+
+        constraint_fns = self._design_constraints(
+            min_void_angle, min_block_angle, min_edge_length, boundary_angle_constraint,
+        )
+        if constraint_fns:
+            names = [name for name, _ in constraint_fns]
+            fns = [fn for _, fn in constraint_fns]
+
+            def stacked(x):
+                return torch.cat([fn(unflatten(x)) for fn in fns])
+
+            jacobian = torch.func.jacrev(stacked)
+
+            def constraints_and_jac(x):
+                x = x.detach()
+                return stacked(x), jacobian(x)
+
+            sizes = [len(fn(initial_guess)) for fn in fns]
+            offsets = np.cumsum([0] + sizes)
+
+            def group_max(fi):
+                """Each group's largest violation, in one readback."""
+
+                return torch.stack([
+                    torch.max(fi[offsets[k]:offsets[k + 1]]) for k in range(len(sizes))
+                ]).cpu().numpy()
+        else:
+            constraints_and_jac = None
+            names = []
+
+        span = float(torch.max(torch.abs(flat0))) + 1.0
+        xmin = torch.full_like(flat0, lower_bound if lower_bound is not None else -10 * span)
+        xmax = torch.full_like(flat0, upper_bound if upper_bound is not None else 10 * span)
+
+        def callback(it, x, value, violation, fi):
+            self.objective_values.append(float(value))
+            self.design_values.append(unflatten(x))
+            if constraints_and_jac is not None:
+                maxima = group_max(fi)
+                for name, m in zip(names, maxima):
+                    self.constraints_violation[name].append(float(m))
+            if verbose:
+                print(f"Iteration: {len(self.objective_values)}\n"
+                      f"Objective = {self.objective_values[-1]}")
+
+        driver = run_mma_fused if device_loop else run_mma
+        x_final, _ = driver(
+            objective_and_grad,
+            flat0,
+            xmin=xmin,
+            xmax=xmax,
+            n_iterations=n_iterations,
+            constraints_and_jac=constraints_and_jac,
+            maximize=True,
+            callback=callback,
+            move_limit=move_limit,
+            max_seconds=max_seconds,
+            feasibility_tol=feasibility_tol,
+            **(dict(chunk=chunk) if device_loop else {}),
+        )
+        if self.design_values:
+            self.compute_best_forward()
+        return unflatten(x_final)
+
+    def _history_extras(self):
+        """Auxiliary per-iteration histories kept beside the objective."""
+
+        extras = {}
+        if getattr(self, "constraints_violation", None) is not None:
+            extras["constraints_violation"] = {
+                name: list(values) for name, values in self.constraints_violation.items()
+            }
+        return extras
+
+    def compute_best_forward(self):
+        """Solve the forward problem at the last design of the history."""
+
+        if not self.design_values:
+            raise ValueError("No design has been optimized yet.")
+        if not self.forward_problem.is_setup:
+            self.forward_problem.setup()
+        with torch.no_grad():
+            self.forward_problem.solution_data = self.forward_problem.solve(
+                self.design_values[-1]
+            )
+        return self.forward_problem.solution_data

@@ -10,6 +10,7 @@ import every module on machines without nvcc.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,18 +48,12 @@ def _nvcc() -> str:
     )
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+def compile_source(source: Path, target: Path) -> dict:
+    """Compile one ``.cu`` file into the shared library ``target`` with
+    :data:`NVCC_FLAGS`; returns ``{"seconds", "log"}`` (the log holds
+    ptxas' register and spill report)."""
 
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    target = BUILD_DIR / f"lib{name}-{digest}.so"
-    if target.exists():
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
-        return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
@@ -70,7 +65,21 @@ def build(name: str) -> Path:
             f"{' '.join(cmd)}\n{result.stdout}\n{result.stderr}"
         )
     os.replace(tmp, target)
-    BUILD_INFO[name] = {"seconds": seconds, "log": result.stdout + result.stderr}
+    return {"seconds": seconds, "log": result.stdout + result.stderr}
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
+
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    target = BUILD_DIR / f"lib{name}-{digest}.so"
+    if target.exists():
+        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
+        return target
+    BUILD_INFO[name] = compile_source(source, target)
     return target
 
 
@@ -80,3 +89,21 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build(name)))
     return _LIBS[name]
+
+
+def ptxas_registers(build_log: str) -> dict:
+    """``{(dtype, LIN, CONTACT, GUARD): registers}`` of the trajectory
+    kernel's instantiations, from ptxas' report in a build log."""
+
+    out, current = {}, None
+    kernel = re.compile(r"verlet_quad_kernelI([fd])Lb([01])ELb([01])ELb([01])E")
+    for line in build_log.splitlines():
+        m = kernel.search(line)
+        if m and "Compiling entry function" in line:
+            current = ({"f": "float32", "d": "float64"}[m.group(1)],) + tuple(
+                int(g) for g in m.group(2, 3, 4))
+        r = re.search(r"Used (\d+) registers", line)
+        if r and current is not None:
+            out[current] = int(r.group(1))
+            current = None
+    return out

@@ -1,12 +1,14 @@
-"""Lattice-agnostic Verlet machinery: the plain interval body and the
-stored-boundary-state trajectory ``autograd.Function``.
+"""Lattice-agnostic Verlet machinery: the plain interval body, the
+reactive substep guard and the stored-boundary-state trajectory
+``autograd.Function``.
 
-Counterpart of the unguarded parts of ``difflexmm_tpu/ops/pallas/core.py``
-(``make_force_fn``, ``make_interval_body``'s ``one_step``,
+Counterpart of ``difflexmm_tpu/ops/pallas/core.py`` (``make_force_fn``,
+``resolve_guard``, ``guard_travel``, ``make_risk_predicate``,
+``make_guarded_stepper``, ``make_interval_body``, and
 ``build_verlet_trajectory``'s custom vjp). A lattice family plugs in with a
 :class:`TrajectorySpec`: its plane energy, the forward that integrates the
-whole trajectory (a hand-written kernel for CUDA tensors), and the drive
-slots.
+whole trajectory (a hand-written kernel for CUDA tensors), the drive
+slots and, when guarded, the resolved guard and the barrier gap.
 
 Layouts: states are ``(B, C, n2, n1)`` component planes with the design
 batch B leading. The fixed leaves are a tuple of per-design tensors whose
@@ -16,9 +18,13 @@ planes. The drive is a table ``(B, (T-1) * n_substeps, k)``: row
 substep i of interval k, where the force of that substep is evaluated.
 JAX traces ``drive_values_fn(t)`` inside the kernel instead; a table keeps
 the kernel free of user code and lets autograd reach the drive parameters.
+A guarded trajectory also takes one micro-step table per guard level:
+table ``l`` (1-based) has ``refine**l`` rows per substep, row
+``(.. (k * n_substeps + i) * refine + j ..)`` holding the values at the end
+of that (micro-)step.
 """
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -31,11 +37,17 @@ class TrajectorySpec(NamedTuple):
         energy_of: ``(U_eff (B, C, n2, n1), fixed) -> scalar`` total energy
             of all B designs (designs do not interact, so its gradient is
             per-design).
-        forward: ``(U0, V0, A0, dts, drive, fixed, spec) -> (outU, outV,
-            outA)``, each ``(B, T-1, C, n2, n1)``; the kernel wrapper.
+        forward: ``(U0, V0, A0, dts, drive, fixed, spec, micro) -> (outU,
+            outV, outA)``, each ``(B, T-1, C, n2, n1)``, followed when
+            guarded by the per-interval flags ``(B, T-1)`` and per-substep
+            decisions ``(B, (T-1) * n_substeps)`` (bool); the kernel
+            wrapper.
         drive_slots: (s,) int64 flat ``C * n2 * n1`` plane index of each
             driven slot (one per slot: duplicates already resolved).
         drive_cols: (s,) int64 drive-table column written to that slot.
+        guard: resolved guard spec (:func:`resolve_guard`) or None.
+        gap_of: ``(U (B, C, n2, n1), fixed) -> (B,)`` barrier gap for the
+            guard's proximity term, or None where the family has none.
     """
 
     n_substeps: int
@@ -43,11 +55,19 @@ class TrajectorySpec(NamedTuple):
     forward: Callable
     drive_slots: torch.Tensor
     drive_cols: torch.Tensor
+    guard: Optional[dict] = None
+    gap_of: Optional[Callable] = None
+
+    @property
+    def n_micro(self) -> int:
+        """Number of micro-step drive tables (one per guard level)."""
+
+        return 0 if self.guard is None else self.guard["levels"]
 
 
 class TrajectoryArgs(NamedTuple):
-    """Inputs of one trajectory: ``VerletTrajectory.apply(*args[:-1],
-    *args.fixed)`` or ``args.spec.forward(*args[1:], args.spec)``."""
+    """Inputs of one trajectory; run it with :func:`trajectory_forward`
+    (no autograd) or :func:`apply` (differentiable)."""
 
     spec: TrajectorySpec
     U0: torch.Tensor
@@ -56,6 +76,187 @@ class TrajectoryArgs(NamedTuple):
     dts: torch.Tensor
     drive: torch.Tensor
     fixed: tuple
+    micro: tuple = ()
+
+
+def trajectory_forward(args: TrajectoryArgs):
+    """``args.spec.forward`` on ``args``: the kernel for CUDA tensors."""
+
+    return args.spec.forward(args.U0, args.V0, args.A0, args.dts, args.drive,
+                             args.fixed, args.spec, args.micro)
+
+
+def apply(args: TrajectoryArgs):
+    """The differentiable trajectory (:class:`VerletTrajectory`)."""
+
+    return VerletTrajectory.apply(args.spec, args.U0, args.V0, args.A0, args.dts,
+                                  args.drive, *args.micro, *args.fixed)
+
+
+# ---------------------------------------------------------------------------
+# Reactive substep guard
+# ---------------------------------------------------------------------------
+
+
+def resolve_guard(guard, theta_channels, default_translation="relative"):
+    """Normalize a reactive-substep-guard spec into static fields.
+
+    Same keys, defaults and errors as ``resolve_guard`` of the JAX package
+    (``ops/pallas/core.py:184-327``): ``threshold`` or ``window`` (with
+    ``fraction``, default 0.02), ``proximity``/``proximity_windows``,
+    ``hard``/``hard_fraction`` (forced on at 5x threshold with proximity),
+    ``refine`` (16), ``levels`` (1), ``length_scale``, ``translation``.
+    """
+
+    if guard is None:
+        return None
+    g = dict(guard)
+    threshold = g.pop("threshold", None)
+    window = g.pop("window", None)
+    fraction = float(g.pop("fraction", 0.02))
+    if threshold is None:
+        if window is None:
+            raise ValueError(
+                "guard spec needs 'threshold' (rad/substep) or 'window' "
+                "(the contact barrier window cutoff_angle - min_angle)."
+            )
+        threshold = fraction * float(window)
+
+    def _windows(key_abs, key_rel, default=None):
+        """A radians-or-window-multiples pair of spec keys."""
+
+        value = g.pop(key_abs, None)
+        rel = g.pop(key_rel, None)
+        if value is not None and rel is not None:
+            raise ValueError(f"give '{key_abs}' or '{key_rel}', not both")
+        if rel is not None:
+            if window is None:
+                raise ValueError(f"'{key_rel}' needs 'window' in the spec")
+            return float(rel) * float(window)
+        return float(value) if value is not None else default
+
+    proximity = _windows("proximity", "proximity_windows")
+    # With the travel term gated on proximity, a NaN state far from any
+    # barrier would never refine without the unconditional hard term.
+    hard = _windows(
+        "hard", "hard_fraction",
+        default=5.0 * float(threshold) if proximity is not None else None,
+    )
+    resolved = dict(
+        threshold=float(threshold),
+        proximity=proximity,
+        hard=hard,
+        refine=int(g.pop("refine", 16)),
+        levels=int(g.pop("levels", 1)),
+        length_scale=g.pop("length_scale", None),
+        translation=str(g.pop("translation", default_translation)),
+        theta_channels=tuple(theta_channels),
+    )
+    if g:
+        raise ValueError(f"unknown guard spec keys: {sorted(g)}")
+    if proximity is not None and proximity <= 0:
+        raise ValueError("guard proximity must be positive")
+    if hard is not None and hard <= resolved["threshold"]:
+        raise ValueError("guard hard threshold must exceed 'threshold'")
+    if resolved["translation"] not in ("relative", "absolute"):
+        raise ValueError(
+            "guard translation must be 'relative' or 'absolute'; got "
+            f"{resolved['translation']!r}"
+        )
+    if resolved["refine"] < 2 or resolved["levels"] < 1:
+        raise ValueError("guard needs refine >= 2 and levels >= 1")
+    if resolved["length_scale"] is not None:
+        resolved["length_scale"] = float(resolved["length_scale"])
+    return resolved
+
+
+def guard_travel(V, A, dt, guard):
+    """Predicted max travel of each design in one substep of dt, ``(B,)``.
+
+    ``V``/``A`` are ``(B, C, n2, n1)``. The rotational channels count
+    ``|v| dt + dt^2/2 |a|`` as they are; with ``length_scale`` the
+    translational channels add their maximum over neighbour differences
+    (``translation="relative"``: along n1, along n2, and between the same
+    DOF of cell-mates) or over the channels themselves ("absolute"),
+    divided by ``length_scale``. NaN propagates, as with ``jnp.max``.
+    """
+
+    theta = set(guard["theta_channels"])
+
+    def travel(v, a):
+        return torch.amax(v.abs() * dt + (0.5 * dt * dt) * a.abs(), dim=(-2, -1))
+
+    def max_of(parts):
+        out = parts[0]
+        for p in parts[1:]:
+            out = torch.maximum(out, p)
+        return out
+
+    t = max_of([travel(V[:, c], A[:, c]) for c in sorted(theta)])
+    if guard["length_scale"] is not None:
+        trans = [c for c in range(V.shape[1]) if c not in theta]
+        if guard["translation"] == "absolute":
+            tt = max_of([travel(V[:, c], A[:, c]) for c in trans])
+        else:
+            parts = []
+            for c in trans:
+                v, a = V[:, c], A[:, c]
+                if v.shape[-1] > 1:
+                    parts.append(travel(v[..., :, 1:] - v[..., :, :-1],
+                                        a[..., :, 1:] - a[..., :, :-1]))
+                if v.shape[-2] > 1:
+                    parts.append(travel(v[..., 1:, :] - v[..., :-1, :],
+                                        a[..., 1:, :] - a[..., :-1, :]))
+            for i, c1 in enumerate(trans):
+                for c2 in trans[i + 1:]:
+                    if (c1 - c2) % 3 == 0:
+                        parts.append(travel(V[:, c1] - V[:, c2], A[:, c1] - A[:, c2]))
+            if not parts:  # single-cell lattice: nothing to move relative to
+                parts = [V.new_zeros(V.shape[0])]
+            tt = max_of(parts)
+        t = t + tt / guard["length_scale"]
+    return t
+
+
+def make_risk_predicate(guard, travel_fn, gap_fn):
+    """The guard's per-substep risk predicate ``risk((U, V, A), dt)``:
+
+        risky = (travel > threshold AND gap < proximity) OR travel > hard
+
+    written as ``~(travel <= threshold)`` so that NaN travel fires through
+    either term; a NaN gap switches off only the proximity term.
+    ``travel_fn(V, A, dt)``; ``gap_fn(U)`` or None where the layout has no
+    gap (then ``proximity`` must not be set).
+    """
+
+    threshold = guard["threshold"]
+    proximity = guard.get("proximity")
+    hard = guard.get("hard")
+    if proximity is not None and gap_fn is None:
+        raise ValueError(
+            "guard 'proximity' needs a lattice gap function; this layout "
+            "has none (use the grid backends, or drop the proximity gate)."
+        )
+
+    def risk(carry, dt):
+        U, V, A = carry
+        travel = travel_fn(V, A, dt)
+        risky = ~(travel <= threshold)
+        if proximity is not None:
+            risky = risky & (gap_fn(U) < proximity)
+        if hard is not None:
+            risky = risky | ~(travel <= hard)
+        return risky
+
+    return risk
+
+
+def spec_risk(spec: "TrajectorySpec", fixed):
+    """:func:`make_risk_predicate` of a guarded spec at its fixed leaves."""
+
+    guard = spec.guard
+    gap = None if spec.gap_of is None else (lambda U: spec.gap_of(U, fixed))
+    return make_risk_predicate(guard, lambda V, A, dt: guard_travel(V, A, dt, guard), gap)
 
 
 def drive_planes(drive_row: torch.Tensor, spec: TrajectorySpec, like: torch.Tensor):
@@ -107,24 +308,116 @@ def interval_body(U, V, A, dt, drive_rows, fixed, spec, create_graph=False):
     return U, V, A
 
 
-def plain_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec):
+def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, risky=None):
+    """One (micro-)step at guard depth ``depth`` (0: a substep), as
+    ``make_guarded_stepper``'s ``stepper``: where ``risky``, the step re-runs
+    as ``refine`` micro-steps of ``dt / refine``, each a guarded step of the
+    next depth, down to ``levels``. ``rows[d]`` is the interval's slice of
+    drive table ``d``; this step's row is ``idx`` and its micro-steps' rows
+    ``idx * refine + j``. ``risky`` (B,) bool, on any device, is evaluated
+    here where None. Designs of a batch decide on their own: where they
+    disagree both branches run and each design takes its own, as
+    ``vmap(lax.cond)`` does."""
+
+    guard = spec.guard
+    if depth == guard["levels"]:
+        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph)
+    if risky is None:
+        with torch.no_grad():
+            risky = risk(carry, dt)
+
+    def coarse():
+        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph)
+
+    def fine():
+        refine = guard["refine"]
+        ddt = dt / refine
+        c = carry
+        for j in range(refine):
+            c = _guarded_step(c, ddt, idx * refine + j, depth + 1, rows, fixed, spec, risk,
+                              create_graph)
+        return c
+
+    if not bool(risky.any()):
+        return coarse()
+    if bool(risky.all()):
+        return fine()
+    pick = risky.to(carry[0].device).view(-1, *([1] * (carry[0].dim() - 1)))
+    return tuple(torch.where(pick, f, c) for f, c in zip(fine(), coarse()))
+
+
+def guarded_interval_body(U, V, A, dt, rows, fixed, spec, create_graph=False, decisions=None,
+                          trace=None):
+    """All substeps of one interval under ``spec.guard``: the plain guarded
+    body (``make_interval_body(guard, emit_risk=True)`` of the JAX package).
+
+    ``rows``: the interval's slices of the drive table and of each
+    micro-step table. ``decisions`` (B, n_substeps) bool replays recorded
+    outer decisions instead of evaluating the predicate (the adjoint's
+    replay: the gradient is the taken branch's, and the replay cannot take
+    another branch than the forward did). ``trace``: a list that receives
+    ``(travel, gap)``, each (B,), of every substep's predicate. Returns
+    ``((U, V, A), decisions)``.
+    """
+
+    risk = spec_risk(spec, fixed)
+    carry, taken = (U, V, A), []
+    for i in range(spec.n_substeps):
+        risky = None if decisions is None else decisions[:, i]
+        if risky is None:
+            with torch.no_grad():
+                risky = risk(carry, dt)
+                if trace is not None:
+                    trace.append((guard_travel(carry[1], carry[2], dt, spec.guard),
+                                  spec.gap_of(carry[0], fixed)))
+        carry = _guarded_step(carry, dt, i, 0, rows, fixed, spec, risk, create_graph, risky)
+        taken.append(risky)
+    return carry, torch.stack(taken, dim=1)
+
+
+def interval_rows(k, drive, micro, spec):
+    """Slices of the drive table and of each micro-step table that belong
+    to interval k."""
+
+    n = spec.n_substeps
+    rows = [drive[:, k * n:(k + 1) * n]]
+    for table in micro:
+        n *= spec.guard["refine"]
+        rows.append(table[:, k * n:(k + 1) * n])
+    return rows
+
+
+def plain_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec, micro=(), trace=None):
     """The plain PyTorch version of the trajectory kernel: every interval
-    through :func:`interval_body`, boundary states stacked to
-    ``(B, T-1, C, n2, n1)``. Counts its calls in ``plain_trajectory.calls``
-    so that a run can show the kernel path never reached it."""
+    through :func:`interval_body` (or :func:`guarded_interval_body`, which
+    appends to ``trace`` when given), boundary states stacked to ``(B,
+    T-1, C, n2, n1)``; guarded, also the per-interval flags ``(B, T-1)``
+    and per-substep decisions ``(B, (T-1) * n_substeps)``. Counts its calls
+    in ``plain_trajectory.calls`` so that a run can show the kernel path
+    never reached it."""
 
     plain_trajectory.calls += 1
-    n_sub = spec.n_substeps
     fixed = tuple(f.detach() for f in fixed)
     drive = drive.detach()
+    micro = tuple(m.detach() for m in micro)
     carry = (U0.detach(), V0.detach(), A0.detach())
-    outs = []
+    outs, decisions = [], []
     with torch.no_grad():
         for k in range(dts.shape[0]):
-            rows = drive[:, k * n_sub:(k + 1) * n_sub]
-            carry = interval_body(*carry, dts[k].detach(), rows, fixed, spec)
+            rows = interval_rows(k, drive, micro, spec)
+            if spec.guard is None:
+                carry = interval_body(*carry, dts[k].detach(), rows[0], fixed, spec)
+            else:
+                carry, taken = guarded_interval_body(*carry, dts[k].detach(), rows, fixed, spec,
+                                                     trace=trace)
+                decisions.append(taken.to(U0.device))
             outs.append(carry)
-    return tuple(torch.stack(x, dim=1) for x in zip(*outs))
+    stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
+    if spec.guard is None:
+        return stacked
+    decisions = torch.cat(decisions, dim=1)
+    flags = decisions.view(decisions.shape[0], dts.shape[0], spec.n_substeps).any(-1)
+    return stacked + (flags, decisions)
 
 
 plain_trajectory.calls = 0
@@ -133,36 +426,56 @@ plain_trajectory.calls = 0
 class VerletTrajectory(torch.autograd.Function):
     """Whole trajectory with a stored-boundary-state adjoint.
 
-    ``apply(spec, U0, V0, A0, dts, drive, *fixed) -> (outU, outV, outA)``.
-    The forward is ``spec.forward`` (the kernel for CUDA tensors, the plain
-    body for CPU tensors). The interval-boundary states it returns are
-    exact checkpoints, so the backward replays one interval at a time, in
-    reverse, through the plain body and differentiates it with autograd
-    (double backward through the force). This mirrors ``trajectory_bwd``
-    of ``difflexmm_tpu/ops/pallas/core.py`` in its unguarded mode.
+    ``apply(spec, U0, V0, A0, dts, drive, *micro, *fixed) -> (outU, outV,
+    outA)``, plus ``(flags, decisions)`` when ``spec.guard`` is set
+    (``len(micro) == spec.n_micro``). The forward is ``spec.forward`` (the
+    kernel for CUDA tensors, the plain body for CPU tensors). The
+    interval-boundary states it returns are exact checkpoints, so the
+    backward replays one interval at a time, in reverse, through the plain
+    body and differentiates it with autograd (double backward through the
+    force), as ``trajectory_bwd`` of ``difflexmm_tpu/ops/pallas/core.py``.
+
+    Guarded, an interval where no design fired replays the unguarded body:
+    up to the first firing substep the two coincide, so this is exact. An
+    interval that fired replays the guarded body with the forward's
+    recorded per-substep decisions. The flags and decisions are read back
+    to the host once per backward.
     """
 
     @staticmethod
-    def forward(ctx, spec, U0, V0, A0, dts, drive, *fixed):
-        outU, outV, outA = spec.forward(U0, V0, A0, dts, drive, fixed, spec)
+    def forward(ctx, spec, U0, V0, A0, dts, drive, *rest):
+        micro, fixed = rest[:spec.n_micro], rest[spec.n_micro:]
+        outs = spec.forward(U0, V0, A0, dts, drive, fixed, spec, micro)
         ctx.spec = spec
-        ctx.save_for_backward(U0, V0, A0, dts, drive, *fixed, outU, outV, outA)
-        return outU, outV, outA
+        ctx.save_for_backward(U0, V0, A0, dts, drive, *micro, *fixed, *outs)
+        if spec.guard is not None:
+            ctx.mark_non_differentiable(*outs[3:])
+        return outs
 
     @staticmethod
-    def backward(ctx, gU, gV, gA):
+    def backward(ctx, gU, gV, gA, *_):
         spec = ctx.spec
-        n_sub = spec.n_substeps
+        n_micro = spec.n_micro
         U0, V0, A0, dts, drive, *rest = ctx.saved_tensors
-        fixed, (outU, outV, outA) = rest[:-3], rest[-3:]
+        micro, rest = rest[:n_micro], rest[n_micro:]
+        n_out = 3 if spec.guard is None else 5
+        fixed, outs = rest[:-n_out], rest[-n_out:]
+        outU, outV, outA = outs[:3]
+        fired, decisions = [False] * dts.shape[0], None
+        if spec.guard is not None:  # one readback of the decisions
+            decisions = outs[4].cpu().view(U0.shape[0], dts.shape[0], spec.n_substeps)
+            fired = decisions.any(-1).any(0).tolist()
         need = ctx.needs_input_grad
-        need_dts, need_drive, need_fixed = need[4], need[5], need[6:]
+        need_dts, need_drive = need[4], need[5]
+        need_micro, need_fixed = need[6:6 + n_micro], need[6 + n_micro:]
+        need_tables = (need_drive, *need_micro)
+        tables = (drive, *micro)
 
         fixed_in = tuple(
             f.detach().requires_grad_(bool(n)) for f, n in zip(fixed, need_fixed)
         )
         d_fixed = [torch.zeros_like(f) if n else None for f, n in zip(fixed, need_fixed)]
-        d_drive = torch.zeros_like(drive) if need_drive else None
+        d_tables = [torch.zeros_like(t) if n else None for t, n in zip(tables, need_tables)]
         d_dts = torch.zeros_like(dts) if need_dts else None
         cot = (torch.zeros_like(U0), torch.zeros_like(V0), torch.zeros_like(A0))
 
@@ -174,11 +487,15 @@ class VerletTrajectory(torch.autograd.Function):
                 cin = (outU[:, k - 1], outV[:, k - 1], outA[:, k - 1])
             with torch.enable_grad():
                 carry = [x.detach().requires_grad_() for x in cin]
-                rows = drive[:, k * n_sub:(k + 1) * n_sub].detach()
-                rows.requires_grad_(need_drive)
+                rows = [r.detach().requires_grad_(bool(n)) for r, n in
+                        zip(interval_rows(k, drive, micro, spec), need_tables)]
                 dt = dts[k].detach().requires_grad_(need_dts)
-                out = interval_body(*carry, dt, rows, fixed_in, spec, create_graph=True)
-                extra = [rows] if need_drive else []
+                if fired[k]:
+                    out, _ = guarded_interval_body(*carry, dt, rows, fixed_in, spec,
+                                                   create_graph=True, decisions=decisions[:, k])
+                else:
+                    out = interval_body(*carry, dt, rows[0], fixed_in, spec, create_graph=True)
+                extra = [r for r in rows if r.requires_grad]
                 extra += [dt] if need_dts else []
                 extra += [f for f in fixed_in if f.requires_grad]
                 grads = torch.autograd.grad(
@@ -188,10 +505,14 @@ class VerletTrajectory(torch.autograd.Function):
                 torch.zeros_like(c) if g is None else g for g, c in zip(grads[:3], cot)
             )
             it = iter(grads[3:])
-            if need_drive:
-                g = next(it)
-                if g is not None:
-                    d_drive[:, k * n_sub:(k + 1) * n_sub] += g
+            n_rows = spec.n_substeps
+            for level, n in enumerate(need_tables):
+                if level:
+                    n_rows *= spec.guard["refine"]
+                if n:
+                    g = next(it)
+                    if g is not None:
+                        d_tables[level][:, k * n_rows:(k + 1) * n_rows] += g
             if need_dts:
                 g = next(it)
                 if g is not None:
@@ -201,4 +522,4 @@ class VerletTrajectory(torch.autograd.Function):
                     g = next(it)
                     if g is not None:
                         d_fixed[i] += g
-        return (None, *cot, d_dts, d_drive, *d_fixed)
+        return (None, *cot, d_dts, *d_tables, *d_fixed)

@@ -176,6 +176,46 @@ def _energy_of(U_eff, fixed, linearized, use_contact):
     )
 
 
+def quad_min_void_gap_planes(U, cnv, centroids, ccut):
+    """Min void angle minus the contact cutoff of each design, ``(B,)`` (the
+    guard's proximity term; JAX ``verlet_grid.py:201-243``, same corner
+    formula and order). ``U`` (B, 3, n2, n1), ``ccut`` (B, 1, 1)."""
+
+    ux, uy, th = U.unbind(-3)
+    cth, sth = torch.cos(th), torch.sin(th)
+    cx, cy = cnv[..., 0, :, :], cnv[..., 1, :, :]  # (B, 4, n2, n1) each
+    cen_x, cen_y = centroids[..., 0, :, :], centroids[..., 1, :, :]
+    px = [cen_x + ux + cth * cx[:, k] - sth * cy[:, k] for k in range(4)]
+    py = [cen_y + uy + sth * cx[:, k] + cth * cy[:, k] for k in range(4)]
+
+    def voids(c1, c2, s1, s2):
+        n1x, n1y = px[(c1 + 1) % 4][s1] - px[c1][s1], py[(c1 + 1) % 4][s1] - py[c1][s1]
+        p1x, p1y = px[(c1 - 1) % 4][s1] - px[c1][s1], py[(c1 - 1) % 4][s1] - py[c1][s1]
+        n2x, n2y = px[(c2 + 1) % 4][s2] - px[c2][s2], py[(c2 + 1) % 4][s2] - py[c2][s2]
+        p2x, p2y = px[(c2 - 1) % 4][s2] - px[c2][s2], py[(c2 - 1) % 4][s2] - py[c2][s2]
+        return (torch.amin(_angle(p2x, p2y, n1x, n1y), dim=(-2, -1)),
+                torch.amin(_angle(p1x, p1y, n2x, n2y), dim=(-2, -1)))
+
+    all_ = slice(None)
+    gaps = voids(0, 2, (all_, all_, slice(None, -1)), (all_, all_, slice(1, None)))
+    gaps += voids(1, 3, (all_, slice(None, -1), all_), (all_, slice(1, None), all_))
+    out = gaps[0]
+    for g in gaps[1:]:
+        out = torch.minimum(out, g)
+    return out - torch.amin(ccut, dim=(-2, -1))
+
+
+def _gap_of(U, fixed, use_contact):
+    """The quad barrier gap (JAX ``_quad_gap_of``): +inf where contact is off
+    or ``k_contact <= 0``, so that the proximity term never fires there."""
+
+    inf = U.new_full((U.shape[0],), float("inf"))
+    if not use_contact:
+        return inf
+    gap = quad_min_void_gap_planes(U, fixed[0], fixed[1], fixed[11])
+    return torch.where(torch.amin(fixed[12], dim=(-2, -1)) > 0, gap, inf)
+
+
 # ---------------------------------------------------------------------------
 # The kernel wrapper
 # ---------------------------------------------------------------------------
@@ -192,11 +232,17 @@ def _shapes(B, n1, n2):
 
 
 def _load_library():
-    lib = build.load("verlet_quad")
+    return type_library(build.load("verlet_quad"))
+
+
+def type_library(lib):
+    """Set the ctypes signatures of a loaded ``verlet_quad`` library."""
+
     if not getattr(lib, "_typed", False):
         lib.verlet_quad_launch.argtypes = [
             ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
+            ctypes.c_void_p,
         ]
         lib.verlet_quad_launch.restype = ctypes.c_int
         lib.verlet_quad_scratch_bytes.argtypes = [ctypes.c_int] * 3
@@ -222,34 +268,62 @@ def carry_bytes(n1: int, n2: int, dtype) -> tuple:
     return lib.verlet_quad_scratch_bytes(n1, n2, itemsize), available
 
 
+def _guard_params(guard):
+    """The resolved guard as the kernel's nine doubles: threshold,
+    has_proximity, proximity, has_hard, hard, has_length_scale,
+    length_scale, refine, relative translation."""
+
+    if guard["levels"] != 1:
+        raise NotImplementedError(
+            f"guard levels={guard['levels']}: the CUDA kernel refines one level "
+            "(levels > 1 runs on CPU tensors or with method='verlet_ckpt'); ROADMAP B2."
+        )
+    if tuple(guard["theta_channels"]) != (2,):
+        raise ValueError("verlet_quad guard: theta must be plane channel 2")
+    values = []
+    for key in ("proximity", "hard", "length_scale"):
+        values += [guard[key] is not None, guard[key] or 0.0]
+    values = [guard["threshold"], *values, guard["refine"], guard["translation"] == "relative"]
+    return (ctypes.c_double * 9)(*(float(v) for v in values))
+
+
 def verlet_quad_trajectory(
-    U0, V0, A0, dts, drive, fixed, spec, *, linearized, use_contact, drive_map
+    U0, V0, A0, dts, drive, fixed, spec, micro=(), *, linearized, use_contact, drive_map
 ):
     """Whole quad trajectory: ``(B, 3, n2, n1)`` initial state, ``(T-1,)``
     substep sizes, ``(B, (T-1) * n_sub, k)`` drive table and the
     :data:`N_FIXED_ARRAYS` fixed leaves -> ``(outU, outV, outA)``, each
-    ``(B, T-1, 3, n2, n1)``.
+    ``(B, T-1, 3, n2, n1)``. With ``spec.guard`` it also takes the
+    micro-step table ``micro[0]`` ``(B, (T-1) * n_sub * refine, k)`` and
+    returns the per-interval flags ``(B, T-1)`` and per-substep decisions
+    ``(B, (T-1) * n_sub)`` (bool).
 
     CPU tensors go through the plain body (``core.plain_trajectory``).
     CUDA tensors launch ``csrc/verlet_quad.cu`` or raise: there is no
-    fallback. Each launch adds one to ``verlet_quad_trajectory.launches``.
+    fallback. Each launch adds one to ``verlet_quad_trajectory.launches``
+    (unguarded) or ``verlet_quad_trajectory.guarded_launches``.
     """
 
     if U0.device.type == "cpu":
-        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec)
+        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro)
     if U0.device.type != "cuda":
         raise ValueError(f"verlet_quad_trajectory: unsupported device {U0.device}")
 
-    tensors = (U0, V0, A0, dts, drive, *fixed)
+    guard = None if spec.guard is None else _guard_params(spec.guard)
     dtype = U0.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"verlet_quad_trajectory: dtype {dtype} (float32/float64 only)")
     B, C, n2, n1 = U0.shape
     n_sub = spec.n_substeps
     n_int = dts.shape[0]
-    expected = ((B, 3, n2, n1),) * 3 + ((n_int,), (B, n_int * n_sub, drive.shape[-1]))
+    k_drive = drive.shape[-1]
+    tensors = (U0, V0, A0, dts, drive, *fixed, *micro)
+    expected = ((B, 3, n2, n1),) * 3 + ((n_int,), (B, n_int * n_sub, k_drive))
     expected += _shapes(B, n1, n2)
-    if len(fixed) != N_FIXED_ARRAYS or C != 3 or drive.shape[-1] < 1:
+    if guard is not None:
+        expected += ((B, n_int * n_sub * spec.guard["refine"], k_drive),)
+    if (len(fixed) != N_FIXED_ARRAYS or C != 3 or k_drive < 1
+            or len(micro) != spec.n_micro):
         raise ValueError("verlet_quad_trajectory: malformed arguments")
     for i, (t, shape) in enumerate(zip(tensors, expected)):
         if t.device != U0.device or t.dtype != dtype:
@@ -264,26 +338,35 @@ def verlet_quad_trajectory(
     with torch.cuda.device(U0.device):
         outs = tuple(torch.empty((B, n_int, 3, n2, n1), dtype=dtype, device=U0.device)
                      for _ in range(3))
+        if guard is not None:
+            outs += (torch.empty((B, n_int), dtype=torch.bool, device=U0.device),
+                     torch.empty((B, n_int * n_sub), dtype=torch.bool, device=U0.device))
         scratch, max_smem = carry_bytes(n1, n2, dtype)
         workspace = None
         if scratch > max_smem:
             workspace = torch.empty(B * scratch // itemsize, dtype=dtype, device=U0.device)
-        pointers = [t.data_ptr() for t in (U0, V0, A0, dts, drive, drive_map, *fixed, *outs)]
+        pointers = [t.data_ptr() for t in (U0, V0, A0, dts, drive, drive_map, *fixed, *outs[:3])]
         pointers.append(workspace.data_ptr() if workspace is not None else None)
+        if guard is not None:
+            pointers += [micro[0].data_ptr(), outs[4].data_ptr(), outs[3].data_ptr()]
         ptrs = (ctypes.c_void_p * len(pointers))(*pointers)
-        dims = (ctypes.c_int * 6)(B, n1, n2, n_int, n_sub, drive.shape[-1])
+        dims = (ctypes.c_int * 6)(B, n1, n2, n_int, n_sub, k_drive)
         stream = torch.cuda.current_stream(U0.device).cuda_stream
         err = _load_library().verlet_quad_launch(
-            ptrs, dims, itemsize, int(linearized), int(use_contact), stream
+            ptrs, dims, itemsize, int(linearized), int(use_contact), guard, stream
         )
     if err != 0:
         message = _load_library().verlet_quad_error_string(err).decode()
         raise RuntimeError(f"verlet_quad launch failed: {message} ({err})")
-    verlet_quad_trajectory.launches += 1
+    if guard is None:
+        verlet_quad_trajectory.launches += 1
+    else:
+        verlet_quad_trajectory.guarded_launches += 1
     return outs
 
 
 verlet_quad_trajectory.launches = 0
+verlet_quad_trajectory.guarded_launches = 0
 
 
 def quad_trajectory_spec(
@@ -296,6 +379,7 @@ def quad_trajectory_spec(
     linearized: bool = False,
     use_contact: bool = True,
     kernel: bool = True,
+    guard=None,
 ) -> core.TrajectorySpec:
     """The quad lattice's :class:`core.TrajectorySpec`.
 
@@ -303,6 +387,8 @@ def quad_trajectory_spec(
     driven slot and the drive-table column it takes (one entry per slot).
     ``kernel=False`` makes the forward the plain body on every device (the
     JAX package's ``verlet_ckpt``: same math and adjoint, no kernel).
+    ``guard``: a resolved guard spec (``core.resolve_guard`` with
+    ``theta_channels=(2,)``) or None.
     """
 
     slots = torch.as_tensor(drive_slots, dtype=torch.int64, device=device)
@@ -317,4 +403,8 @@ def quad_trajectory_spec(
     else:
         forward = core.plain_trajectory
     energy_of = functools.partial(_energy_of, linearized=linearized, use_contact=use_contact)
-    return core.TrajectorySpec(n_substeps, energy_of, forward, slots, cols)
+    return core.TrajectorySpec(
+        n_substeps, energy_of, forward, slots, cols,
+        guard=guard,
+        gap_of=functools.partial(_gap_of, use_contact=use_contact),
+    )

@@ -60,15 +60,18 @@ def setup_dynamic_solver(
     any shape and returns values broadcastable to ``t.shape + (k,)`` for
     the k constrained pairs (the JAX version takes scalar times).
     ``quad_grid``: dict with n1, n2 and optional linearized / use_contact.
+    ``guard``: reactive substep escalation, a spec dict as for the JAX
+    solver (``core.resolve_guard``; translation "relative" by default,
+    theta is channel 2). Substeps whose predicted travel is risky re-run as
+    ``refine`` micro-steps. CUDA tensors run the guarded kernel (one
+    level); CPU tensors, or ``method="verlet_ckpt"``, the plain guarded
+    body (any depth).
 
     Options of the JAX solver that this port does not implement yet raise
     ``NotImplementedError`` naming the ROADMAP item; none is ignored.
     """
 
-    if guard is not None:
-        raise NotImplementedError(
-            "guard (reactive substep escalation) is not ported yet: ROADMAP A6 / B2."
-        )
+    guard = core.resolve_guard(guard, theta_channels=(2,))
     if kagome_grid is not None:
         raise NotImplementedError("kagome lattices are not ported yet: ROADMAP A9 / B4.")
     if loaded_block_DOF_pairs is not None or loading_fn is not None:
@@ -113,7 +116,7 @@ def setup_dynamic_solver(
             specs[device] = quad_trajectory_spec(
                 n1, n2, n_substeps, plane_slots, c_ids, device,
                 linearized=linearized, use_contact=use_contact,
-                kernel=method != "verlet_ckpt",
+                kernel=method != "verlet_ckpt", guard=guard,
             )
         return specs[device]
 
@@ -179,8 +182,18 @@ def setup_dynamic_solver(
         # dt = (t1 - t0) / n, t_start = t0 + i * dt, t_end = t_start + dt.
         dts = (ts[1:] - ts[:-1]) / n_substeps
         i = torch.arange(n_substeps, **like)
-        t_end = (ts[:-1, None] + i[None, :] * dts[:, None]) + dts[:, None]
-        drive = drive_table(t_end.reshape(-1))[None].contiguous()
+        starts = ts[:-1, None] + i[None, :] * dts[:, None]
+        drive = drive_table((starts + dts[:, None]).reshape(-1))[None].contiguous()
+        # Micro-step end times, one table per guard level, as the guarded
+        # stepper computes them: ddt = dt / refine, start_j = start + j * ddt,
+        # end_j = start_j + ddt.
+        micro = []
+        step = dts
+        for _ in range(0 if guard is None else guard["levels"]):
+            step = step / guard["refine"]
+            ddt = step.view((-1,) + (1,) * starts.dim())
+            starts = starts[..., None] + torch.arange(guard["refine"], **like) * ddt
+            micro.append(drive_table((starts + ddt).reshape(-1))[None].contiguous())
 
         U0 = to_planes(y0[0], n1, n2)[None].contiguous()
         V0 = to_planes(y0[1], n1, n2)[None].contiguous()
@@ -190,7 +203,7 @@ def setup_dynamic_solver(
             create_graph=torch.is_grad_enabled(),
         )
         A0 = (F0 - damping_p * V0) * (mask_p / inertia_p)
-        args = core.TrajectoryArgs(spec, U0, V0, A0, dts, drive, fixed)
+        args = core.TrajectoryArgs(spec, U0, V0, A0, dts, drive, fixed, tuple(micro))
         return args, y0, ts, drive_values
 
     def trajectory_args(state0, timepoints, control_params: ControlParams):
@@ -203,7 +216,7 @@ def setup_dynamic_solver(
         """Integrate the dynamics; output (T, 2, n_blocks, 3)."""
 
         args, y0, ts, drive_values = prepare(state0, timepoints, control_params)
-        outU, outV, _ = core.VerletTrajectory.apply(*args[:-1], *args.fixed)
+        outU, outV = core.apply(args)[:2]
         out = torch.stack([outU[0], outV[0]], dim=1)  # (T-1, 2, 3, n2, n1)
         ys = torch.cat([y0[None], fields_from_planes(out, n_blocks)])
 

@@ -1,9 +1,12 @@
 """State carried across from the JAX package.
 
-``design_from_numpy`` turns a numpy design into tensors, and
+``design_from_numpy`` turns a numpy design into tensors,
 ``forward_problem_from_jax_dict`` rebuilds a JAX ``ForwardProblem`` (its
-``to_dict()``, arrays as numpy) as this port's ``ForwardProblem``, so that
-one dict and one numpy design drive both packages.
+``to_dict()``, arrays as numpy; the substep ``guard`` included) as this
+port's ``ForwardProblem``, and ``optimization_problem_from_jax_dict`` does
+the same for a JAX quads-focusing ``OptimizationProblem`` (target patch
+and iteration histories), so that one dict and one numpy design drive
+both packages.
 """
 
 import dataclasses
@@ -11,20 +14,20 @@ import dataclasses
 import numpy as np
 import torch
 
-from difflexmm_tpu_torch.models.quads_focusing import ForwardProblem
+from difflexmm_tpu_torch.models.quads_focusing import ForwardProblem, OptimizationProblem
 
 # JAX ForwardProblem fields that this port does not carry:
 # atol / rtol tune the odeint backend only, which the fast path never runs.
 _INERT_FIELDS = ("atol", "rtol")
 
 
-def design_from_numpy(design, device=None, dtype=torch.float64):
+def design_from_numpy(design, device="cuda", dtype=torch.float64):
     """``(horizontal_shifts, vertical_shifts)`` numpy arrays -> tensors."""
 
-    return tuple(torch.as_tensor(np.asarray(x), device=device, dtype=dtype) for x in design)
+    return tuple(torch.tensor(np.asarray(x), device=device, dtype=dtype) for x in design)
 
 
-def forward_problem_from_jax_dict(d: dict, device="cpu", dtype=torch.float64) -> ForwardProblem:
+def forward_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64) -> ForwardProblem:
     """This port's ``ForwardProblem`` from the dict of the JAX
     ``ForwardProblem.to_dict()``. Options the port lacks raise."""
 
@@ -41,3 +44,27 @@ def forward_problem_from_jax_dict(d: dict, device="cpu", dtype=torch.float64) ->
         raise ValueError(f"JAX ForwardProblem fields the port does not know: {sorted(unknown)}")
     data.update(device=device, dtype=dtype, is_setup=False)
     return ForwardProblem(**data)
+
+
+def optimization_problem_from_jax_dict(d: dict, device="cuda",
+                                       dtype=torch.float64) -> OptimizationProblem:
+    """This port's quads-focusing ``OptimizationProblem`` from the dict of the
+    JAX ``OptimizationProblem.to_dict()`` (its forward problem as above;
+    the histories' designs as numpy pairs)."""
+
+    data = dict(d)
+    unknown = set(data) - {f.name for f in dataclasses.fields(OptimizationProblem)}
+    if unknown:
+        raise ValueError(f"JAX OptimizationProblem fields the port does not know: "
+                         f"{sorted(unknown)}")
+    data["forward_problem"] = forward_problem_from_jax_dict(
+        data["forward_problem"], device=device, dtype=dtype)
+    data["objective_values"] = [float(v) for v in data.get("objective_values") or []]
+    data["design_values"] = [design_from_numpy(x, device, dtype)
+                             for x in data.get("design_values") or []]
+    violation = data.get("constraints_violation")
+    if violation is not None:
+        data["constraints_violation"] = {k: [float(v) for v in vs] for k, vs in violation.items()}
+    data.update(target_size=tuple(data["target_size"]), target_shift=tuple(data["target_shift"]),
+                is_setup=False)
+    return OptimizationProblem(**data)

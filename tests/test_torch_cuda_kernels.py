@@ -1,12 +1,15 @@
-"""The hand-written trajectory kernel against its plain PyTorch version on
-a CUDA device. Marked ``cuda``: skipped (with the reason) where there is
-no CUDA device; on a machine with one, run
+"""The hand-written trajectory kernels against their plain PyTorch versions
+on a CUDA device: kernel 1 (unguarded) and kernel 1g (guarded). Marked
+``cuda``: skipped (with the reason) where there is no CUDA device; on a
+machine with one, run
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 
 Tolerances as in ``chip_smoke.py``: float64 kernel vs plain body within
-1e-9 of the field scale (rounding only); at float32 both are held against
-the float64 plain body on the same inputs, and the kernel's error may be
-at most three times the plain body's (floor 1e-5).
+1e-9 of the field scale (rounding only), with identical per-substep guard
+decisions; at float32 both are held against the float64 plain body on the
+same inputs, and the kernel's error may be at most three times the plain
+body's (floor 1e-5). Where the guard fires nowhere, the guarded kernel
+matches the unguarded one within 1e-12 at float64.
 """
 
 import numpy as np
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 from difflexmm_tpu_torch import kernel_checks as kc
+from difflexmm_tpu_torch.models.flagship import build_flagship
 from difflexmm_tpu_torch.ops.kernels import core
 from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
 
@@ -28,30 +32,36 @@ def device():
 
 
 def _plain(args):
-    return core.plain_trajectory(*args[1:], args.spec)
+    return core.plain_trajectory(*args[1:7], args.spec, args.micro)
 
 
 def _kernel(args):
-    launches = verlet_quad_trajectory.launches
+    counter = "launches" if args.spec.guard is None else "guarded_launches"
+    launches = getattr(verlet_quad_trajectory, counter)
     calls = core.plain_trajectory.calls
-    outs = args.spec.forward(*args[1:], args.spec)
-    assert verlet_quad_trajectory.launches == launches + 1
+    outs = core.trajectory_forward(args)
+    assert getattr(verlet_quad_trajectory, counter) == launches + 1
     assert core.plain_trajectory.calls == calls
     return outs
 
 
 def _assert_matches(args64, dtype):
     if dtype == torch.float64:
-        for k, p in zip(_kernel(args64), _plain(args64)):
+        kernel, plain = _kernel(args64), _plain(args64)
+        for k, p in zip(kernel[:3], plain[:3]):
             assert torch.isfinite(k).all()
             assert kc.max_rel_err(k, p) <= 1e-9
-        return
+        for k, p in zip(kernel[3:], plain[3:]):  # guarded: flags, decisions
+            assert torch.equal(k, p)
+        return kernel
     args32 = kc.cast(args64, torch.float32)
     ref = _plain(kc.cast(args32, torch.float64))
-    for k, p, r in zip(_kernel(args32), _plain(args32), ref):
+    kernel = _kernel(args32)
+    for k, p, r in zip(kernel[:3], _plain(args32)[:3], ref[:3]):
         assert torch.isfinite(k).all()
         bound = max(3.0 * kc.max_rel_err(p.double(), r), 1e-5)
         assert kc.max_rel_err(k.double(), r) <= bound
+    return kernel
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -79,3 +89,58 @@ def test_lattice_beyond_shared_memory(device):
     rng = np.random.default_rng(1)
     _assert_matches(kc.batched_args(problem, [kc.random_design(problem, rng)] * 2),
                     torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_guarded_contact_probe_fires_both_terms(device, dtype):
+    args, _ = kc.contact_probe(device=device, guard="auto")
+    _, summary = kc.guard_terms(args)
+    assert summary["fired_hard"] > 0 and summary["fired_proximity"] > 0
+    _assert_matches(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_guarded_batch_decides_per_design(device, dtype):
+    # A violent design and a tame one in one launch: each block decides on
+    # its own, as the plain body's per-design torch.where does.
+    violent = kc.small_problem(device=device, guard="auto")
+    rng = np.random.default_rng(2)
+    args = kc.batched_args(violent, [kc.random_design(violent, rng) for _ in range(2)])
+    tame = kc.batched_args(kc.small_problem(device=device, guard="auto", amplitude_scale=0.01),
+                           [kc.random_design(violent, rng)])
+    both = core.TrajectoryArgs(
+        args.spec, *(torch.cat([getattr(args, f), getattr(tame, f)]) for f in ("U0", "V0", "A0")),
+        args.dts, torch.cat([args.drive, tame.drive]),
+        tuple(torch.cat([a, b]).contiguous() for a, b in zip(args.fixed, tame.fixed)),
+        tuple(torch.cat([a, b]).contiguous() for a, b in zip(args.micro, tame.micro)))
+    kernel = _assert_matches(both, dtype)
+    if dtype == torch.float64:
+        assert kernel[4][:2].any() and not kernel[4][2].any()
+
+
+def test_guarded_kernel_equals_unguarded_where_nothing_fires(device):
+    problem = kc.small_problem(device=device, guard="auto", amplitude_scale=0.01)
+    args = kc.batched_args(problem, [kc.random_design(problem, np.random.default_rng(3))])
+    guarded = _assert_matches(args, torch.float64)
+    assert not guarded[4].any()
+    unguarded = _kernel(args._replace(spec=args.spec._replace(guard=None), micro=()))
+    for g, u in zip(guarded[:3], unguarded):
+        assert kc.max_rel_err(g, u) <= 1e-12
+
+
+def test_guarded_kernel_refuses_more_than_one_level(device):
+    problem = kc.small_problem(n_timepoints=3, device=device, guard=dict(window=0.1, levels=2))
+    args = kc.batched_args(problem, [kc.random_design(problem, np.random.default_rng(4))])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        core.trajectory_forward(args)
+
+
+def test_guarded_objective_runs_the_guarded_kernel(device):
+    optimization, design = build_flagship(device=device, guard="auto")
+    launches = verlet_quad_trajectory.guarded_launches
+    calls = core.plain_trajectory.calls
+    d = tuple(x.clone().requires_grad_() for x in design)
+    value = optimization.objective_fn(d)
+    assert verlet_quad_trajectory.guarded_launches == launches + 1
+    assert core.plain_trajectory.calls == calls
+    assert torch.isfinite(value)

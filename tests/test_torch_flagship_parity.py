@@ -68,7 +68,7 @@ def small():
 
 
 def _port(jax_dict):
-    problem = forward_problem_from_jax_dict(jax_dict)
+    problem = forward_problem_from_jax_dict(jax_dict, device="cpu")
     optimization = OptimizationProblem(problem, **TARGET)
     optimization.setup_objective()
     return optimization
@@ -77,7 +77,8 @@ def _port(jax_dict):
 def test_trajectory_matches_jax(small):
     optimization = _port(small["jax_dict"])
     with torch.no_grad():
-        fields = optimization.forward_problem.solve(design_from_numpy(small["design"])).fields
+        design = design_from_numpy(small["design"], device="cpu")
+        fields = optimization.forward_problem.solve(design).fields
     ref = small["fields"]
     assert fields.shape == ref.shape
     assert np.abs(ref).max() > 1.0  # the pulse went through
@@ -87,7 +88,7 @@ def test_trajectory_matches_jax(small):
 
 def test_objective_and_design_gradient_match_jax(small):
     optimization = _port(small["jax_dict"])
-    design = tuple(x.requires_grad_() for x in design_from_numpy(small["design"]))
+    design = tuple(x.requires_grad_() for x in design_from_numpy(small["design"], device="cpu"))
     value = optimization.objective_fn(design)
     grads = torch.autograd.grad(value, design)
     assert abs(float(value.detach()) - small["value"]) <= 1e-10 * abs(small["value"])
@@ -96,7 +97,7 @@ def test_objective_and_design_gradient_match_jax(small):
 
 
 def test_forward_problem_dict_roundtrip(small):
-    problem = forward_problem_from_jax_dict(small["jax_dict"])
+    problem = forward_problem_from_jax_dict(small["jax_dict"], device="cpu")
     again = ForwardProblem.from_dict(problem.to_dict())
     assert again.to_dict().keys() == problem.to_dict().keys()
     assert again.n1_blocks == 8 and again.method == "verlet_ckpt" and not again.is_setup
@@ -112,12 +113,12 @@ def test_forward_problem_dict_roundtrip(small):
 )
 def test_jax_dict_options_the_port_lacks_raise(small, change, error):
     with pytest.raises(error):
-        forward_problem_from_jax_dict({**small["jax_dict"], **change})
+        forward_problem_from_jax_dict({**small["jax_dict"], **change}, device="cpu")
 
 
 @pytest.mark.slow
 def test_flagship_f64_objective_matches_jax_verlet():
-    optimization, design = build_flagship()
+    optimization, design = build_flagship(device="cpu")
     with torch.no_grad():
         value = float(optimization.objective_fn(design))
     assert abs(value - JAX_F64_OBJECTIVE) <= 1e-8 * JAX_F64_OBJECTIVE

@@ -119,11 +119,11 @@ def _plane_inputs(contact: bool, seed: int = 0):
 
     rng = np.random.default_rng(seed)
     if contact:
-        args, _ = kc.contact_probe()
+        args, _ = kc.contact_probe(device="cpu")
         U = args.U0 * args.fixed[-1] + core.drive_planes(args.drive[:, 0], args.spec, args.U0)
         U = U[0].numpy() + rng.normal(0, [[[0.01]], [[0.01]], [[0.002]]], size=(3, 6, 8))
     else:
-        problem = kc.small_problem()
+        problem = kc.small_problem(device="cpu")
         args = kc.batched_args(problem, [kc.random_design(problem, rng)])
         U = rng.normal(0, [[[0.3]], [[0.3]], [[0.05]]], size=(3, 6, 8))
     fixed = [x[0].numpy() for x in args.fixed[:10]]
@@ -155,7 +155,7 @@ def test_plane_energy_and_force_match_jax(contact, linearized):
 
 
 def test_stored_state_adjoint_matches_autograd_through_plain_loop():
-    problem = kc.small_problem(n_timepoints=6, n_substeps=3)
+    problem = kc.small_problem(n_timepoints=6, n_substeps=3, device="cpu")
     rng = np.random.default_rng(3)
     args = kc.batched_args(problem, [kc.random_design(problem, rng) for _ in range(2)])
     spec = args.spec
@@ -191,10 +191,10 @@ def test_stored_state_adjoint_matches_autograd_through_plain_loop():
 
 
 def test_kernel_wrapper_runs_plain_body_only_for_cpu_tensors():
-    problem = kc.small_problem(n_timepoints=3, n_substeps=2)
+    problem = kc.small_problem(n_timepoints=3, n_substeps=2, device="cpu")
     args = kc.batched_args(problem, [problem.geometry.get_design_from_rotated_square(0.4)])
     calls = core.plain_trajectory.calls
-    outs = args.spec.forward(*args[1:], args.spec)
+    outs = core.trajectory_forward(args)
     assert core.plain_trajectory.calls == calls + 1
     assert outs[0].shape == (1, 2, 3, 6, 8)
     # A tensor that is neither on the CPU nor on a CUDA device is refused:
@@ -210,7 +210,6 @@ def test_kernel_wrapper_runs_plain_body_only_for_cpu_tensors():
 @pytest.mark.parametrize(
     "option, roadmap",
     [
-        (dict(guard={"window": 0.1}), "A6"),
         (dict(kagome_grid={"n1": 2, "n2": 2}), "A9"),
         (dict(loaded_block_DOF_pairs=[[0, 0]], loading_fn=lambda s, t: 1.0), "A10"),
         (dict(method="rk4"), "A12"),
@@ -224,7 +223,43 @@ def test_unported_solver_options_raise(option, roadmap):
         setup_dynamic_solver(**kwargs)
 
 
-def test_model_guard_raises():
-    problem = ForwardProblem(**{**paper_config(), "guard": "auto"})
-    with pytest.raises(NotImplementedError, match="A6"):
-        problem.setup()
+@pytest.mark.parametrize("method", ["auto", "verlet_ckpt"])
+def test_solver_takes_a_guard(method):
+    # The substep guard is ported: the solver resolves the spec (theta is
+    # plane channel 2, translation relative) and hands it to the trajectory
+    # with one micro-step drive table per level.
+    problem = kc.small_problem(n_timepoints=3, n_substeps=2, device="cpu", method=method,
+                               guard=dict(window=0.1, levels=2))
+    args = kc.batched_args(problem, [problem.geometry.get_design_from_rotated_square(0.4)])
+    guard = args.spec.guard
+    assert guard["theta_channels"] == (2,) and guard["translation"] == "relative"
+    assert guard["length_scale"] == problem.spacing and guard["levels"] == 2
+    assert [m.shape for m in args.micro] == [
+        (1, 2 * 2 * 16**level, args.drive.shape[-1]) for level in (1, 2)]
+    outs = core.trajectory_forward(args)
+    assert len(outs) == 5 and outs[3].shape == (1, 2) and outs[4].shape == (1, 4)
+
+
+def test_model_guard_resolves_to_the_solver_spec():
+    problem = ForwardProblem(**{**paper_config(device="cpu"), "guard": "auto"})
+    problem.setup()
+    args = problem.solve_dynamics.trajectory_args(
+        problem.state0, problem.timepoints,
+        problem.control_params(problem.geometry.get_design_from_rotated_square(0.4)))
+    window = math.radians(5.0)
+    guard = args.spec.guard
+    assert guard["threshold"] == pytest.approx(0.02 * window)
+    assert guard["proximity"] == pytest.approx(2 * window)
+    assert guard["hard"] == pytest.approx(0.1 * window)
+    assert guard["length_scale"] == 15.0 and guard["refine"] == 16 and guard["levels"] == 1
+
+
+def test_entry_points_default_to_the_card():
+    # With no device named the port asks for CUDA, and without a card it
+    # raises instead of running on the CPU.
+    assert ForwardProblem(**{k: v for k, v in paper_config().items()
+                             if k != "device"}).device == "cuda"
+    assert paper_config()["device"] == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            kc.small_problem(n_timepoints=3, n_substeps=2)
