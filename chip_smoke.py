@@ -4,19 +4,26 @@
     python3 chip_smoke.py
 
 Builds the hand-written trajectory kernels from ``difflexmm_tpu_torch/csrc``
-into ``build/kernels`` and holds each against its plain PyTorch version:
-the unguarded kernel (kernel 1) and the guarded kernel (kernel 1g, per-
-substep decisions identical at float64). Then it drives the two main
-paths of the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps):
-the value and design gradient of ``OptimizationProblem.objective_fn``
-(kernel 1), and the guarded constrained optimizer
+into ``build/kernels`` (one nvcc per source, in parallel) and holds each
+against its plain PyTorch version on the same inputs: the quad kernels
+(kernel 1, unguarded, and kernel 1g, guarded, per-substep decisions
+identical at float64) and the kagome kernels (1K and 1Kg, the same). The
+plain version's runs go to worker processes on the host's CPU cores while
+the kernels build. Then it drives four main paths.
+On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
+value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
+1), and the guarded constrained optimizer
 ``OptimizationProblem.run_optimization_mma`` (kernel 1g, two iterations at
 float64 held against the JAX package's recorded history and gradients,
-two at float32 timed). Objectives and float64 design gradients are checked
-against the JAX package's float64 values, and the kernels are timed
-against their plain versions. Fails (non-zero
-exit, no result line) without a CUDA device or outside a checkout of the
-repository. Imports no JAX.
+one at float32 timed). On the kagome configuration
+(``examples/configs/kagome_focusing.json``: 16 x 16 cells, 200
+timepoints, 10 substeps): the value and design gradient (kernel 1K), and
+``run_optimization_mma`` with the configuration's settings (kernel 1Kg, two
+iterations at float64 held against the JAX history and gradients).
+Objectives and float64 design gradients are checked against the JAX
+package's float64 values, and the kernels are timed against their plain
+versions. Fails (non-zero exit, no result line) without a CUDA device or
+outside a checkout of the repository. Imports no JAX.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernels with their launches on the main
@@ -56,6 +63,13 @@ GUARD_NOOP_TOL = 1e-12
 F64_FORCE_TOL = 1e-12
 # Flagship objectives against the JAX float64 values.
 OBJECTIVE_TOL = {"float64": 1e-8, "float32": 1e-4}
+# The guarded kagome objective at float32: the guard fires on about 140 of
+# the configuration's 1,990 substeps, and each refined substep amplifies
+# rounding, so the float32 fields differ from float64 by about 3e-3 of
+# their scale (in the plain body as in the kernel, on an H100), ten times
+# the unguarded configuration's difference; the float32 objective is held
+# at ten times the unguarded limit.
+GUARDED_KAGOME_F32_TOL = 1e-3
 # Float64 design gradients against JAX's, compared as (|g|, sum g, g . r)
 # (models/flagship.py) relative to the largest of the three: the adjoint
 # replays the same plain body as JAX in the same order, so the kernel
@@ -74,6 +88,12 @@ GRAD_TOL = 1e-7
 # any change of step (a move of 0.84 mm changes the objective by O(1)).
 MMA_TOL = 1e-7
 MMA_ITERATIONS = 2
+# The float32 flagship MMA is timed, not checked against JAX: one
+# iteration leaves room in the time limit for the kagome paths.
+MMA_ITERATIONS_F32 = 1
+# Worker processes for the plain body's runs (one core each): the card's
+# machine has 8 cores, two of which the builds take at first.
+PLAIN_WORKERS = 5
 
 
 def log(*parts):
@@ -92,11 +112,15 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
+#: Checks that failed; the script goes on to its end and then exits 1.
+FAILED = []
+
+
 def check(name, err, tol):
     ok = err <= tol
     log(f"  {name}: max rel err {err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name}: error {err:.3e} above tolerance {tol:.1e}")
+        FAILED.append(f"{name}: error {err:.3e} above tolerance {tol:.1e}")
 
 
 def stats_err(got, ref):
@@ -107,10 +131,26 @@ def stats_err(got, ref):
 
 
 def main():
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    pool = ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        smoke(pool)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def smoke(pool):
+    """Everything but the set-up: ``pool`` runs the plain body's
+    trajectories (see below)."""
+
+    import torch
+
     device = torch.device("cuda")
     started = time.perf_counter()
 
@@ -124,47 +164,127 @@ def main():
 
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from difflexmm_tpu_torch import kernel_checks as kc
     from difflexmm_tpu_torch.models import flagship as fl
+    from difflexmm_tpu_torch.models import kagome_config as kg
     from difflexmm_tpu_torch.ops.kernels import build, core
     from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
+    from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
 
     f64, f32 = torch.float64, torch.float32
     dtypes = (f64, f32)
-    results = {"verlet_quad": {}, "verlet_quad_guarded": {}}
+    results = {"verlet_quad": {}, "verlet_quad_guarded": {}, "verlet_kagome": {},
+               "verlet_kagome_guarded": {}}
 
-    def plain(args, **kwargs):
-        return core.plain_trajectory(*args[1:7], args.spec, args.micro, **kwargs)
+    def reset_counts():
+        """Every launch count and the plain-body count to 0."""
+
+        for wrapper in (verlet_quad_trajectory, verlet_kagome_trajectory):
+            wrapper.launches = wrapper.guarded_launches = 0
+        core.plain_trajectory.calls = 0
 
     def finite(outs, label):
         for name, x in zip("UVA", outs):
             if not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"{label}: {name} is not finite")
 
-    def against_plain(args64, label, plain64=None):
-        """The kernel (``args.spec.forward``) against the plain body on the
-        same inputs, at float64 and at float32 (tolerances above). Returns
-        ``(kernel outputs, plain outputs)`` at float64 and the errors."""
+    # -- build: one nvcc per source, started together, in the background ---------
+    t0 = time.perf_counter()
+    sources = ("verlet_quad", "verlet_kagome")
+    builders = ThreadPoolExecutor(len(sources))
+    builds = [builders.submit(build.load, name) for name in sources]
 
+    # -- the inputs, and the plain body's runs on them --------------------------
+    # The plain body (``core.plain_trajectory``) takes seconds to minutes per
+    # trajectory where the kernel takes milliseconds: the host launches
+    # each of its small operations. Its runs go to worker processes, one CPU
+    # core each, on CPU copies of the very inputs the kernels get, and run
+    # while the kernels build and the checks go on.
+    rng = np.random.default_rng(0)
+    small = kc.small_problem(device=device, dtype=f64)
+    cases = {f"small 8x6 B={B}": kc.batched_args(small, [kc.random_design(small, rng)
+                                                         for _ in range(B)]) for B in (1, 4)}
+    # A lattice whose carry does not fit in shared memory: global workspace.
+    big = kc.small_problem(n1=56, n2=48, n_timepoints=3, n_substeps=4, device=device,
+                           dtype=f64, simulation_time=2.7e-4)
+    cases["workspace 56x48 B=2"] = kc.batched_args(big, [kc.random_design(big, rng)] * 2)
+    probe, mag = kc.contact_probe(device=device, dtype=f64)
+    cases["contact probe"] = probe
+    flagship_opt, flagship_design = fl.build_flagship(device=device, dtype=f64)
+    cases["flagship 24x16"] = kc.batched_args(flagship_opt.forward_problem, [flagship_design])
+    # Guarded: both the proximity and the hard term fire on the probe;
+    # nothing fires on the tame case.
+    cases["contact probe auto"] = kc.contact_probe(device=device, dtype=f64, guard="auto")[0]
+    cases["small 8x6 tame auto"] = kc.batched_args(
+        kc.small_problem(device=device, guard="auto", amplitude_scale=0.01),
+        [kc.random_design(small, rng)])
+    cases["flagship 24x16 auto"] = kc.batched_args(
+        fl.build_flagship(device=device, dtype=f64, guard="auto")[0].forward_problem,
+        [flagship_design])
+    small_k = kc.small_kagome(device=device, dtype=f64)
+    cases.update({f"kagome 4x3 B={B}": kc.batched_args(
+        small_k, [kc.random_kagome_design(small_k, rng) for _ in range(B)]) for B in (1, 4)})
+    kprobe, kmag = kc.kagome_contact_probe(device=device, dtype=f64)
+    cases["kagome contact probe"] = kprobe
+    kagome_opt, kagome_design = kg.build_kagome(device=device, dtype=f64)
+    cases["kagome 16x16"] = kc.batched_args(kagome_opt.forward_problem, [kagome_design])
+    cases["kagome contact probe auto"] = kc.kagome_contact_probe(device=device, dtype=f64,
+                                                                 guard="auto")[0]
+    cases["kagome 4x3 tame auto"] = kc.batched_args(
+        kc.small_kagome(device=device, guard="auto", amplitude_scale=0.01),
+        [kc.random_kagome_design(small_k, rng)])
+    cases["kagome 16x16 auto"] = kc.batched_args(
+        kg.build_kagome(device=device, dtype=f64, guard="auto")[0].forward_problem,
+        [kagome_design])
+
+    plain_jobs = {}
+
+    def submit(label):
+        """The plain body's runs on case ``label``: float64 (its guard traced
+        where guarded), float32, and float64 on the float32-rounded inputs
+        (the float32 runs' reference)."""
+
+        args64 = cases[label]
+        args32 = kc.cast(args64, f32)
+        plain_jobs[label] = {
+            name: pool.submit(kc.plain_reference, kc.to_bytes(kc.on_cpu(args)), traced)
+            for name, args, traced in (("64", args64, args64.spec.guard is not None),
+                                       ("32", args32, False), ("ref", kc.cast(args32, f64), False))
+        }
+
+    # The configurations' runs (the longest) first.
+    for label in sorted(cases, key=lambda label: "16" not in label):
+        submit(label)
+    log(f"plain body: {3 * len(cases)} runs of {len(cases)} cases sent to {PLAIN_WORKERS} "
+        f"worker processes at {time.perf_counter() - started:.1f} s")
+
+    def plain(label, name):
+        return kc.from_bytes(plain_jobs[label][name].result())
+
+    def against_plain(label):
+        """The kernel (``args.spec.forward``) on case ``label`` against the
+        plain body on the same inputs, at float64 and at float32
+        (tolerances above). Returns the float64 kernel outputs, the guard
+        summary of the plain float64 run (None unguarded) and the errors."""
+
+        args64 = cases[label]
         k64 = core.trajectory_forward(args64)
-        p64 = plain(args64) if plain64 is None else plain64
         finite(k64[:3], f"{label} float64 kernel")
-        for name, k, p in zip("UVA", k64, p64):
+        p64, _, summary = plain(label, "64")
+        k64_cpu = [x.cpu() for x in k64]
+        for name, k, p in zip("UVA", k64_cpu, p64):
             check(f"{label} float64 {name}", kc.max_rel_err(k, p), F64_TRAJ_TOL)
         if args64.spec.guard is not None:
-            if not torch.equal(k64[4], p64[4]) or not torch.equal(k64[3], p64[3]):
+            if not torch.equal(k64_cpu[4], p64[4]) or not torch.equal(k64_cpu[3], p64[3]):
                 raise AssertionError(f"{label}: float64 decisions of kernel and plain body differ")
-            log(f"  {label} float64: decisions identical, {int(k64[4].sum())} of "
-                f"{k64[4].numel()} substeps fired")
-        args32 = kc.cast(args64, f32)
-        ref = plain(kc.cast(args32, f64))
-        k32 = core.trajectory_forward(args32)
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        p32 = plain(args32)
-        stop.record()
-        torch.cuda.synchronize()
+            log(f"  {label} float64: decisions identical, {int(k64_cpu[4].sum())} of "
+                f"{k64_cpu[4].numel()} substeps fired")
+        k32 = [x.cpu() for x in core.trajectory_forward(kc.cast(args64, f32))]
         finite(k32[:3], f"{label} float32 kernel")
+        p32, plain_ms, _ = plain(label, "32")
+        ref = plain(label, "ref")[0]
         plain_errors = {}
         for name, k, p, r in zip("UVA", k32, p32, ref):
             e_plain = plain_errors[name] = kc.max_rel_err(p.double(), r)
@@ -176,16 +296,18 @@ def main():
             log(f"  {label} float32: {int(k32[4].sum())} substeps fired in the kernel, "
                 f"{int(p32[4].sum())} in the plain body, decisions "
                 f"{'identical' if torch.equal(k32[4], p32[4]) else 'differ'}")
-        torch.cuda.synchronize()
         errors = {
-            "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(k64[:3], p64[:3])),
+            "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(k64_cpu[:3], p64[:3])),
             "max_rel_err": {dtype_name(dt): max(kc.max_rel_err(k, p) for k, p in zip(ks, ps))
-                            for dt, ks, ps in ((f64, k64[:3], p64[:3]), (f32, k32[:3], p32[:3]))},
+                            for dt, ks, ps in ((f64, k64_cpu[:3], p64[:3]),
+                                               (f32, k32[:3], p32[:3]))},
             "plain_float32_rel_err": plain_errors,
-            # The float32 plain body's time on these inputs (one run).
-            "plain_ms": start.elapsed_time(stop),
+            # The float32 plain body's time on these inputs: one run, on one
+            # core of the host, in a worker process.
+            "plain_ms": plain_ms,
+            "plain_device": "cpu",
         }
-        return k64, p64, errors
+        return k64, summary, errors
 
     def force_vs_plain(args64, label):
         check(f"{label} force float64",
@@ -203,51 +325,81 @@ def main():
         spec = args.spec._replace(guard=None)
         return core.trajectory_forward(args._replace(spec=spec, micro=()))
 
-    # -- build -------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.load("verlet_quad")
-    info = build.BUILD_INFO["verlet_quad"]
-    log(f"build: verlet_quad in {time.perf_counter() - t0:.1f} s (nvcc {info['seconds']:.1f} s)")
-    registers = build.ptxas_registers(info["log"])
-    for key in sorted(registers):
-        log(f"  ptxas {key[0]} linearized={key[1]} contact={key[2]} guard={key[3]}: "
-            f"{registers[key]} registers")
-    for line in info["log"].splitlines():
-        if "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line):
-            log(f"  ptxas: {line.strip()}")
+    def guarded_vs_plain(label, both_terms=False):
+        """A guarded kernel against the plain guarded body (whose guard is
+        traced, kc.guard_terms), with its firing counts; where nothing
+        fired, against the unguarded kernel too. ``both_terms``: the hard
+        and the proximity term must both fire. Returns the float64 kernel
+        outputs, the summary and the errors."""
+
+        k64, summary, errors = against_plain(label)
+        log(f"  {label}: fired {summary['fired']} of {summary['substeps']} substeps "
+            f"({summary['fired_hard']} by the hard term, {summary['fired_proximity']} by "
+            f"proximity alone), closest travel/threshold {summary['closest_ratio']:.6f}, "
+            f"gap needed on {summary['gaps']} substeps, smallest gap/proximity there "
+            f"{summary['closest_gap_ratio']:.4f}")
+        if both_terms and not (summary["fired_hard"] and summary["fired_proximity"]):
+            raise AssertionError(f"{label}: both guard terms were meant to fire")
+        if summary["fired"] == 0:
+            free = unguarded(cases[label])
+            for name, g, u in zip("UVA", k64, free):
+                check(f"{label} guarded vs unguarded kernel {name}", kc.max_rel_err(g, u),
+                      GUARD_NOOP_TOL)
+        return k64, summary, errors
+
+    def refuses_two_levels(args):
+        """levels > 1 is the plain body's only: the kernel raises."""
+
+        deep = args.spec._replace(guard=dict(args.spec.guard, levels=2))
+        try:
+            core.trajectory_forward(args._replace(spec=deep))
+        except NotImplementedError as err:
+            log(f"  levels=2 on the card: NotImplementedError ({err})")
+        else:
+            raise AssertionError("the guarded kernel accepted levels=2")
+
+    def engaged(args, label):
+        U_eff = args.U0 * args.fixed[-1] + core.drive_planes(args.drive[:, 0], args.spec,
+                                                             args.U0)
+        energy = kc.contact_energy_of(U_eff, args.fixed)
+        log(f"  {label}: contact energy {energy:.6e}")
+        if not energy > 0:
+            raise AssertionError(f"{label}: the barrier is not engaged")
+
+    for job in builds:
+        job.result()
+    builders.shutdown()
+    log(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
+    registers = {}
+    for name in sources:
+        info = build.BUILD_INFO[name]
+        log(f"  {name}: nvcc {info['seconds']:.1f} s")
+        registers[name] = build.ptxas_registers(info["log"], name)
+        for key in sorted(registers[name]):
+            log(f"  ptxas {name} {key[0]} linearized={key[1]} contact={key[2]} guard={key[3]}: "
+                f"{registers[name][key]} registers")
+        for line in info["log"].splitlines():
+            if "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                                                 line):
+                log(f"  ptxas {name}: {line.strip()}")
 
     phase_done("build")
-    rng = np.random.default_rng(0)
-    small = kc.small_problem(device=device, dtype=f64)
 
     # -- kernel 1 against its plain body --------------------------------------
-    for B in (1, 4):
-        designs = [kc.random_design(small, rng) for _ in range(B)]
-        against_plain(kc.batched_args(small, designs), f"small 8x6 B={B}")
-
-    # A lattice whose carry does not fit in shared memory: global workspace.
-    big = kc.small_problem(n1=56, n2=48, n_timepoints=3, n_substeps=4, device=device,
-                           dtype=f64, simulation_time=2.7e-4)
     for dtype in dtypes:
         need, have = carry_bytes(56, 48, dtype)
         log(f"  56x48 {dtype_name(dtype)}: carry {need} B per design, shared memory {have} B")
         if need <= have:
             raise AssertionError("56x48 was meant to exercise the workspace path")
-    against_plain(kc.batched_args(big, [kc.random_design(big, rng)] * 2), "workspace 56x48 B=2")
-
-    probe, mag = kc.contact_probe(device=device, dtype=f64)
-    U_eff = probe.U0 * probe.fixed[-1] + core.drive_planes(probe.drive[:, 0], probe.spec,
-                                                           probe.U0)
-    energy = kc.contact_energy_of(U_eff, probe.fixed)
-    log(f"  contact probe: mag {np.degrees(mag):.3f} deg, contact energy {energy:.6e}")
-    if not energy > 0:
-        raise AssertionError("contact probe: the barrier is not engaged")
+    for label in ("small 8x6 B=1", "small 8x6 B=4", "workspace 56x48 B=2"):
+        against_plain(label)
+    log(f"  contact probe: mag {np.degrees(mag):.3f} deg")
+    engaged(probe, "contact probe")
     force_vs_plain(probe, "contact probe")
-    against_plain(probe, "contact probe")
+    against_plain("contact probe")
 
-    flagship_opt, flagship_design = fl.build_flagship(device=device, dtype=f64)
-    flagship = kc.batched_args(flagship_opt.forward_problem, [flagship_design])
-    k64, _, errors = against_plain(flagship, "flagship 24x16")
+    flagship = cases["flagship 24x16"]
+    k64, _, errors = against_plain("flagship 24x16")
     results["verlet_quad"].update(errors)
     results["verlet_quad"].update(kc.trajectory_bound(kc.cast(flagship, f32), k64[0]))
     # The force at a state mid-pulse (the initial state is at rest).
@@ -258,47 +410,14 @@ def main():
     phase_done("kernel")
 
     # -- kernel 1g against its plain body -----------------------------------
-    guarded_cases = [
-        # Both the proximity and the hard term fire.
-        ("contact probe auto", kc.contact_probe(device=device, dtype=f64, guard="auto")[0]),
-        # Tame: nothing fires.
-        ("small 8x6 tame auto", kc.batched_args(
-            kc.small_problem(device=device, guard="auto", amplitude_scale=0.01),
-            [kc.random_design(small, rng)])),
-    ]
-    flagship_auto = fl.build_flagship(device=device, dtype=f64, guard="auto")[0]
-    guarded_cases.append(("flagship 24x16 auto", kc.batched_args(
-        flagship_auto.forward_problem, [flagship_design])))
-    for label, args in guarded_cases:
-        plain64, summary = kc.guard_terms(args)
-        log(f"  {label}: fired {summary['fired']} of {summary['substeps']} substeps "
-            f"({summary['fired_hard']} by the hard term, {summary['fired_proximity']} by "
-            f"proximity alone), closest travel/threshold {summary['closest_ratio']:.6f}, "
-            f"gap needed on {summary['gaps']} substeps, smallest gap/proximity there "
-            f"{summary['closest_gap_ratio']:.4f}")
-        k64, p64, errors = against_plain(args, label, plain64)
-        if label.startswith("contact") and not (summary["fired_hard"]
-                                                and summary["fired_proximity"]):
-            raise AssertionError(f"{label}: both guard terms were meant to fire")
-        if summary["fired"] == 0:
-            free = unguarded(args)
-            for name, g, u in zip("UVA", k64, free):
-                check(f"{label} guarded vs unguarded kernel {name}", kc.max_rel_err(g, u),
-                      GUARD_NOOP_TOL)
-        if label.startswith("flagship"):
-            results["verlet_quad_guarded"].update(errors)
-            results["verlet_quad_guarded"]["summary"] = summary
-            results["verlet_quad_guarded"].update(
-                kc.trajectory_bound(kc.cast(args, f32), k64[0], summary))
-            flagship_guarded = args
-    # levels > 1 is the plain body's only.
-    deep = flagship_guarded.spec._replace(guard=dict(flagship_guarded.spec.guard, levels=2))
-    try:
-        core.trajectory_forward(flagship_guarded._replace(spec=deep))
-    except NotImplementedError as err:
-        log(f"  levels=2 on the card: NotImplementedError ({err})")
-    else:
-        raise AssertionError("the guarded kernel accepted levels=2")
+    for label in ("contact probe auto", "small 8x6 tame auto", "flagship 24x16 auto"):
+        k64, summary, errors = guarded_vs_plain(label, both_terms=label.startswith("contact"))
+    flagship_guarded = cases[label]
+    results["verlet_quad_guarded"].update(errors)
+    results["verlet_quad_guarded"]["summary"] = summary
+    results["verlet_quad_guarded"].update(
+        kc.trajectory_bound(kc.cast(flagship_guarded, f32), k64[0], summary))
+    refuses_two_levels(flagship_guarded)
 
     phase_done("guarded")
 
@@ -320,6 +439,54 @@ def main():
 
     phase_done("objective")
 
+    # -- kernel 1K against its plain body ------------------------------------
+    for label in ("kagome 4x3 B=1", "kagome 4x3 B=4"):
+        against_plain(label)
+    log(f"  kagome contact probe: mag {np.degrees(kmag):.3f} deg")
+    engaged(kprobe, "kagome contact probe")
+    force_vs_plain(kprobe, "kagome contact probe")
+    against_plain("kagome contact probe")
+
+    kagome = cases["kagome 16x16"]
+    k64, _, errors = against_plain("kagome 16x16")
+    results["verlet_kagome"].update(errors)
+    results["verlet_kagome"].update(kc.trajectory_bound(kc.cast(kagome, f32), k64[0]))
+
+    phase_done("kagome kernel")
+
+    # -- kernel 1Kg against its plain body -----------------------------------
+    for label in ("kagome contact probe auto", "kagome 4x3 tame auto", "kagome 16x16 auto"):
+        k64, summary, errors = guarded_vs_plain(label, both_terms="probe" in label)
+        if "tame" in label and summary["fired"]:
+            raise AssertionError(f"{label}: the guard was meant to fire nowhere")
+    kagome_guarded = cases[label]
+    results["verlet_kagome_guarded"].update(errors)
+    results["verlet_kagome_guarded"]["summary"] = summary
+    results["verlet_kagome_guarded"].update(
+        kc.trajectory_bound(kc.cast(kagome_guarded, f32), k64[0], summary))
+    refuses_two_levels(kagome_guarded)
+    pool.shutdown()
+
+    phase_done("kagome guarded checks")
+
+    # The guarded kagome objective through 1Kg.
+    for dt in dtypes:
+        opt, design = kg.build_kagome(device=device, dtype=dt, guard="auto")
+        launches = verlet_kagome_trajectory.guarded_launches
+        calls = core.plain_trajectory.calls
+        with torch.no_grad():
+            value = float(opt.objective_fn(design))
+        if verlet_kagome_trajectory.guarded_launches != launches + 1 \
+                or core.plain_trajectory.calls != calls:
+            raise AssertionError("the guarded kagome objective did not run kernel 1Kg")
+        ref = kg.JAX_F64_GUARDED_OBJECTIVE
+        log(f"  guarded kagome {dtype_name(dt)}: objective {value!r} (JAX f64 {ref!r})")
+        check(f"guarded kagome {dtype_name(dt)} objective vs JAX float64",
+              abs(value - ref) / ref, OBJECTIVE_TOL["float64"] if dt == f64
+              else GUARDED_KAGOME_F32_TOL)
+
+    phase_done("kagome guarded")
+
     # -- main path 1: flagship value and gradient through kernel 1 -----------
     def value_and_grad(opt, design):
         d = tuple(x.detach().clone().requires_grad_() for x in design)
@@ -332,8 +499,7 @@ def main():
         return float(value.detach()), grad, time.perf_counter() - t0
 
     kernel_path = {dt: fl.build_flagship(device=device, dtype=dt) for dt in dtypes}
-    verlet_quad_trajectory.launches = 0
-    core.plain_trajectory.calls = 0
+    reset_counts()
     main = {dt: value_and_grad(*kernel_path[dt]) for dt in dtypes}
     launches = verlet_quad_trajectory.launches
     plain_calls = core.plain_trajectory.calls
@@ -385,8 +551,7 @@ def main():
 
     mma = {}
     mma_grads = []
-    verlet_quad_trajectory.guarded_launches = 0
-    core.plain_trajectory.calls = 0
+    reset_counts()
     for dt in dtypes:
         if dt == f64:
             # Built guarded, as the JAX reference was, so that the objective
@@ -396,20 +561,22 @@ def main():
         else:
             # Built unguarded: run_optimization_mma re-arms the guard.
             opt, design = fl.build_flagship(device=device, dtype=dt)
+        iterations = MMA_ITERATIONS if dt == f64 else MMA_ITERATIONS_F32
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        opt.run_optimization_mma(design, n_iterations=MMA_ITERATIONS, verbose=False,
+        opt.run_optimization_mma(design, n_iterations=iterations, verbose=False,
                                  **fl.MMA_SETTINGS)
         torch.cuda.synchronize()
-        mma[dt] = (opt, design, time.perf_counter() - t0)
+        mma[dt] = (opt, design, (time.perf_counter() - t0) / iterations)
     launches = verlet_quad_trajectory.guarded_launches
     plain_calls = core.plain_trajectory.calls
-    log(f"main path 2 (guarded flagship MMA, {MMA_ITERATIONS} iterations at float64 and "
-        f"at float32): {launches} guarded kernel launches, {plain_calls} plain-body forwards")
-    if launches < 2 * MMA_ITERATIONS or plain_calls != 0:
+    log(f"main path 2 (guarded flagship MMA, {MMA_ITERATIONS} iterations at float64, "
+        f"{MMA_ITERATIONS_F32} at float32): {launches} guarded kernel launches, "
+        f"{plain_calls} plain-body forwards")
+    if launches < MMA_ITERATIONS + MMA_ITERATIONS_F32 or plain_calls != 0:
         raise AssertionError("main path 2 did not run through the guarded kernel")
     results["verlet_quad_guarded"]["launches"] = launches
-    opt, design, seconds = mma[f64]
+    opt, design, _ = mma[f64]
     if len(opt.objective_values) != len(fl.JAX_F64_MMA_VALUES):
         raise AssertionError(f"float64 MMA made {len(opt.objective_values)} history entries")
     if len(mma_grads) != len(fl.JAX_F64_MMA_GRAD_STATS):
@@ -439,16 +606,14 @@ def main():
         intervals = int(fired.view(n_int, -1).any(-1).sum())
         log(f"  MMA float64 iterate {k}: guard fired on {int(fired.sum())} of "
             f"{fired.numel()} substeps, in {intervals} of {n_int} intervals")
-    opt, design, seconds = mma[f32]
+    opt, design, per_iter = mma[f32]
     violation = max(v[-1] for v in opt.constraints_violation.values())
     values = opt.objective_values
     if not all(np.isfinite(values)):
         raise AssertionError(f"float32 MMA objective values {values}")
     log(f"  MMA float32: objectives {values}, final constraint violation {violation!r}, "
-        f"{seconds:.2f} s for {MMA_ITERATIONS} iterations "
-        f"({seconds / MMA_ITERATIONS:.2f} s/iter, host clock)")
-    timings.update(mma_float32_s_per_iter=seconds / MMA_ITERATIONS,
-                   mma_float64_s_per_iter=mma[f64][2] / MMA_ITERATIONS,
+        f"{per_iter:.2f} s/iter over {MMA_ITERATIONS_F32} (host clock)")
+    timings.update(mma_float32_s_per_iter=per_iter, mma_float64_s_per_iter=mma[f64][2],
                    mma_float32_final_violation=violation)
 
     # Where an iteration's time goes besides fwd+grad: the constraints
@@ -483,7 +648,84 @@ def main():
 
     phase_done("mma")
 
-    # -- timing (flagship) ---------------------------------------------------
+    # -- main path 3: kagome value and gradient through kernel 1K ------------
+    kagome_path = {dt: kg.build_kagome(device=device, dtype=dt) for dt in dtypes}
+    reset_counts()
+    value64, grad64, seconds64 = value_and_grad(*kagome_path[f64])
+    with torch.no_grad():
+        value32 = float(kagome_path[f32][0].objective_fn(kagome_path[f32][1]))
+    launches = verlet_kagome_trajectory.launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 3 (kagome value and gradient): {launches} kernel launches, "
+        f"{plain_calls} plain-body forwards")
+    if launches < len(dtypes) or plain_calls != 0:
+        raise AssertionError("main path 3 did not run through kernel 1K")
+    results["verlet_kagome"]["launches"] = launches
+    for name, value in (("float64", value64), ("float32", value32)):
+        log(f"  kagome {name}: objective {value!r} (JAX f64 {kg.JAX_F64_OBJECTIVE!r})")
+        check(f"kagome {name} objective vs JAX float64",
+              abs(value - kg.JAX_F64_OBJECTIVE) / kg.JAX_F64_OBJECTIVE, OBJECTIVE_TOL[name])
+    if not (bool(torch.isfinite(grad64).all()) and float(grad64.abs().max()) > 0):
+        raise AssertionError("kagome float64 gradient is not finite and non-zero")
+    stats = fl.vector_stats(grad64.cpu().numpy())
+    log(f"  kagome float64 gradient (|g|, sum g, g.r) {stats} (JAX {kg.JAX_F64_GRAD_STATS}), "
+        f"fwd+grad {seconds64:.2f} s")
+    check("kagome float64 gradient vs JAX float64", stats_err(stats, kg.JAX_F64_GRAD_STATS),
+          GRAD_TOL)
+    timings["kagome_fwd_grad_s_float64"] = seconds64
+
+    phase_done("kagome main")
+
+    # -- main path 4: the kagome MMA through kernel 1Kg ----------------------
+    # Built guarded, as the JAX reference ran (run_optimization_mma re-arms
+    # "auto"), so that the objective whose gradients are kept is the MMA's.
+    opt, design = kg.build_kagome(device=device, dtype=f64, guard="auto")
+    kagome_grads = []
+    capturing(opt, kagome_grads)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.run_optimization_mma(design, n_iterations=MMA_ITERATIONS, verbose=False,
+                             **kg.KAGOME_MMA_SETTINGS)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) / MMA_ITERATIONS
+    launches = verlet_kagome_trajectory.guarded_launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 4 (kagome MMA, {MMA_ITERATIONS} iterations at float64): {launches} guarded "
+        f"kernel launches, {plain_calls} plain-body forwards, {per_iter:.2f} s/iter (host clock)")
+    if launches < MMA_ITERATIONS or plain_calls != 0:
+        raise AssertionError("main path 4 did not run through kernel 1Kg")
+    results["verlet_kagome_guarded"]["launches"] = launches
+    timings["kagome_mma_float64_s_per_iter"] = per_iter
+    if len(opt.objective_values) != len(kg.JAX_F64_MMA_VALUES) \
+            or len(kagome_grads) != len(kg.JAX_F64_MMA_GRAD_STATS):
+        raise AssertionError(f"kagome MMA: {len(opt.objective_values)} history entries, "
+                             f"{len(kagome_grads)} gradients")
+    scale = max(abs(x) for s in kg.JAX_F64_MMA_DESIGN_STATS for x in s)
+    for k, (value, ref) in enumerate(zip(opt.objective_values, kg.JAX_F64_MMA_VALUES)):
+        stats = fl.design_stats(opt.design_values[k], design)
+        ref_stats = kg.JAX_F64_MMA_DESIGN_STATS[k]
+        grad_stats = fl.vector_stats(torch.cat(kagome_grads[k]).cpu().numpy())
+        with torch.no_grad():
+            fired = core.trajectory_forward(kc.batched_args(opt.forward_problem,
+                                                            [opt.design_values[k]]))[4]
+        n_int = fired.shape[1] // opt.forward_problem.n_substeps
+        intervals = int(fired.view(n_int, -1).any(-1).sum())
+        log(f"  kagome MMA iteration {k}: objective {value!r} (JAX {ref!r}), design "
+            f"(|dx|, sum dx, dx.r) {stats} (JAX {ref_stats}), gradient {grad_stats} (JAX "
+            f"{kg.JAX_F64_MMA_GRAD_STATS[k]}); guard fired on {int(fired.sum())} of "
+            f"{fired.numel()} substeps, in {intervals} of {n_int} intervals (JAX: "
+            f"{kg.JAX_F64_MMA_FIRED[k]} intervals)")
+        check(f"kagome MMA iteration {k} objective vs JAX", abs(value - ref) / abs(ref), MMA_TOL)
+        check(f"kagome MMA iteration {k} design vs JAX",
+              max(abs(a - b) for a, b in zip(stats, ref_stats)) / scale, MMA_TOL)
+        check(f"kagome MMA iteration {k} gradient vs JAX",
+              stats_err(grad_stats, kg.JAX_F64_MMA_GRAD_STATS[k]), GRAD_TOL)
+        timings[f"kagome_mma_fired_substeps_{k}"] = int(fired.sum())
+
+    phase_done("kagome mma")
+
+    # -- timing (flagship and kagome) ------------------------------------------
     def event_ms(fn, reps):
         times = []
         for _ in range(reps):
@@ -546,14 +788,53 @@ def main():
         ms=statistics.median([t["guarded_ms"], t["guarded_ms_2"]]),
         ms_float64=t["guarded_ms_float64"])
 
+    # Kagome: 1K and 1Kg at the configuration, alternating, then 1K on the
+    # 12 x 10-cell population workload of tools/bench_kagome_multistart.py.
+    kagome32 = kc.cast(kagome, f32)
+    kagome_g32 = kc.cast(kagome_guarded, f32)
+    core.trajectory_forward(kagome_g32)  # warm up
+    tk = {
+        "kernel_ms": event_ms(trajectory(kagome32), 3),
+        "guarded_ms": event_ms(trajectory(kagome_g32), 3),
+        "guarded_ms_2": event_ms(trajectory(kagome_g32), 3),
+        "kernel_ms_2": event_ms(trajectory(kagome32), 3),
+        "kernel_ms_float64": event_ms(trajectory(kagome), 3),
+        "guarded_ms_float64": event_ms(trajectory(kagome_guarded), 3),
+    }
+    population = kc.kagome_multistart_problem(device=device, dtype=f32)
+    kagome_batch_ms = {}
+    for B in (1, 32, 128):
+        designs = [tuple(x + 1e-3 * b for x in population.geometry.zero_design(device=device,
+                                                                                dtype=f32))
+                   for b in range(B)]
+        args = kc.batched_args(population, designs)
+        core.trajectory_forward(args)  # warm up
+        kagome_batch_ms[B] = event_ms(trajectory(args), 3)
+    log(f"timing ({card_line}), kagome 16x16 float32 unless named, CUDA events, medians of 3: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in tk.items()))
+    for B, ms in kagome_batch_ms.items():
+        log(f"  kagome 12x10 population B={B}: {ms:.3f} ms, {B / ms * 1e3:.1f} designs/s")
+    results["verlet_kagome"].update(
+        ms=statistics.median([tk["kernel_ms"], tk["kernel_ms_2"]]),
+        ms_float64=tk["kernel_ms_float64"],
+        batch_ms={str(B): ms for B, ms in kagome_batch_ms.items()})
+    results["verlet_kagome_guarded"].update(
+        ms=statistics.median([tk["guarded_ms"], tk["guarded_ms_2"]]),
+        ms_float64=tk["guarded_ms_float64"])
+
     phase_done("timing")
 
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
                 "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "
-                                       "core.py:330-625, verlet_grid.py:201-262)"}
+                                       "core.py:330-625, verlet_grid.py:201-262)",
+                "verlet_kagome": "difflexmm_tpu/ops/pallas/core.py:822 (kagome: "
+                                 "verlet_kagome.py:336-375, energy :127-242)",
+                "verlet_kagome_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (kagome, guarded: "
+                                         "core.py:330-625, verlet_kagome.py:245-308)"}
     kernels = []
     for name, r in results.items():
-        entry = {"name": name, "route": "cuda", "source": "difflexmm_tpu_torch/csrc/verlet_quad.cu",
+        source = "verlet_kagome.cu" if name.startswith("verlet_kagome") else "verlet_quad.cu"
+        entry = {"name": name, "route": "cuda", "source": f"difflexmm_tpu_torch/csrc/{source}",
                  "replaces": replaces[name], "launches": r["launches"],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -563,8 +844,11 @@ def main():
                  "library_ms": None}
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)
+    if FAILED:
+        raise SystemExit("chip_smoke: checks failed:\n  " + "\n  ".join(FAILED))
     print(json.dumps({"kernels": kernels, "card": card_line, "registers": {
-        " ".join(map(str, k)): v for k, v in sorted(registers.items())}, **timings}))
+        f"{name} " + " ".join(map(str, k)): v
+        for name, regs in registers.items() for k, v in sorted(regs.items())}, **timings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ connectivity is numpy host data, and reference bond vectors are float64
 CPU tensors that callers move where they need them.
 """
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
+
+import numpy as np
 
 
 class Geometry:
@@ -42,11 +44,14 @@ class Geometry:
 
 
 class LatticeGeometry(Geometry):
-    """A geometry tiled from unit cells on a 2D Bravais grid."""
+    """A geometry tiled from unit cells on a 2D Bravais grid whose lattice
+    vectors are the rows of ``direct_basis`` (2, 2) (identity by default)."""
 
-    def __init__(self, n1_cells: int, n2_cells: int, n_bpc: int):
+    def __init__(self, n1_cells: int, n2_cells: int, n_bpc: int,
+                 direct_basis: Optional[np.ndarray] = None):
         self.n1_cells = n1_cells
         self.n2_cells = n2_cells
         self.n_bpc = n_bpc
         self.n_cells = n1_cells * n2_cells
         self.n_blocks = self.n_cells * n_bpc
+        self.direct_basis = direct_basis if direct_basis is not None else np.eye(2)

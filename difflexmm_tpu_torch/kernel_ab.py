@@ -5,7 +5,8 @@
 
 ``OTHER.cu`` must export the same C interface (for instance the file at
 another commit: ``git show REV:difflexmm_tpu_torch/csrc/verlet_quad.cu``).
-Both are built with the same nvcc flags, at the same time. Each version
+Both are built afresh with the same nvcc flags, at the same time (the
+repository's source with the headers of ``csrc/``). Each version
 then runs the flagship trajectory (unguarded at float32 and float64,
 guarded at float64) and the contact probe (guarded and unguarded, float64);
 the largest difference between the two versions' outputs is printed.
@@ -27,7 +28,7 @@ import torch
 
 from difflexmm_tpu_torch import kernel_checks as kc
 from difflexmm_tpu_torch.models import flagship as fl
-from difflexmm_tpu_torch.ops.kernels import build, core, verlet_grid
+from difflexmm_tpu_torch.ops.kernels import build, core, launch
 
 
 def _event_ms(fn, reps=5):
@@ -60,19 +61,18 @@ def main(other: str):
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    other_lib = build.BUILD_DIR / "ab" / "libother.so"
+    paths = {"other": Path(other), "repo": build.CSRC_DIR / "verlet_quad.cu"}
+    targets = {name: build.BUILD_DIR / "ab" / f"lib{name}.so" for name in paths}
     with ThreadPoolExecutor(2) as pool:
-        other_job = pool.submit(build.compile_source, Path(other), other_lib)
-        repo_job = pool.submit(build.build, "verlet_quad")
-        other_info = other_job.result()
-        repo_job.result()
-    logs = {"other": other_info["log"], "repo": build.BUILD_INFO["verlet_quad"]["log"]}
+        jobs = {name: pool.submit(build.compile_source, paths[name], targets[name])
+                for name in paths}
+        logs = {name: job.result()["log"] for name, job in jobs.items()}
     registers = {name: build.ptxas_registers(log) for name, log in logs.items()}
     print("registers (dtype, linearized, contact, guard): other / repo")
     for key in sorted(registers["repo"]):
         print(f"  {key}: {registers['other'].get(key)} / {registers['repo'][key]}")
-    libs = {"other": verlet_grid.type_library(ctypes.CDLL(str(other_lib))),
-            "repo": verlet_grid._load_library()}
+    libs = {name: launch.type_library(ctypes.CDLL(str(target)), "verlet_quad")
+            for name, target in targets.items()}
 
     def use(name):
         build._LIBS["verlet_quad"] = libs[name]

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with nvcc
 into ``build/kernels/lib<name>-<hash>.so`` beside the package (the hash is
-of the source and flags, so an edited source rebuilds), then loaded with
-``ctypes``. Building happens at first use, never at import: the CPU tests
+of the source, the headers of ``csrc/`` and the flags, so an edited source
+or header rebuilds), then loaded with ``ctypes``. Building happens at first use, never at import: the CPU tests
 import every module on machines without nvcc.
 """
 
@@ -55,7 +55,7 @@ def compile_source(source: Path, target: Path) -> dict:
 
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     result = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -72,8 +72,9 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
 
     source = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     target = BUILD_DIR / f"lib{name}-{digest}.so"
     if target.exists():
@@ -91,12 +92,13 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def ptxas_registers(build_log: str) -> dict:
-    """``{(dtype, LIN, CONTACT, GUARD): registers}`` of the trajectory
-    kernel's instantiations, from ptxas' report in a build log."""
+def ptxas_registers(build_log: str, name: str = "verlet_quad") -> dict:
+    """``{(dtype, LIN, CONTACT, GUARD): registers}`` of the instantiations
+    of the trajectory kernel ``<name>_kernel``, from ptxas' report in a
+    build log."""
 
     out, current = {}, None
-    kernel = re.compile(r"verlet_quad_kernelI([fd])Lb([01])ELb([01])ELb([01])E")
+    kernel = re.compile(name + r"_kernelI([fd])Lb([01])ELb([01])ELb([01])E")
     for line in build_log.splitlines():
         m = kernel.search(line)
         if m and "Compiling entry function" in line:

@@ -423,6 +423,54 @@ def plain_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec, micro=
 plain_trajectory.calls = 0
 
 
+class GraphedIntervalVJP:
+    """The vector-Jacobian product of one unguarded interval
+    (:func:`interval_body`, double backward through the force) captured
+    once as a CUDA graph, then replayed for interval after interval: the
+    same kernels on the same shapes, without the host launching each of
+    the thousands of small operations again (the eager replay is bound by
+    those launches, not by the card).
+
+    ``carry``, ``rows``, ``dt`` are one interval's inputs (their values
+    only seed the capture); ``fixed_in`` the fixed leaves, some requiring
+    grad, which every interval shares. A call copies an interval's inputs
+    and cotangents into the captured buffers, replays the graph, and
+    returns copies of the gradients with respect to the carry, then to
+    each leaf of ``fixed_in`` that requires grad (None where the interval
+    does not depend on it). The drive rows and dt take no gradient here.
+    """
+
+    def __init__(self, spec, carry, rows, dt, fixed_in):
+        self.spec, self.fixed = spec, fixed_in
+        self.carry = [x.detach().clone().requires_grad_() for x in carry]
+        self.rows, self.dt = rows.detach().clone(), dt.detach().clone()
+        self.cot = [torch.zeros_like(x) for x in carry]
+        self.inputs = self.carry + [f for f in fixed_in if f.requires_grad]
+        # Capture after one eager run on a side stream, as CUDA graphs ask.
+        side = torch.cuda.Stream(device=self.dt.device)
+        side.wait_stream(torch.cuda.current_stream(self.dt.device))
+        with torch.cuda.stream(side):
+            self._vjp()
+        torch.cuda.current_stream(self.dt.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.grads = self._vjp()
+
+    def _vjp(self):
+        with torch.enable_grad():
+            out = interval_body(*self.carry, self.dt, self.rows, self.fixed, self.spec,
+                                create_graph=True)
+            return torch.autograd.grad(out, self.inputs, self.cot, allow_unused=True)
+
+    def __call__(self, carry, rows, dt, cot):
+        with torch.no_grad():
+            for buffer, value in zip([*self.carry, self.rows, self.dt, *self.cot],
+                                     [*carry, rows, dt, *cot]):
+                buffer.copy_(value)
+        self.graph.replay()
+        return [None if g is None else g.clone() for g in self.grads]
+
+
 class VerletTrajectory(torch.autograd.Function):
     """Whole trajectory with a stored-boundary-state adjoint.
 
@@ -439,7 +487,10 @@ class VerletTrajectory(torch.autograd.Function):
     up to the first firing substep the two coincide, so this is exact. An
     interval that fired replays the guarded body with the forward's
     recorded per-substep decisions. The flags and decisions are read back
-    to the host once per backward.
+    to the host once per backward. On CUDA tensors, where neither the
+    drive nor the substep sizes take a gradient, the unguarded replay is
+    captured once per backward as a CUDA graph (:class:`GraphedIntervalVJP`)
+    and replayed for each interval that takes it.
     """
 
     @staticmethod
@@ -478,6 +529,7 @@ class VerletTrajectory(torch.autograd.Function):
         d_tables = [torch.zeros_like(t) if n else None for t, n in zip(tables, need_tables)]
         d_dts = torch.zeros_like(dts) if need_dts else None
         cot = (torch.zeros_like(U0), torch.zeros_like(V0), torch.zeros_like(A0))
+        graphed = None
 
         for k in reversed(range(dts.shape[0])):
             cot = (cot[0] + gU[:, k], cot[1] + gV[:, k], cot[2] + gA[:, k])
@@ -485,22 +537,28 @@ class VerletTrajectory(torch.autograd.Function):
                 cin = (U0, V0, A0)
             else:
                 cin = (outU[:, k - 1], outV[:, k - 1], outA[:, k - 1])
-            with torch.enable_grad():
-                carry = [x.detach().requires_grad_() for x in cin]
-                rows = [r.detach().requires_grad_(bool(n)) for r, n in
-                        zip(interval_rows(k, drive, micro, spec), need_tables)]
-                dt = dts[k].detach().requires_grad_(need_dts)
-                if fired[k]:
-                    out, _ = guarded_interval_body(*carry, dt, rows, fixed_in, spec,
-                                                   create_graph=True, decisions=decisions[:, k])
-                else:
-                    out = interval_body(*carry, dt, rows[0], fixed_in, spec, create_graph=True)
-                extra = [r for r in rows if r.requires_grad]
-                extra += [dt] if need_dts else []
-                extra += [f for f in fixed_in if f.requires_grad]
-                grads = torch.autograd.grad(
-                    out, carry + extra, cot, allow_unused=True
-                )
+            if U0.is_cuda and not fired[k] and not (any(need_tables) or need_dts):
+                rows0 = interval_rows(k, drive, micro, spec)[0]
+                if graphed is None:
+                    graphed = GraphedIntervalVJP(spec, cin, rows0, dts[k], fixed_in)
+                grads = graphed(cin, rows0, dts[k], cot)
+            else:
+                with torch.enable_grad():
+                    carry = [x.detach().requires_grad_() for x in cin]
+                    rows = [r.detach().requires_grad_(bool(n)) for r, n in
+                            zip(interval_rows(k, drive, micro, spec), need_tables)]
+                    dt = dts[k].detach().requires_grad_(need_dts)
+                    if fired[k]:
+                        out, _ = guarded_interval_body(*carry, dt, rows, fixed_in, spec,
+                                                       create_graph=True,
+                                                       decisions=decisions[:, k])
+                    else:
+                        out = interval_body(*carry, dt, rows[0], fixed_in, spec,
+                                            create_graph=True)
+                    extra = [r for r in rows if r.requires_grad]
+                    extra += [dt] if need_dts else []
+                    extra += [f for f in fixed_in if f.requires_grad]
+                    grads = torch.autograd.grad(out, carry + extra, cot, allow_unused=True)
             cot = tuple(
                 torch.zeros_like(c) if g is None else g for g, c in zip(grads[:3], cot)
             )

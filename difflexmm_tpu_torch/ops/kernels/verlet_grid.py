@@ -12,13 +12,12 @@ version, which the plain body (``core.plain_trajectory``) differentiates
 with autograd for CPU tensors and which the adjoint replays.
 """
 
-import ctypes
 import functools
 
 import torch
 
 from difflexmm_tpu_torch.ops.contact import contact_energy
-from difflexmm_tpu_torch.ops.kernels import build, core
+from difflexmm_tpu_torch.ops.kernels import build, core, launch
 
 # Fixed (per-design) leaves, in order, each with the design batch leading:
 # cnv (B,4,2,n2,n1), centroids (B,2,n2,n1), ref_h (B,2,n2,n1-1),
@@ -232,59 +231,14 @@ def _shapes(B, n1, n2):
 
 
 def _load_library():
-    return type_library(build.load("verlet_quad"))
-
-
-def type_library(lib):
-    """Set the ctypes signatures of a loaded ``verlet_quad`` library."""
-
-    if not getattr(lib, "_typed", False):
-        lib.verlet_quad_launch.argtypes = [
-            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_double),
-            ctypes.c_void_p,
-        ]
-        lib.verlet_quad_launch.restype = ctypes.c_int
-        lib.verlet_quad_scratch_bytes.argtypes = [ctypes.c_int] * 3
-        lib.verlet_quad_scratch_bytes.restype = ctypes.c_longlong
-        lib.verlet_quad_max_smem.argtypes = []
-        lib.verlet_quad_max_smem.restype = ctypes.c_longlong
-        lib.verlet_quad_error_string.argtypes = [ctypes.c_int]
-        lib.verlet_quad_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+    return launch.type_library(build.load("verlet_quad"), "verlet_quad")
 
 
 def carry_bytes(n1: int, n2: int, dtype) -> tuple:
     """(bytes of carry one design needs, bytes of shared memory a block of
-    the current CUDA device may use). The kernel keeps the carry in shared
-    memory when it fits and in a global workspace otherwise."""
+    the current CUDA device may use); see ``launch.carry_bytes``."""
 
-    lib = _load_library()
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    available = lib.verlet_quad_max_smem()
-    if available < 0:
-        raise RuntimeError("verlet_quad: cannot query the device's shared memory")
-    return lib.verlet_quad_scratch_bytes(n1, n2, itemsize), available
-
-
-def _guard_params(guard):
-    """The resolved guard as the kernel's nine doubles: threshold,
-    has_proximity, proximity, has_hard, hard, has_length_scale,
-    length_scale, refine, relative translation."""
-
-    if guard["levels"] != 1:
-        raise NotImplementedError(
-            f"guard levels={guard['levels']}: the CUDA kernel refines one level "
-            "(levels > 1 runs on CPU tensors or with method='verlet_ckpt'); ROADMAP B2."
-        )
-    if tuple(guard["theta_channels"]) != (2,):
-        raise ValueError("verlet_quad guard: theta must be plane channel 2")
-    values = []
-    for key in ("proximity", "hard", "length_scale"):
-        values += [guard[key] is not None, guard[key] or 0.0]
-    values = [guard["threshold"], *values, guard["refine"], guard["translation"] == "relative"]
-    return (ctypes.c_double * 9)(*(float(v) for v in values))
+    return launch.carry_bytes(_load_library(), "verlet_quad", n1, n2, dtype)
 
 
 def verlet_quad_trajectory(
@@ -308,57 +262,13 @@ def verlet_quad_trajectory(
         return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro)
     if U0.device.type != "cuda":
         raise ValueError(f"verlet_quad_trajectory: unsupported device {U0.device}")
-
-    guard = None if spec.guard is None else _guard_params(spec.guard)
-    dtype = U0.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"verlet_quad_trajectory: dtype {dtype} (float32/float64 only)")
-    B, C, n2, n1 = U0.shape
-    n_sub = spec.n_substeps
-    n_int = dts.shape[0]
-    k_drive = drive.shape[-1]
-    tensors = (U0, V0, A0, dts, drive, *fixed, *micro)
-    expected = ((B, 3, n2, n1),) * 3 + ((n_int,), (B, n_int * n_sub, k_drive))
-    expected += _shapes(B, n1, n2)
-    if guard is not None:
-        expected += ((B, n_int * n_sub * spec.guard["refine"], k_drive),)
-    if (len(fixed) != N_FIXED_ARRAYS or C != 3 or k_drive < 1
-            or len(micro) != spec.n_micro):
-        raise ValueError("verlet_quad_trajectory: malformed arguments")
-    for i, (t, shape) in enumerate(zip(tensors, expected)):
-        if t.device != U0.device or t.dtype != dtype:
-            raise ValueError(f"argument {i}: {t.device}/{t.dtype}, want {U0.device}/{dtype}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"argument {i}: shape {tuple(t.shape)}, want contiguous {shape}")
-    if (drive_map.device != U0.device or drive_map.dtype != torch.int32
-            or tuple(drive_map.shape) != (3, n2, n1) or not drive_map.is_contiguous()):
-        raise ValueError("verlet_quad_trajectory: drive_map must be contiguous int32 (3, n2, n1)")
-
-    itemsize = U0.element_size()
-    with torch.cuda.device(U0.device):
-        outs = tuple(torch.empty((B, n_int, 3, n2, n1), dtype=dtype, device=U0.device)
-                     for _ in range(3))
-        if guard is not None:
-            outs += (torch.empty((B, n_int), dtype=torch.bool, device=U0.device),
-                     torch.empty((B, n_int * n_sub), dtype=torch.bool, device=U0.device))
-        scratch, max_smem = carry_bytes(n1, n2, dtype)
-        workspace = None
-        if scratch > max_smem:
-            workspace = torch.empty(B * scratch // itemsize, dtype=dtype, device=U0.device)
-        pointers = [t.data_ptr() for t in (U0, V0, A0, dts, drive, drive_map, *fixed, *outs[:3])]
-        pointers.append(workspace.data_ptr() if workspace is not None else None)
-        if guard is not None:
-            pointers += [micro[0].data_ptr(), outs[4].data_ptr(), outs[3].data_ptr()]
-        ptrs = (ctypes.c_void_p * len(pointers))(*pointers)
-        dims = (ctypes.c_int * 6)(B, n1, n2, n_int, n_sub, k_drive)
-        stream = torch.cuda.current_stream(U0.device).cuda_stream
-        err = _load_library().verlet_quad_launch(
-            ptrs, dims, itemsize, int(linearized), int(use_contact), guard, stream
-        )
-    if err != 0:
-        message = _load_library().verlet_quad_error_string(err).decode()
-        raise RuntimeError(f"verlet_quad launch failed: {message} ({err})")
-    if guard is None:
+    B, _, n2, n1 = U0.shape
+    outs = launch.run(
+        _load_library(), "verlet_quad", U0, V0, A0, dts, drive, fixed, spec, micro,
+        linearized=linearized, use_contact=use_contact, drive_map=drive_map,
+        fixed_shapes=_shapes(B, n1, n2), theta_channels=(2,),
+    )
+    if spec.guard is None:
         verlet_quad_trajectory.launches += 1
     else:
         verlet_quad_trajectory.guarded_launches += 1

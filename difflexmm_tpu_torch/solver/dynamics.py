@@ -1,6 +1,6 @@
-"""Dynamic solver: the quad-grid fast path of
+"""Dynamic solver: the quad-grid and kagome-grid fast paths of
 ``difflexmm_tpu/solver/dynamics.py`` (``setup_dynamic_solver``,
-``dynamics.py:584-616``, ``:817-868`` and ``:870-964``).
+``dynamics.py:584-616``, ``:786-868`` and ``:870-964``).
 
 The state stays dense, ``(2, n_blocks, 3)`` with a free-DOF mask. Forces on
 constrained DOFs are masked, their displacements come from the drive
@@ -15,13 +15,7 @@ import torch
 
 from difflexmm_tpu_torch.geometry.polygon import compute_inertia
 from difflexmm_tpu_torch.ops.grid import split_grid_bond_data
-from difflexmm_tpu_torch.ops.kernels import core
-from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
-    cnv_to_planes,
-    fields_from_planes,
-    quad_trajectory_spec,
-    to_planes,
-)
+from difflexmm_tpu_torch.ops.kernels import core, verlet_grid, verlet_kagome
 from difflexmm_tpu_torch.ops.kinematics import DOFSet
 from difflexmm_tpu_torch.ops.loading import build_damping_coefficients
 from difflexmm_tpu_torch.utils.types import ControlParams, LigamentParams
@@ -48,7 +42,7 @@ def setup_dynamic_solver(
     kagome_grid: Optional[dict] = None,
     guard=None,
 ):
-    """Set up the quad-grid dynamic solver.
+    """Set up the quad-grid or kagome-grid dynamic solver.
 
     Returns ``solve_dynamics(state0, timepoints, control_params)``: an
     initial ``(2, n_blocks, 3)`` state and ``(T,)`` timepoints to the full
@@ -59,21 +53,20 @@ def setup_dynamic_solver(
     ``constrained_DOFs_fn(t, **constraint_params)`` takes a tensor ``t`` of
     any shape and returns values broadcastable to ``t.shape + (k,)`` for
     the k constrained pairs (the JAX version takes scalar times).
-    ``quad_grid``: dict with n1, n2 and optional linearized / use_contact.
-    ``guard``: reactive substep escalation, a spec dict as for the JAX
-    solver (``core.resolve_guard``; translation "relative" by default,
-    theta is channel 2). Substeps whose predicted travel is risky re-run as
-    ``refine`` micro-steps. CUDA tensors run the guarded kernel (one
-    level); CPU tensors, or ``method="verlet_ckpt"``, the plain guarded
-    body (any depth).
+    ``quad_grid``: dict with n1, n2 (blocks) and optional linearized /
+    use_contact. ``kagome_grid``: the same for a kagome lattice, n1 and n2
+    counting cells (two triangles each). ``guard``: reactive substep
+    escalation, a spec dict as for the JAX solver (``core.resolve_guard``;
+    translation "relative" by default; theta is plane channel 2 on quads,
+    channels 2 and 5 on kagome). Substeps whose predicted travel is risky
+    re-run as ``refine`` micro-steps. CUDA tensors run the guarded kernel
+    (one level); CPU tensors, or ``method="verlet_ckpt"``, the plain
+    guarded body (any depth).
 
     Options of the JAX solver that this port does not implement yet raise
     ``NotImplementedError`` naming the ROADMAP item; none is ignored.
     """
 
-    guard = core.resolve_guard(guard, theta_channels=(2,))
-    if kagome_grid is not None:
-        raise NotImplementedError("kagome lattices are not ported yet: ROADMAP A9 / B4.")
     if loaded_block_DOF_pairs is not None or loading_fn is not None:
         raise NotImplementedError(
             "external force loading is not ported yet: ROADMAP A10 / B3."
@@ -83,25 +76,35 @@ def setup_dynamic_solver(
             f"method={method!r} is not ported yet (ROADMAP A4: dense 'verlet'; "
             f"A12: 'rk4', 'semi_implicit', 'odeint'); use one of {FAST_METHODS}."
         )
-    if quad_grid is None:
+    is_kagome = kagome_grid is not None
+    grid = kagome_grid if is_kagome else quad_grid
+    if grid is None:
         raise ValueError(
-            f"method={method!r} requires quad_grid={{'n1':..., 'n2':...}}."
+            f"method={method!r} requires quad_grid={{'n1':..., 'n2':...}} or "
+            "kagome_grid={'n1':..., 'n2':...}."
         )
-    unknown = set(quad_grid) - {"n1", "n2", "linearized", "use_contact"}
+    unknown = set(grid) - {"n1", "n2", "linearized", "use_contact"}
     if unknown:
-        raise ValueError(f"unknown quad_grid keys: {sorted(unknown)}")
+        raise ValueError(f"unknown {'kagome' if is_kagome else 'quad'}_grid keys: "
+                         f"{sorted(unknown)}")
+    lattice = verlet_kagome if is_kagome else verlet_grid
+    guard = core.resolve_guard(guard, theta_channels=(2, 5) if is_kagome else (2,))
 
     n_blocks = geometry if isinstance(geometry, int) else geometry.n_blocks
-    n1, n2 = quad_grid["n1"], quad_grid["n2"]
-    if n1 * n2 != n_blocks:
-        raise ValueError(f"quad_grid {n1}x{n2} does not match {n_blocks} blocks")
-    linearized = quad_grid.get("linearized", False)
-    use_contact = quad_grid.get("use_contact", True)
+    n1, n2 = grid["n1"], grid["n2"]
+    if (2 if is_kagome else 1) * n1 * n2 != n_blocks:
+        raise ValueError(f"{'kagome' if is_kagome else 'quad'}_grid {n1}x{n2} does not "
+                         f"match {n_blocks} blocks")
+    linearized = grid.get("linearized", False)
+    use_contact = grid.get("use_contact", True)
 
     dof_set = DOFSet(n_blocks, constrained_block_DOF_pairs)
     # One write per constrained slot; duplicates keep the last pair.
     c_blocks, c_dofs, c_ids = dof_set.last_write_pairs()
-    plane_slots = c_dofs * n_blocks + c_blocks  # flat (3, n2, n1) index
+    if is_kagome:  # flat (6, n2, n1) index: channel triangle * 3 + DOF, then cell
+        plane_slots = ((c_blocks % 2) * 3 + c_dofs) * (n2 * n1) + c_blocks // 2
+    else:  # flat (3, n2, n1) index
+        plane_slots = c_dofs * n_blocks + c_blocks
 
     if damped_blocks is not None:
         damping_coeffs = build_damping_coefficients(n_blocks, damped_blocks)
@@ -113,23 +116,36 @@ def setup_dynamic_solver(
 
     def spec_for(device):
         if device not in specs:
-            specs[device] = quad_trajectory_spec(
+            make_spec = (verlet_kagome.kagome_trajectory_spec if is_kagome
+                         else verlet_grid.quad_trajectory_spec)
+            specs[device] = make_spec(
                 n1, n2, n_substeps, plane_slots, c_ids, device,
                 linearized=linearized, use_contact=use_contact,
                 kernel=method != "verlet_ckpt", guard=guard,
             )
         return specs[device]
 
-    def fixed_leaves(control_params: ControlParams, inertia, mask, like):
-        """The 16 fixed leaves, each with a leading design batch of 1."""
+    def contact_scalars(mp, like):
+        """(cmin, ccut, kc), each (1, 1); a barrier of zero stiffness where
+        contact is off."""
+
+        if use_contact and mp.contact_params is not None:
+            values = mp.contact_params
+        else:
+            values = (0.0, 1.0, 0.0)
+        return tuple(torch.as_tensor(x, **like).reshape(1, 1) for x in values)
+
+    def solver_planes(mp, inertia, mask, like):
+        """The (inertia, damping, mask) planes."""
+
+        damping = damping_coeffs(torch.as_tensor(mp.damping, **like))
+        return tuple(lattice.to_planes(x, n1, n2) for x in (inertia, damping, mask))
+
+    def quad_leaves(control_params: ControlParams, inertia, mask, like):
+        """The 16 quad fixed leaves (``verlet_grid.N_FIXED_ARRAYS``)."""
 
         mp = control_params.mechanical_params
         gp = control_params.geometrical_params
-        contact_on = use_contact and mp.contact_params is not None
-        if contact_on:
-            cmin, ccut, kc = mp.contact_params
-        else:
-            cmin, ccut, kc = 0.0, 1.0, 0.0
         bp = LigamentParams(*(torch.as_tensor(x, **like) for x in mp.bond_params))
         ref_h, ref_v, ks_h, ks_v, ksh_h, ksh_v, kr_h, kr_v = split_grid_bond_data(bp, n1, n2)
 
@@ -139,18 +155,41 @@ def setup_dynamic_solver(
             return torch.movedim(ref, -1, 0)
 
         h, v = (n2, n1 - 1), (n2 - 1, n1)
-        damping = damping_coeffs(torch.as_tensor(mp.damping, **like))
-        leaves = (
-            cnv_to_planes(gp.centroid_node_vectors, n1, n2),
-            to_planes(gp.block_centroids, n1, n2),
+        return (
+            verlet_grid.cnv_to_planes(gp.centroid_node_vectors, n1, n2),
+            verlet_grid.to_planes(gp.block_centroids, n1, n2),
             ref_planes(ref_h, h), ref_planes(ref_v, v),
             *(torch.broadcast_to(k, h) for k in (ks_h, ksh_h, kr_h)),
             *(torch.broadcast_to(k, v) for k in (ks_v, ksh_v, kr_v)),
-            *(torch.as_tensor(x, **like).reshape(1, 1) for x in (cmin, ccut, kc)),
-            to_planes(inertia, n1, n2),
-            to_planes(damping, n1, n2),
-            to_planes(mask, n1, n2),
+            *contact_scalars(mp, like),
+            *solver_planes(mp, inertia, mask, like),
         )
+
+    def kagome_leaves(control_params: ControlParams, inertia, mask, like):
+        """The 20 kagome fixed leaves (``verlet_kagome.N_FIXED_ARRAYS``;
+        JAX ``_kagome_fixed_core``, the scatter factors replaced by the
+        drive map)."""
+
+        mp = control_params.mechanical_params
+        gp = control_params.geometrical_params
+        bp = LigamentParams(*(torch.as_tensor(x, **like) for x in mp.bond_params))
+        shapes = ((n2, n1), (n2 - 1, n1), (n2, n1 - 1))
+        families = [verlet_kagome.split_bond_planes(k, n1, n2)
+                    for k in (bp.k_stretch, bp.k_shear, bp.k_rot)]
+        return (
+            verlet_kagome.cnv_to_planes(gp.centroid_node_vectors, n1, n2),
+            verlet_kagome.centroids_to_planes(gp.block_centroids, n1, n2),
+            *verlet_kagome.split_ref_planes(bp.reference_vector, n1, n2),
+            *(torch.broadcast_to(families[k][f], shapes[f]) for f in range(3) for k in range(3)),
+            *contact_scalars(mp, like),
+            *solver_planes(mp, inertia, mask, like),
+        )
+
+    def fixed_leaves(control_params: ControlParams, inertia, mask, like):
+        """The lattice's fixed leaves, each with a leading design batch of 1."""
+
+        leaves = (kagome_leaves if is_kagome else quad_leaves)(control_params, inertia, mask,
+                                                               like)
         return tuple(x[None].contiguous() for x in leaves)
 
     def prepare(state0, timepoints, control_params: ControlParams):
@@ -195,8 +234,8 @@ def setup_dynamic_solver(
             starts = starts[..., None] + torch.arange(guard["refine"], **like) * ddt
             micro.append(drive_table((starts + ddt).reshape(-1))[None].contiguous())
 
-        U0 = to_planes(y0[0], n1, n2)[None].contiguous()
-        V0 = to_planes(y0[1], n1, n2)[None].contiguous()
+        U0 = lattice.to_planes(y0[0], n1, n2)[None].contiguous()
+        V0 = lattice.to_planes(y0[1], n1, n2)[None].contiguous()
         inertia_p, damping_p, mask_p = fixed[-3:]
         F0 = core.force(
             U0, drive_table(ts[0])[None], fixed, spec,
@@ -217,8 +256,8 @@ def setup_dynamic_solver(
 
         args, y0, ts, drive_values = prepare(state0, timepoints, control_params)
         outU, outV = core.apply(args)[:2]
-        out = torch.stack([outU[0], outV[0]], dim=1)  # (T-1, 2, 3, n2, n1)
-        ys = torch.cat([y0[None], fields_from_planes(out, n_blocks)])
+        out = torch.stack([outU[0], outV[0]], dim=1)  # (T-1, 2, C, n2, n1)
+        ys = torch.cat([y0[None], lattice.fields_from_planes(out, n_blocks)])
 
         if dof_set.n_constrained == 0:
             return ys

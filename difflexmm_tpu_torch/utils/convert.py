@@ -3,10 +3,11 @@
 ``design_from_numpy`` turns a numpy design into tensors,
 ``forward_problem_from_jax_dict`` rebuilds a JAX ``ForwardProblem`` (its
 ``to_dict()``, arrays as numpy; the substep ``guard`` included) as this
-port's ``ForwardProblem``, and ``optimization_problem_from_jax_dict`` does
-the same for a JAX quads-focusing ``OptimizationProblem`` (target patch
-and iteration histories), so that one dict and one numpy design drive
-both packages.
+port's ``ForwardProblem`` of the same family (the dict's ``name``:
+``"quads_focusing"`` or ``"kagome_focusing"``), and
+``optimization_problem_from_jax_dict`` does the same for a JAX
+``OptimizationProblem`` (target patch and iteration histories), so that one
+dict and one numpy design drive both packages.
 """
 
 import dataclasses
@@ -14,23 +15,35 @@ import dataclasses
 import numpy as np
 import torch
 
-from difflexmm_tpu_torch.models.quads_focusing import ForwardProblem, OptimizationProblem
+from difflexmm_tpu_torch.models import kagome_focusing, quads_focusing
+
+#: The model families the port has, by the JAX problem's ``name``.
+FAMILIES = {"quads_focusing": quads_focusing, "kagome_focusing": kagome_focusing}
 
 # JAX ForwardProblem fields that this port does not carry:
 # atol / rtol tune the odeint backend only, which the fast path never runs.
 _INERT_FIELDS = ("atol", "rtol")
 
 
+def _family(d: dict):
+    name = d.get("name", "quads_focusing")
+    if name not in FAMILIES:
+        raise NotImplementedError(f"model family {name!r} is not ported yet (ROADMAP A10)")
+    return FAMILIES[name]
+
+
 def design_from_numpy(design, device="cuda", dtype=torch.float64):
-    """``(horizontal_shifts, vertical_shifts)`` numpy arrays -> tensors."""
+    """A design's numpy arrays (quads: the two shift grids; kagome: the
+    three) -> tensors."""
 
     return tuple(torch.tensor(np.asarray(x), device=device, dtype=dtype) for x in design)
 
 
-def forward_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64) -> ForwardProblem:
+def forward_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64):
     """This port's ``ForwardProblem`` from the dict of the JAX
     ``ForwardProblem.to_dict()``. Options the port lacks raise."""
 
+    ForwardProblem = _family(d).ForwardProblem
     data = {k: v for k, v in d.items() if k not in _INERT_FIELDS}
     if data.pop("pallas_interpret", False):
         raise ValueError("pallas_interpret has no meaning in the port (there is no Pallas)")
@@ -46,12 +59,12 @@ def forward_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64) -
     return ForwardProblem(**data)
 
 
-def optimization_problem_from_jax_dict(d: dict, device="cuda",
-                                       dtype=torch.float64) -> OptimizationProblem:
-    """This port's quads-focusing ``OptimizationProblem`` from the dict of the
-    JAX ``OptimizationProblem.to_dict()`` (its forward problem as above;
-    the histories' designs as numpy pairs)."""
+def optimization_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64):
+    """This port's ``OptimizationProblem`` from the dict of the JAX
+    ``OptimizationProblem.to_dict()`` (its forward problem as above; the
+    histories' designs as tuples of numpy arrays)."""
 
+    OptimizationProblem = _family(d).OptimizationProblem
     data = dict(d)
     unknown = set(data) - {f.name for f in dataclasses.fields(OptimizationProblem)}
     if unknown:

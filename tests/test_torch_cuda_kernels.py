@@ -1,5 +1,6 @@
 """The hand-written trajectory kernels against their plain PyTorch versions
-on a CUDA device: kernel 1 (unguarded) and kernel 1g (guarded). Marked
+on a CUDA device: kernels 1 and 1g (quads, unguarded and guarded) and 1K
+and 1Kg (kagome, unguarded and guarded). Marked
 ``cuda``: skipped (with the reason) where there is no CUDA device; on a
 machine with one, run
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
@@ -18,8 +19,10 @@ import torch
 
 from difflexmm_tpu_torch import kernel_checks as kc
 from difflexmm_tpu_torch.models.flagship import build_flagship
-from difflexmm_tpu_torch.ops.kernels import core
+from difflexmm_tpu_torch.models.kagome_config import build_kagome
+from difflexmm_tpu_torch.ops.kernels import core, verlet_kagome
 from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
+from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
 
 pytestmark = pytest.mark.cuda
 
@@ -37,10 +40,11 @@ def _plain(args):
 
 def _kernel(args):
     counter = "launches" if args.spec.guard is None else "guarded_launches"
-    launches = getattr(verlet_quad_trajectory, counter)
+    wrapper = verlet_kagome_trajectory if args.U0.shape[1] == 6 else verlet_quad_trajectory
+    launches = getattr(wrapper, counter)
     calls = core.plain_trajectory.calls
     outs = core.trajectory_forward(args)
-    assert getattr(verlet_quad_trajectory, counter) == launches + 1
+    assert getattr(wrapper, counter) == launches + 1
     assert core.plain_trajectory.calls == calls
     return outs
 
@@ -144,3 +148,127 @@ def test_guarded_objective_runs_the_guarded_kernel(device):
     assert verlet_quad_trajectory.guarded_launches == launches + 1
     assert core.plain_trajectory.calls == calls
     assert torch.isfinite(value)
+
+
+# ---------------------------------------------------------------------------
+# Kagome: kernels 1K and 1Kg
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kagome_batch_of_four_designs(device, dtype):
+    problem = kc.small_kagome(device=device)
+    rng = np.random.default_rng(0)
+    _assert_matches(
+        kc.batched_args(problem, [kc.random_kagome_design(problem, rng) for _ in range(4)]), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kagome_contact_probe(device, dtype):
+    args, _ = kc.kagome_contact_probe(device=device)
+    U_eff = args.U0 * args.fixed[-1] + core.drive_planes(args.drive[:, 0], args.spec, args.U0)
+    assert kc.contact_energy_of(U_eff, args.fixed) > 0
+    assert kc.max_rel_err(kc.kernel_force(args), kc.plain_force(args)) <= 1e-12
+    _assert_matches(args, dtype)
+
+
+def test_kagome_lattice_beyond_shared_memory(device):
+    need, have = verlet_kagome.carry_bytes(30, 28, torch.float64)
+    assert need > have  # the carry lives in the global workspace
+    problem = kc.small_kagome(n1=30, n2=28, n_timepoints=3, device=device, simulation_time=0.5)
+    rng = np.random.default_rng(1)
+    _assert_matches(kc.batched_args(problem, [kc.random_kagome_design(problem, rng)] * 2),
+                    torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kagome_guarded_contact_probe_fires_both_terms(device, dtype):
+    args, _ = kc.kagome_contact_probe(device=device, guard="auto")
+    _, summary = kc.guard_terms(args)
+    assert summary["fired_hard"] > 0 and summary["fired_proximity"] > 0
+    _assert_matches(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kagome_guarded_batch_decides_per_design(device, dtype):
+    violent = kc.small_kagome(device=device, guard="auto")
+    rng = np.random.default_rng(2)
+    args = kc.batched_args(violent, [kc.random_kagome_design(violent, rng) for _ in range(2)])
+    tame = kc.batched_args(kc.small_kagome(device=device, guard="auto", amplitude_scale=0.01),
+                           [kc.random_kagome_design(violent, rng)])
+    both = core.TrajectoryArgs(
+        args.spec, *(torch.cat([getattr(args, f), getattr(tame, f)]) for f in ("U0", "V0", "A0")),
+        args.dts, torch.cat([args.drive, tame.drive]),
+        tuple(torch.cat([a, b]).contiguous() for a, b in zip(args.fixed, tame.fixed)),
+        tuple(torch.cat([a, b]).contiguous() for a, b in zip(args.micro, tame.micro)))
+    kernel = _assert_matches(both, dtype)
+    if dtype == torch.float64:
+        assert kernel[4][:2].any() and not kernel[4][2].any()
+
+
+def test_kagome_guarded_kernel_equals_unguarded_where_nothing_fires(device):
+    problem = kc.small_kagome(device=device, guard="auto", amplitude_scale=0.01)
+    args = kc.batched_args(problem, [kc.random_kagome_design(problem, np.random.default_rng(3))])
+    guarded = _assert_matches(args, torch.float64)
+    assert not guarded[4].any()
+    unguarded = _kernel(args._replace(spec=args.spec._replace(guard=None), micro=()))
+    for g, u in zip(guarded[:3], unguarded):
+        assert kc.max_rel_err(g, u) <= 1e-12
+
+
+def test_kagome_guarded_kernel_refuses_more_than_one_level(device):
+    problem = kc.small_kagome(n_timepoints=3, device=device, guard=dict(window=0.1, levels=2))
+    args = kc.batched_args(problem, [kc.random_kagome_design(problem,
+                                                             np.random.default_rng(4))])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        core.trajectory_forward(args)
+
+
+def test_kagome_guarded_objective_runs_the_guarded_kernel(device):
+    optimization, design = build_kagome(device=device, guard="auto")
+    launches = verlet_kagome_trajectory.guarded_launches
+    calls = core.plain_trajectory.calls
+    d = tuple(x.clone().requires_grad_() for x in design)
+    value = optimization.objective_fn(d)
+    assert verlet_kagome_trajectory.guarded_launches == launches + 1
+    assert core.plain_trajectory.calls == calls
+    assert torch.isfinite(value)
+
+
+# ---------------------------------------------------------------------------
+# The adjoint's CUDA-graph replay of an unguarded interval
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_graphed_interval_vjp_equals_the_eager_replay(device, lattice):
+    rng = np.random.default_rng(5)
+    if lattice == "quad":
+        problem = kc.small_problem(device=device)
+        args = kc.batched_args(problem, [kc.random_design(problem, rng) for _ in range(2)])
+    else:
+        problem = kc.small_kagome(device=device)
+        args = kc.batched_args(problem, [kc.random_kagome_design(problem, rng)
+                                         for _ in range(2)])
+    spec, n = args.spec, args.spec.n_substeps
+    outU, outV, outA = core.trajectory_forward(args)[:3]
+    # The geometry leaves (corners, centroids) take gradients, as in a design
+    # gradient; the rest are constants.
+    fixed_in = tuple(f.detach().requires_grad_(i < 2) for i, f in enumerate(args.fixed))
+
+    def eager(cin, rows, dt, cot):
+        with torch.enable_grad():
+            carry = [x.detach().requires_grad_() for x in cin]
+            out = core.interval_body(*carry, dt, rows, fixed_in, spec, create_graph=True)
+            return torch.autograd.grad(out, carry + list(fixed_in[:2]), cot, allow_unused=True)
+
+    graphed = None
+    for k in (5, 2):  # two intervals through one captured graph
+        cin = (outU[:, k - 1], outV[:, k - 1], outA[:, k - 1])
+        rows, dt = args.drive[:, k * n:(k + 1) * n], args.dts[k]
+        cot = tuple(torch.tensor(rng.standard_normal(tuple(x.shape)), device=device)
+                    for x in cin)
+        if graphed is None:
+            graphed = core.GraphedIntervalVJP(spec, cin, rows, dt, fixed_in)
+        for g, e in zip(graphed(cin, rows, dt, cot), eager(cin, rows, dt, cot)):
+            assert torch.equal(g, e)

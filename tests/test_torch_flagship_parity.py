@@ -28,6 +28,11 @@ from difflexmm_tpu_torch.models.quads_focusing import (
 )
 from difflexmm_tpu_torch.utils.convert import design_from_numpy, forward_problem_from_jax_dict
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and the port's many small tensor operations slow down several times over
+# when each worker also runs a thread per core.
+torch.set_num_threads(1)
+
 TARGET = dict(target_size=(2, 2), target_shift=(1, 1))
 
 

@@ -4,7 +4,10 @@ The spec, the risk predicate, the travel and gap terms, and the guarded
 trajectory with its adjoint are held against ``difflexmm_tpu``. The
 trajectory scenario is the rotating-squares harness of
 ``tests/test_guard.py`` (5 x 4 blocks, voids bouncing off a barrier at
-40-45 degrees, coarse substeps that tunnel without the guard).
+40-45 degrees, coarse substeps that tunnel without the guard). JAX's
+guarded trajectories and gradients on it, whose trace and compile take
+30-50 s each, are recorded in ``tests/data/guard_harness.npz`` by the
+slow ``test_guard_harness_references_match_jax``, which makes them again.
 """
 
 import math
@@ -29,10 +32,12 @@ from difflexmm_tpu.utils import (
     LigamentParams as JaxLigamentParams,
     MechanicalParams as JaxMechanicalParams,
 )
+from jax_references import record_or_check, stored
+
 from difflexmm_tpu_torch import kernel_checks as kc
 from difflexmm_tpu_torch.geometry.quad import QuadGeometry
 from difflexmm_tpu_torch.models import base
-from difflexmm_tpu_torch.ops.kernels import core, verlet_grid
+from difflexmm_tpu_torch.ops.kernels import core, launch, verlet_grid
 from difflexmm_tpu_torch.solver import setup_dynamic_solver
 from difflexmm_tpu_torch.utils.types import (
     ContactParams,
@@ -41,6 +46,11 @@ from difflexmm_tpu_torch.utils.types import (
     LigamentParams,
     MechanicalParams,
 )
+
+# One intra-op thread: the suite runs in several worker processes at once,
+# and the port's many small tensor operations slow down several times over
+# when each worker also runs a thread per core.
+torch.set_num_threads(1)
 
 N1, N2 = 5, 4
 MIN_A, CUT_A = math.radians(40.0), math.radians(45.0)
@@ -199,8 +209,8 @@ def test_gap_matches_jax_at_random_states(seed):
 def test_kernel_refuses_more_than_one_level():
     guard = core.resolve_guard(dict(GUARD), (2,))
     with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        verlet_grid._guard_params(guard)
-    assert len(verlet_grid._guard_params(dict(guard, levels=1))) == 9
+        launch.guard_params(guard, (2,), "verlet_quad")
+    assert len(launch.guard_params(dict(guard, levels=1), (2,), "verlet_quad")) == 9
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +236,9 @@ def _jax_solve(guard, n_substeps, monkeypatch):
     """JAX ``verlet_ckpt`` on the harness: (objective, grad wrt (state0,
     k_contact), fields, per-interval flags). The flags come from the
     package's own guarded interval body (``emit_risk=True``), run on the
-    arrays its solver hands the trajectory."""
+    arrays its solver hands the trajectory. The gradient is one compiled
+    program; the arrays are caught in an eager call that stops at the
+    trajectory (its outputs there are zeros, and unused)."""
 
     geo = JaxQuadGeometry(N1, N2, 1.0, 0.1)
     bc, cnv, bonds, rbv = geo.get_parametrization()
@@ -240,6 +252,9 @@ def _jax_solve(guard, n_substeps, monkeypatch):
 
         def wrapped(carry, timepoints, arrays):
             captured["call"] = (carry, timepoints, arrays)
+            if captured.get("stop"):
+                return tuple(jnp.zeros((len(timepoints) - 1,) + c.shape, c.dtype)
+                             for c in carry)
             return trajectory(carry, timepoints, arrays)
 
         wrapped.force_fn = trajectory.force_fn
@@ -266,8 +281,9 @@ def _jax_solve(guard, n_substeps, monkeypatch):
         return jnp.sum(sol[-1, 1, :, 2] ** 2), sol
 
     state0 = jnp.asarray(_state0())
-    (value, fields), grads = jax.value_and_grad(objective, argnums=(0, 1),
-                                                has_aux=True)(state0, 1.0)
+    (value, fields), grads = jax.jit(jax.value_and_grad(objective, argnums=(0, 1),
+                                                        has_aux=True))(state0, 1.0)
+    captured["stop"] = True
     objective(state0, 1.0)  # eager: the spy captures concrete arrays
     carry, ts, arrays = captured["call"]
     force = jax_core.make_force_fn(jax_verlet_grid.N_FIXED_ARRAYS,
@@ -324,9 +340,38 @@ def _port_solve(guard, n_substeps, scale=1.0):
     return dict(value=value.detach(), fields=fields.detach(), flags=flags, grads=grads)
 
 
-@pytest.mark.parametrize("guard", [GUARD, GUARD_PROX], ids=["travel", "proximity"])
-def test_guarded_trajectory_and_gradient_match_jax(guard, monkeypatch):
-    ref = _jax_solve(guard, 2, monkeypatch)
+HARNESS_GUARDS = {"travel": GUARD, "proximity": GUARD_PROX}
+
+
+def _recorded(name):
+    """JAX's results for one guard of the harness (see ``_jax_solve``),
+    from ``tests/data/guard_harness.npz``."""
+
+    data = stored("guard_harness")
+    return dict(value=float(data[f"{name}_value"]), fields=data[f"{name}_fields"],
+                flags=data[f"{name}_flags"].tolist(),
+                grads=[data[f"{name}_grad{i}"] for i in range(2)])
+
+
+@pytest.mark.slow
+def test_guard_harness_references_match_jax(monkeypatch):
+    """Make ``tests/data/guard_harness.npz`` again with the JAX package."""
+
+    out = {}
+    for name, guard in HARNESS_GUARDS.items():
+        ref = _jax_solve(guard, 2, monkeypatch)
+        monkeypatch.undo()
+        out.update({f"{name}_value": ref["value"], f"{name}_fields": ref["fields"],
+                    f"{name}_flags": np.asarray(ref["flags"])})
+        out.update({f"{name}_grad{i}": g for i, g in enumerate(ref["grads"])})
+    record_or_check("guard_harness", out)
+
+
+@pytest.mark.parametrize("name", sorted(HARNESS_GUARDS, reverse=True),
+                         ids=lambda name: name)
+def test_guarded_trajectory_and_gradient_match_jax(name):
+    guard = HARNESS_GUARDS[name]
+    ref = _recorded(name)
     got = _port_solve(guard, 2)
     assert ref["flags"] == got["flags"]
     assert any(ref["flags"])

@@ -24,6 +24,8 @@ from difflexmm_tpu.models.quads_focusing import (
     OptimizationProblem as JaxOptimizationProblem,
 )
 from difflexmm_tpu.optim import mma as jax_mma
+from jax_references import record_or_check, stored
+
 from difflexmm_tpu_torch.geometry.quad import QuadGeometry
 from difflexmm_tpu_torch.models import base
 from difflexmm_tpu_torch.models.flagship import (
@@ -48,6 +50,11 @@ from difflexmm_tpu_torch.utils.convert import (
     forward_problem_from_jax_dict,
     optimization_problem_from_jax_dict,
 )
+
+# One intra-op thread: the suite runs in several worker processes at once,
+# and the port's many small tensor operations slow down several times over
+# when each worker also runs a thread per core.
+torch.set_num_threads(1)
 
 # Same update math in the same order at float64: the packages differ in
 # the last bits of matrix products and norms only.
@@ -332,14 +339,49 @@ def _small_jax_problem():
     return JaxForwardProblem(**cfg)
 
 
-def test_guarded_mma_matches_jax_at_8x6():
-    # The 8 x 6 flagship physics with a tenth of the pulse amplitude: the
-    # guard fires on a share of the substeps of each iteration.
+GUARDED_8X6_ITERATIONS = 3
+
+
+def _jax_guarded_mma_8x6():
+    """The JAX package's guarded MMA at 8 x 6 (see the test below): the
+    histories that ``tests/data/guarded_mma_8x6.npz`` records."""
+
     jp = _small_jax_problem()
     jo = JaxOptimizationProblem(jp, target_size=(2, 2), target_shift=(1, 1))
     jo.setup_objective()
     design = jp.geometry.get_design_from_rotated_square(25 * math.pi / 180)
-    jo.run_optimization_mma(design, n_iterations=3, verbose=False, **MMA_SETTINGS)
+    jo.run_optimization_mma(design, n_iterations=GUARDED_8X6_ITERATIONS, verbose=False,
+                            **MMA_SETTINGS)
+    out = {"objective_values": np.asarray(jo.objective_values, dtype=np.float64)}
+    out.update({f"design{k}_{i}": np.asarray(x)
+                for k, d in enumerate(jo.design_values) for i, x in enumerate(d)})
+    out.update({f"violation_{name}": np.asarray(v, dtype=np.float64)
+                for name, v in jo.constraints_violation.items()})
+    return out
+
+
+@pytest.mark.slow
+def test_guarded_mma_8x6_references_match_jax():
+    """Make ``tests/data/guarded_mma_8x6.npz`` again with the JAX package."""
+
+    record_or_check("guarded_mma_8x6", _jax_guarded_mma_8x6())
+
+
+def test_guarded_mma_matches_jax_at_8x6():
+    # The 8 x 6 flagship physics with a tenth of the pulse amplitude: the
+    # guard fires on a share of the substeps of each iteration. JAX's run
+    # (about a minute of tracing and compiling) is recorded.
+    jp = _small_jax_problem()
+    jp.setup()
+    ref = stored("guarded_mma_8x6")
+    design = jp.geometry.get_design_from_rotated_square(25 * math.pi / 180)
+    jo = JaxOptimizationProblem(
+        jp, target_size=(2, 2), target_shift=(1, 1),
+        objective_values=[float(v) for v in ref["objective_values"]],
+        design_values=[(ref[f"design{k}_0"], ref[f"design{k}_1"])
+                       for k in range(GUARDED_8X6_ITERATIONS)],
+        constraints_violation={name: ref[f"violation_{name}"].tolist()
+                               for name in ("angles", "edge_lengths")})
 
     jax_dict = {k: (np.asarray(v) if hasattr(v, "shape") else v)
                 for k, v in jp.to_dict().items()}
@@ -347,14 +389,14 @@ def test_guarded_mma_matches_jax_at_8x6():
                              target_size=(2, 2), target_shift=(1, 1))
     calls = core.plain_trajectory.calls
     final = to.run_optimization_mma(
-        design_from_numpy([np.asarray(x) for x in design], device="cpu"), n_iterations=3,
-        verbose=False, **MMA_SETTINGS)
+        design_from_numpy([np.asarray(x) for x in design], device="cpu"),
+        n_iterations=GUARDED_8X6_ITERATIONS, verbose=False, **MMA_SETTINGS)
     assert core.plain_trajectory.calls > calls  # CPU tensors: the plain body
     spec = to.forward_problem.solve_dynamics.trajectory_args(
         to.forward_problem.state0, to.forward_problem.timepoints,
         to.forward_problem.control_params(final)).spec
     assert spec.guard is not None and spec.guard["proximity"] is not None
-    assert len(to.objective_values) == len(jo.objective_values) == 3
+    assert len(to.objective_values) == len(jo.objective_values) == GUARDED_8X6_ITERATIONS
     assert rel(to.objective_values, jo.objective_values) <= HISTORY_TOL
     for a, b in zip(to.design_values, jo.design_values):
         assert rel(flat(a), flat(b)) <= HISTORY_TOL
