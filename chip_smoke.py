@@ -7,9 +7,11 @@ Builds the hand-written trajectory kernels from ``difflexmm_tpu_torch/csrc``
 into ``build/kernels`` (one nvcc per source, in parallel) and holds each
 against its plain PyTorch version on the same inputs: the quad kernels
 (kernel 1, unguarded, and kernel 1g, guarded, per-substep decisions
-identical at float64) and the kagome kernels (1K and 1Kg, the same). The
-plain version's runs go to worker processes on the host's CPU cores while
-the kernels build. Then it drives four main paths.
+identical at float64), the kagome kernels (1K and 1Kg, the same) and the
+fused external loads (1L) in all four of them. The plain version's runs, and
+the dense ``method="verlet"`` runs of the loaded problems, go to worker
+processes on the host's CPU cores while the kernels build. Then it drives
+seven main paths.
 On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
 value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
 1), and the guarded constrained optimizer
@@ -19,11 +21,20 @@ one at float32 timed). On the kagome configuration
 (``examples/configs/kagome_focusing.json``: 16 x 16 cells, 200
 timepoints, 10 substeps): the value and design gradient (kernel 1K), and
 ``run_optimization_mma`` with the configuration's settings (kernel 1Kg, two
-iterations at float64 held against the JAX history and gradients).
-Objectives and float64 design gradients are checked against the JAX
-package's float64 values, and the kernels are timed against their plain
-versions. Fails (non-zero exit, no result line) without a CUDA device or
-outside a checkout of the repository. Imports no JAX.
+iterations at float64 held against the JAX history and gradients). The
+force pulse of ``examples/pulse_rotated_squares.py`` (10 x 5 rotated-square
+cells, 100 timepoints, 16 substeps, kernel 1L): the value and gradient of
+the last kinetic energy with respect to (angle, amplitude, rate), held
+against JAX's float64 values and its trajectory against the dense path
+(at float32 on its first 12 intervals: float32 leaves float64 after). The
+tensile oracle of ``tools/tpu_parity_check.py`` at float32 (kernel 1L): the
+chain's final strain equals the applied one. ``reference_design`` on
+``examples/configs/pulse_forward.json`` (kernel 1 on the rotated-square
+lattice), held against JAX's float64 trajectory summary. Objectives and
+float64 design gradients are checked against the JAX package's float64
+values, and the kernels are timed against their plain versions. Fails
+(non-zero exit, no result line) without a CUDA device or outside a
+checkout of the repository. Imports no JAX.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernels with their launches on the main
@@ -55,6 +66,24 @@ sys.path.insert(0, REPO)
 #   times the plain body's (or 1e-5 of the field scale, where both are tiny).
 F64_TRAJ_TOL = 1e-9
 F32_TRAJ_FACTOR, F32_TRAJ_FLOOR = 3.0, 1e-5
+# The loaded kernel checks (kernel 1L in its four instantiations, on the
+# contact probes and tame kagome cells) run 20 substeps each, few enough
+# that the two codes' rounding stays within 1e-12 of each field's scale at
+# float64. A batch of tame 8 x 6 quads with loads is held at F64_TRAJ_TOL,
+# as its unloaded twin is: its stiff ligaments amplify rounding to about
+# 1e-12 of the acceleration's scale in 20 substeps (9.8e-13 against the
+# plain body on the host, 1.2e-12 against the plain body on an H100).
+LOAD_F64_TOL = 1e-12
+LOAD_CHECKS = {"loaded contact probe": LOAD_F64_TOL, "loaded contact probe auto": LOAD_F64_TOL,
+               "loaded kagome 4x3 tame B=2": LOAD_F64_TOL,
+               "loaded kagome contact probe auto": LOAD_F64_TOL,
+               "loaded 8x6 tame B=2": F64_TRAJ_TOL}
+# The force pulse of main path 5 at float32 leaves the float64 pulse at its
+# 14th interval (from 4e-6 to 0.6 of the acceleration's scale in one
+# interval, the plain body as the kernel): the float32 rule holds on the
+# first 12 intervals, where the plain body stays within 2.1e-6 of float64
+# on the host.
+PULSE_F32_INTERVALS = 12
 # Where the guard fired nowhere, the guarded kernel runs the unguarded
 # kernel's steps, so the two agree to rounding at float64.
 GUARD_NOOP_TOL = 1e-12
@@ -169,20 +198,21 @@ def smoke(pool):
     from difflexmm_tpu_torch import kernel_checks as kc
     from difflexmm_tpu_torch.models import flagship as fl
     from difflexmm_tpu_torch.models import kagome_config as kg
-    from difflexmm_tpu_torch.ops.kernels import build, core
+    from difflexmm_tpu_torch.models import loaded_configs as lc
+    from difflexmm_tpu_torch.ops.kernels import build, core, launch
     from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
     from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
 
     f64, f32 = torch.float64, torch.float32
     dtypes = (f64, f32)
     results = {"verlet_quad": {}, "verlet_quad_guarded": {}, "verlet_kagome": {},
-               "verlet_kagome_guarded": {}}
+               "verlet_kagome_guarded": {}, "verlet_quad_loaded": {}}
 
     def reset_counts():
         """Every launch count and the plain-body count to 0."""
 
         for wrapper in (verlet_quad_trajectory, verlet_kagome_trajectory):
-            wrapper.launches = wrapper.guarded_launches = 0
+            launch.reset_counts(wrapper)
         core.plain_trajectory.calls = 0
 
     def finite(outs, label):
@@ -238,6 +268,24 @@ def smoke(pool):
     cases["kagome 16x16 auto"] = kc.batched_args(
         kg.build_kagome(device=device, dtype=f64, guard="auto")[0].forward_problem,
         [kagome_design])
+    # Kernel 1L: loads in each of the four instantiations, at the force
+    # pulse of main path 5 (whole, and its first PULSE_F32_INTERVALS
+    # intervals for the float32 rule) and at main path 6's tensile chain.
+    cases.update(kc.loaded_cases(device=device, dtype=f64))
+    pulse64 = lc.pulse_problem(device, f64)
+    with torch.no_grad():
+        cases["pulse 20x10"] = pulse64[0].trajectory_args(
+            pulse64[2], pulse64[3], pulse64[1](*lc.pulse_inputs(device, f64)))
+        tensile64 = lc.tensile_problem(device, f64)
+        cases["tensile chain 0.6"] = tensile64[0].trajectory_args(
+            tensile64[2], tensile64[3], tensile64[1](0.6))
+    cases["pulse 20x10 prefix"] = kc.prefix(cases["pulse 20x10"], PULSE_F32_INTERVALS)
+
+    # The dense method="verlet" runs of main paths 5 and 6 (float64, on the
+    # CPU), the longest first.
+    dense_jobs = {("tensile", strain): pool.submit(lc.dense_reference, "tensile", strain)
+                  for strain in lc.TENSILE_STRAINS}
+    dense_jobs["pulse"] = pool.submit(lc.dense_reference, "pulse")
 
     plain_jobs = {}
 
@@ -255,7 +303,7 @@ def smoke(pool):
         }
 
     # The configurations' runs (the longest) first.
-    for label in sorted(cases, key=lambda label: "16" not in label):
+    for label in sorted(cases, key=lambda label: not ("16" in label or "20x10" in label)):
         submit(label)
     log(f"plain body: {3 * len(cases)} runs of {len(cases)} cases sent to {PLAIN_WORKERS} "
         f"worker processes at {time.perf_counter() - started:.1f} s")
@@ -263,11 +311,13 @@ def smoke(pool):
     def plain(label, name):
         return kc.from_bytes(plain_jobs[label][name].result())
 
-    def against_plain(label):
+    def against_plain(label, tol64=F64_TRAJ_TOL, f32_rule=True):
         """The kernel (``args.spec.forward``) on case ``label`` against the
-        plain body on the same inputs, at float64 and at float32
-        (tolerances above). Returns the float64 kernel outputs, the guard
-        summary of the plain float64 run (None unguarded) and the errors."""
+        plain body on the same inputs, at float64 (within ``tol64``) and at
+        float32 (the rule above; without ``f32_rule`` the float32 errors
+        are logged, not checked). Returns the float64 kernel outputs, the
+        guard summary of the plain float64 run (None unguarded) and the
+        errors."""
 
         args64 = cases[label]
         k64 = core.trajectory_forward(args64)
@@ -275,7 +325,7 @@ def smoke(pool):
         p64, _, summary = plain(label, "64")
         k64_cpu = [x.cpu() for x in k64]
         for name, k, p in zip("UVA", k64_cpu, p64):
-            check(f"{label} float64 {name}", kc.max_rel_err(k, p), F64_TRAJ_TOL)
+            check(f"{label} float64 {name}", kc.max_rel_err(k, p), tol64)
         if args64.spec.guard is not None:
             if not torch.equal(k64_cpu[4], p64[4]) or not torch.equal(k64_cpu[3], p64[3]):
                 raise AssertionError(f"{label}: float64 decisions of kernel and plain body differ")
@@ -289,9 +339,11 @@ def smoke(pool):
         for name, k, p, r in zip("UVA", k32, p32, ref):
             e_plain = plain_errors[name] = kc.max_rel_err(p.double(), r)
             log(f"  {label} float32 {name}: plain body vs float64 {e_plain:.3e}, "
-                f"kernel vs plain {kc.max_rel_err(k, p):.3e}")
-            check(f"{label} float32 {name} kernel vs float64",
-                  kc.max_rel_err(k.double(), r), max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+                f"kernel vs plain {kc.max_rel_err(k, p):.3e}, kernel vs float64 "
+                f"{kc.max_rel_err(k.double(), r):.3e}")
+            if f32_rule:
+                check(f"{label} float32 {name} kernel vs float64", kc.max_rel_err(k.double(), r),
+                      max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
         if args64.spec.guard is not None:
             log(f"  {label} float32: {int(k32[4].sum())} substeps fired in the kernel, "
                 f"{int(p32[4].sum())} in the plain body, decisions "
@@ -465,9 +517,34 @@ def smoke(pool):
     results["verlet_kagome_guarded"].update(
         kc.trajectory_bound(kc.cast(kagome_guarded, f32), k64[0], summary))
     refuses_two_levels(kagome_guarded)
-    pool.shutdown()
 
     phase_done("kagome guarded checks")
+
+    # -- kernel 1L (loads) against its plain body -----------------------------
+    load_checks = {}
+    for label, tol64 in LOAD_CHECKS.items():
+        k64, summary, errors = against_plain(label, tol64)
+        if summary is not None:
+            log(f"  {label}: fired {summary['fired']} of {summary['substeps']} substeps")
+            if not summary["fired"]:
+                raise AssertionError(f"{label}: the guard was meant to fire")
+        load_checks[label] = errors["max_rel_err"]
+    # The float32 pulse leaves the float64 one at its 14th interval (plain
+    # body and kernel alike), so its float32 rule holds on the intervals
+    # before; the whole pulse is held at float64, and the tensile chain
+    # (not chaotic) at both.
+    pulse_prefix_errors = against_plain("pulse 20x10 prefix")[2]
+    load_checks["pulse 20x10 prefix"] = pulse_prefix_errors["max_rel_err"]
+    load_checks["tensile chain 0.6"] = against_plain("tensile chain 0.6")[2]["max_rel_err"]
+    pulse_args = cases["pulse 20x10"]
+    log("  pulse 20x10: float32 not checked over the whole pulse (see its prefix)")
+    k64, _, errors = against_plain("pulse 20x10", f32_rule=False)
+    results["verlet_quad_loaded"].update(errors)
+    results["verlet_quad_loaded"]["checks"] = load_checks
+    results["verlet_quad_loaded"].update(kc.trajectory_bound(kc.cast(pulse_args, f32), k64[0]))
+    pool.shutdown()
+
+    phase_done("loaded checks")
 
     # The guarded kagome objective through 1Kg.
     for dt in dtypes:
@@ -725,6 +802,116 @@ def smoke(pool):
 
     phase_done("kagome mma")
 
+    # -- main path 5: the force pulse's value and gradient through kernel 1L -
+    pulse = {f64: pulse64, f32: lc.pulse_problem(device, f32)}
+    reset_counts()
+    pulse_runs = {}
+    for dt in dtypes:
+        inputs = [x.requires_grad_() for x in lc.pulse_inputs(device, dt)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, fields = lc.pulse_kinetic_energy(pulse[dt], *inputs)
+        grad = torch.stack(torch.autograd.grad(value, inputs))
+        torch.cuda.synchronize()
+        pulse_runs[dt] = (float(value.detach()), grad.double().cpu(), fields.detach(),
+                          time.perf_counter() - t0)
+    launches = verlet_quad_trajectory.loaded_launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 5 (force pulse, value and gradient): {launches} loaded kernel launches, "
+        f"{plain_calls} plain-body forwards")
+    if launches < len(dtypes) or plain_calls != 0:
+        raise AssertionError("main path 5 did not run through kernel 1L")
+    path_launches = launches
+    ref_grad = torch.tensor(lc.JAX_F64_PULSE_GRAD, dtype=f64)
+    # The float32 run: its fields up to the end of the pulse's prefix
+    # against the float64 run's under the float32 rule, with the plain
+    # body's float32 error on the prefix as the measure. Past the prefix
+    # the float32 pulse leaves the float64 one, so its kinetic energy and
+    # gradient at the last timepoint are logged, not checked.
+    e_plain = max(pulse_prefix_errors["plain_float32_rel_err"].values())
+    f32_tol = max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR)
+    head = PULSE_F32_INTERVALS + 1  # timepoints of the prefix
+    for dt in dtypes:
+        name = dtype_name(dt)
+        value, grad, fields, seconds = pulse_runs[dt]
+        log(f"  pulse {name}: kinetic energy {value!r} (JAX f64 {lc.JAX_F64_PULSE_KE!r}), "
+            f"gradient {grad.tolist()} (JAX {list(lc.JAX_F64_PULSE_GRAD)}), fwd+grad "
+            f"{seconds:.2f} s")
+        finite([fields], f"pulse {name} fields")
+        rel = abs(value - lc.JAX_F64_PULSE_KE) / lc.JAX_F64_PULSE_KE
+        grad_err = float((grad - ref_grad).abs().max() / ref_grad.abs().max())
+        if dt == f64:
+            check("pulse float64 kinetic energy vs JAX float64", rel, OBJECTIVE_TOL["float64"])
+            check("pulse float64 gradient vs JAX float64", grad_err, GRAD_TOL)
+        else:
+            log(f"  pulse float32: kinetic energy {rel:.3e} from JAX float64, gradient "
+                f"{kc.max_rel_err(grad, pulse_runs[f64][1]):.3e} from the float64 run's")
+            check(f"pulse float32 fields vs float64, first {head} timepoints (plain body "
+                  f"float32 {e_plain:.3e})",
+                  kc.max_rel_err(fields[:head].double(), pulse_runs[f64][2][:head]), f32_tol)
+    dense_fields, dense_s = dense_jobs["pulse"].result()
+    check("pulse float64 fused (kernel 1L) vs dense verlet trajectory",
+          kc.max_rel_err(pulse_runs[f64][2].cpu(), torch.as_tensor(dense_fields)), F64_TRAJ_TOL)
+    timings.update(pulse_fwd_grad_s_float64=pulse_runs[f64][3],
+                   pulse_fwd_grad_s_float32=pulse_runs[f32][3], pulse_dense_cpu_s=dense_s)
+
+    phase_done("pulse")
+
+    # -- main path 6: the tensile oracle at float32 through kernel 1L ---------
+    solve, control_params, state0, timepoints, tip_strain = lc.tensile_problem(device, f32)
+    reset_counts()
+    tensile = {}
+    for strain in lc.TENSILE_STRAINS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fields = solve(state0, timepoints, control_params(strain))
+        torch.cuda.synchronize()
+        tensile[strain] = (fields, time.perf_counter() - t0)
+    launches = verlet_quad_trajectory.loaded_launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 6 (tensile oracle, float32): {launches} loaded kernel launches, "
+        f"{plain_calls} plain-body forwards")
+    if launches < len(lc.TENSILE_STRAINS) or plain_calls != 0:
+        raise AssertionError("main path 6 did not run through kernel 1L")
+    path_launches += launches
+    for strain, (fields, seconds) in tensile.items():
+        finite([fields], f"tensile {strain} fields")
+        got = tip_strain(fields)
+        dense_fields, dense_s = dense_jobs[("tensile", strain)].result()
+        deviation = float((fields.double().cpu() - torch.as_tensor(dense_fields)).abs().max())
+        log(f"  tensile strain {strain}: tip strain {got!r}, fused float32 vs dense float64 "
+            f"max |difference| {deviation:.3e}, {seconds:.3f} s (dense on a host core "
+            f"{dense_s:.1f} s)")
+        check(f"tensile {strain} tip strain vs applied", abs(got - strain) / strain,
+              lc.TENSILE_STRAIN_TOL)
+        check(f"tensile {strain} fused vs dense trajectory (absolute)", deviation,
+              lc.TENSILE_TRAJECTORY_TOL)
+    results["verlet_quad_loaded"]["launches"] = path_launches
+    tensile_args = {dt: lc.tensile_problem(device, dt) for dt in dtypes}
+
+    phase_done("tensile")
+
+    # -- main path 7: reference_design through kernel 1 -----------------------
+    problem = lc.reference_design_problem(device, f64)
+    reset_counts()
+    with torch.no_grad():
+        fields = problem.solve().fields
+    launches = verlet_quad_trajectory.launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 7 (reference_design, pulse_forward.json): {launches} kernel launches, "
+        f"{plain_calls} plain-body forwards")
+    if launches < 1 or plain_calls != 0:
+        raise AssertionError("main path 7 did not run through kernel 1")
+    finite([fields], "reference_design fields")
+    stats = fl.vector_stats(fields.cpu().numpy().ravel())
+    log(f"  reference_design float64 fields (|x|, sum x, x.r) {stats} "
+        f"(JAX {lc.JAX_F64_REFERENCE_DESIGN_STATS})")
+    check("reference_design float64 fields vs JAX float64",
+          stats_err(stats, lc.JAX_F64_REFERENCE_DESIGN_STATS), OBJECTIVE_TOL["float64"])
+
+    phase_done("reference_design")
+
     # -- timing (flagship and kagome) ------------------------------------------
     def event_ms(fn, reps):
         times = []
@@ -822,6 +1009,29 @@ def smoke(pool):
         ms=statistics.median([tk["guarded_ms"], tk["guarded_ms_2"]]),
         ms_float64=tk["guarded_ms_float64"])
 
+    # Kernel 1L at main paths 5 (the pulse) and 6 (the tensile chain at
+    # strain 0.6), float32 and float64.
+    pulse32 = kc.cast(pulse_args, f32)
+    with torch.no_grad():
+        chain = {dt: tensile_args[dt][0].trajectory_args(tensile_args[dt][2],
+                                                         tensile_args[dt][3],
+                                                         tensile_args[dt][1](0.6))
+                 for dt in dtypes}
+    core.trajectory_forward(pulse32)  # warm up
+    tl = {
+        "pulse_ms": event_ms(trajectory(pulse32), 3),
+        "pulse_ms_float64": event_ms(trajectory(pulse_args), 3),
+        "tensile_ms": event_ms(trajectory(chain[f32]), 3),
+        "tensile_ms_float64": event_ms(trajectory(chain[f64]), 3),
+    }
+    log(f"timing ({card_line}), kernel 1L, CUDA events, medians of 3: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in tl.items()))
+    results["verlet_quad_loaded"].update(ms=tl["pulse_ms"], ms_float64=tl["pulse_ms_float64"],
+                                         tensile_ms=tl["tensile_ms"],
+                                         tensile_ms_float64=tl["tensile_ms_float64"])
+    results["verlet_quad_loaded"]["tensile_bound"] = kc.trajectory_bound(
+        chain[f32], core.trajectory_forward(chain[f32])[0])
+
     phase_done("timing")
 
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
@@ -830,7 +1040,9 @@ def smoke(pool):
                 "verlet_kagome": "difflexmm_tpu/ops/pallas/core.py:822 (kagome: "
                                  "verlet_kagome.py:336-375, energy :127-242)",
                 "verlet_kagome_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (kagome, guarded: "
-                                         "core.py:330-625, verlet_kagome.py:245-308)"}
+                                         "core.py:330-625, verlet_kagome.py:245-308)",
+                "verlet_quad_loaded": "difflexmm_tpu/ops/pallas/core.py:822 (with load_values_fn: "
+                                      "core.py:129-181, scatter verlet_grid.py:68-80)"}
     kernels = []
     for name, r in results.items():
         source = "verlet_kagome.cu" if name.startswith("verlet_kagome") else "verlet_quad.cu"

@@ -1,8 +1,9 @@
 // Lattice-independent parts of the hand-written Verlet trajectory kernels
 // (csrc/verlet_quad.cu, csrc/verlet_kagome.cu): forward-mode duals and the
 // elementary functions on them, the ligament and contact-barrier energies,
-// the NaN-propagating block reductions, the velocity-Verlet substep, the
-// substep guard's predicate and the guarded loop, and the launch.
+// the NaN-propagating block reductions, the velocity-Verlet substep with
+// its external loads, the substep guard's predicate and the guarded loop,
+// and the launch.
 //
 // A lattice plugs in with a policy struct L that provides:
 //   kC                 channels of the state planes (C, n2, n1)
@@ -161,6 +162,10 @@ __device__ __forceinline__ float atan2_(float y, float x) { return atan2f(y, x);
 __device__ __forceinline__ double atan2_(double y, double x) { return atan2(y, x); }
 __device__ __forceinline__ float abs_(float x) { return fabsf(x); }
 __device__ __forceinline__ double abs_(double x) { return fabs(x); }
+// a + b rounded on its own, never contracted with a product into an FMA
+// (the plain body adds the loads to a force it has already rounded).
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 template <typename T>
 __device__ __forceinline__ Dual<T> cos_(const Dual<T>& a) {
@@ -431,7 +436,7 @@ struct Guard {
 // tensors in the wrapper's order, the design batch leading).
 template <typename T, int N>
 struct Params {
-  int B, n1, n2, n_int, n_sub, k_drive;
+  int B, n1, n2, n_int, n_sub, k_drive, k_load;
   const T* U0;
   const T* V0;
   const T* A0;
@@ -450,6 +455,14 @@ struct Params {
   unsigned char* decisions;
   unsigned char* flags;
   Guard<T> guard;
+  // External loads (k_load > 0 only): the load table (B, n_int * n_sub,
+  // k_load) with one column per loaded slot (the wrapper sums the pairs
+  // that name one slot), guarded also its micro-step table (B, n_int *
+  // n_sub * refine, k_load), and load_map (C, n2, n1): each state element's
+  // column, -1 where nothing is loaded.
+  const T* load;
+  const T* load_micro;
+  const int* load_map;
 };
 
 // Carry of one design: U, V, A, U_eff planes and the bond partials.
@@ -459,11 +472,12 @@ __host__ __device__ inline size_t scratch_elems(int n1, int n2) {
 }
 
 // One velocity-Verlet (micro-)step of size dt (hdt = dt / 2, hdt2 = dt^2 / 2)
-// on the carry S with the drive row drow. With `last`, the new state is also
-// written to the interval's outputs at obase.
+// on the carry S with the drive row drow and the load row lrow (read only
+// when p.k_load > 0). With `last`, the new state is also written to the
+// interval's outputs at obase.
 template <typename L, typename T, bool LIN, bool CONTACT>
 __device__ __forceinline__ void verlet_step(const Params<T, L::kLeaves>& p, int b, T dt, T hdt,
-                                            T hdt2, const T* drow, T* S, bool last,
+                                            T hdt2, const T* drow, const T* lrow, T* S, bool last,
                                             size_t obase) {
   const int ne = L::kC * p.n1 * p.n2;
   const int nbond = L::nbond(p.n1, p.n2);
@@ -487,11 +501,17 @@ __device__ __forceinline__ void verlet_step(const Params<T, L::kLeaves>& p, int 
   for (int q = threadIdx.x; q < nbond; q += blockDim.x)
     L::template bond_partials<T, LIN, CONTACT>(p, b, q, sUe, sP);
   __syncthreads();
-  // Gather each DOF's bonds in a fixed order, then the velocity update.
+  // Gather each DOF's bonds in a fixed order, add its slot's load (the
+  // branch on k_load is the same for the whole launch), then the velocity
+  // update. The acceleration's mask makes a load on a constrained DOF inert.
   for (int e = threadIdx.x; e < ne; e += blockDim.x) {
     const T g = L::gather(p, e, sP);
     const T m = mask[e], inert = inertia[e], damp = damping[e];
-    const T f = -(m * g);
+    T f = -(m * g);
+    if (p.k_load > 0) {
+      const int col = p.load_map[e];
+      if (col >= 0) f = add_rn(f, lrow[col]);
+    }
     const T inv_m = m / inert;
     const T v_hat = sV[e] + hdt * (sA[e] + f * inv_m);
     const T v1 = v_hat / (T(1) + hdt * damp / inert) * m;
@@ -565,13 +585,15 @@ __device__ __forceinline__ void guarded_trajectory(const Params<T, L::kLeaves>& 
       __syncthreads();  // the predicate reads other threads' carry
       const bool risky = guard_risky<L, T, CONTACT>(p, b, dt, hdt2, S, red);
       if (!risky) {
-        verlet_step<L, T, LIN, CONTACT>(p, b, dt, hdt, hdt2, p.drive + step * p.k_drive, S, last,
-                                        obase);
+        verlet_step<L, T, LIN, CONTACT>(p, b, dt, hdt, hdt2, p.drive + step * p.k_drive,
+                                        p.load + step * p.k_load, S, last, obase);
       } else {
-        for (int j = 0; j < refine; ++j)
-          verlet_step<L, T, LIN, CONTACT>(p, b, ddt, mhdt, mhdt2,
-                                          p.micro + (step * refine + j) * p.k_drive, S,
+        for (int j = 0; j < refine; ++j) {
+          const size_t micro = step * refine + j;
+          verlet_step<L, T, LIN, CONTACT>(p, b, ddt, mhdt, mhdt2, p.micro + micro * p.k_drive,
+                                          p.load_micro + micro * p.k_load, S,
                                           last && j == refine - 1, obase);
+        }
       }
       if (threadIdx.x == 0) p.decisions[step] = risky;
       fired = fired || risky;
@@ -605,11 +627,11 @@ __device__ __forceinline__ void run_trajectory(const Params<T, L::kLeaves>& p) {
       const T hdt = T(0.5) * dt;
       const T hdt2 = T(0.5) * dt * dt;
       const size_t obase = ((size_t)b * p.n_int + k) * ne;
-      for (int i = 0; i < p.n_sub; ++i)
-        verlet_step<L, T, LIN, CONTACT>(
-            p, b, dt, hdt, hdt2,
-            p.drive + ((size_t)b * n_steps + (size_t)k * p.n_sub + i) * p.k_drive, S,
-            i == p.n_sub - 1, obase);
+      for (int i = 0; i < p.n_sub; ++i) {
+        const size_t step = (size_t)b * n_steps + (size_t)k * p.n_sub + i;
+        verlet_step<L, T, LIN, CONTACT>(p, b, dt, hdt, hdt2, p.drive + step * p.k_drive,
+                                        p.load + step * p.k_load, S, i == p.n_sub - 1, obase);
+      }
     }
   }
 }
@@ -640,9 +662,10 @@ cudaError_t launch_kernel(KernelFn<T, L::kLeaves> kernel, const Params<T, L::kLe
 // Unpack the C interface's arguments and launch the instantiation that
 // pick(linearized, contact, guarded) returns.
 //   ptrs: U0, V0, A0, dts, drive, drive_map, the N fixed leaves, outU, outV,
-//         outA, workspace (NULL: carry in shared memory), and when guarded:
-//         micro, decisions, flags.
-//   dims: B, n1, n2, n_int, n_sub, k_drive.
+//         outA, workspace (NULL: carry in shared memory), micro, decisions,
+//         flags (guarded; else NULL), load, load_micro (guarded; else NULL),
+//         load_map (k_load > 0; else NULL).
+//   dims: B, n1, n2, n_int, n_sub, k_drive, k_load.
 //   guard: NULL (unguarded) or threshold, has_proximity, proximity,
 //          has_hard, hard, has_length_scale, length_scale, refine, relative.
 template <typename L, typename T>
@@ -657,6 +680,7 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
   p.n_int = dims[3];
   p.n_sub = dims[4];
   p.k_drive = dims[5];
+  p.k_load = dims[6];
   const T* const* f = reinterpret_cast<const T* const*>(ptrs);
   p.U0 = f[0];
   p.V0 = f[1];
@@ -673,8 +697,19 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
   p.decisions = nullptr;
   p.flags = nullptr;
   p.guard = Guard<T>{};
-  if (p.B <= 0 || p.n1 <= 0 || p.n2 <= 0 || p.n_int <= 0 || p.n_sub <= 0 || p.k_drive <= 0)
+  p.load = nullptr;
+  p.load_micro = nullptr;
+  p.load_map = nullptr;
+  if (p.B <= 0 || p.n1 <= 0 || p.n2 <= 0 || p.n_int <= 0 || p.n_sub <= 0 || p.k_drive <= 0 ||
+      p.k_load < 0)
     return cudaErrorInvalidValue;
+  if (p.k_load > 0) {
+    p.load = f[N + 13];
+    p.load_micro = f[N + 14];
+    p.load_map = reinterpret_cast<const int*>(ptrs[N + 15]);
+    if (!p.load || !p.load_map || (guard && !p.load_micro))
+      return cudaErrorInvalidValue;
+  }
   if (guard) {
     p.micro = f[N + 10];
     p.decisions = reinterpret_cast<unsigned char*>(const_cast<void*>(ptrs[N + 11]));

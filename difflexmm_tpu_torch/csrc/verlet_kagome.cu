@@ -8,9 +8,10 @@
 // (build_pallas_kagome_trajectory -> kagome_grid_energy_planes, :127-242),
 // unguarded (GUARD = false) and guarded (GUARD = true: core.py:330-625 with
 // theta in plane channels 2 and 5, and the kagome gap function
-// kagome_min_void_gap_planes, verlet_kagome.py:245-308). No fused force
-// loading and no design-tiled layout: on the GPU the design batch is the
-// grid.
+// kagome_min_void_gap_planes, verlet_kagome.py:245-308), with or without
+// fused force loading (core.py:129-181; the scatter verlet_kagome.py:81-95
+// with combine="add": triangle t's DOF d of a cell is channel 3 t + d). No
+// design-tiled layout: on the GPU the design batch is the grid.
 //
 // The lattice: (n2, n1) cells, each with a "down" triangle (block 2 * cell)
 // and an "up" triangle (block 2 * cell + 1). The state is six planes

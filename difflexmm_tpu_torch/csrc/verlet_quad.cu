@@ -4,13 +4,14 @@
 // difflexmm_tpu/ops/pallas/core.py:746-833 (build_verlet_trajectory's
 // pallas_forward, pallas_call at :822), bound to the quad lattice by
 // difflexmm_tpu/ops/pallas/verlet_grid.py:289-331
-// (build_pallas_verlet_trajectory -> quad_grid_energy_planes), in its plain
-// form: no substep guard, no fused force loading.
+// (build_pallas_verlet_trajectory -> quad_grid_energy_planes), with or
+// without fused force loading (core.py:129-181, load_values_fn; the scatter
+// verlet_grid.py:68-80 with combine="add").
 //
 // What it computes, for each design b of a batch (one thread block each):
 // all (T-1) * n_sub velocity-Verlet substeps
 //     U1 = U + dt V + dt^2/2 A
-//     F  = -mask * dE/dU_eff,   U_eff = U1 * mask + drive(t1)
+//     F  = -mask * dE/dU_eff + load(t1),   U_eff = U1 * mask + drive(t1)
 //     V1 = (V + dt/2 (A + F/m)) / (1 + dt/2 c/m) * mask
 //     A1 = (F - c V1) * mask / m
 // with E the quad-grid ligament energy plus the angle-based contact
@@ -35,9 +36,13 @@
 // evaluated once on forward-mode dual numbers seeded on those six, and its
 // six partials go to a per-bond buffer. After a barrier each (DOF, block)
 // thread sums its own <= 4 bonds in a fixed order: no atomics, so runs are
-// deterministic. The contact term is evaluated on duals only when one of
-// the bond's void angles lies in [min_angle, cutoff): elsewhere it and its
-// derivative are zero.
+// deterministic. External loads enter as the drive does: the wrapper sums
+// the pairs that name one slot into one load-table column per slot, and
+// each (DOF, block) thread adds its slot's column, read through load_map,
+// behind a branch on k_load that is uniform across the launch. The
+// contact term is evaluated on duals only when one of the bond's void
+// angles lies in [min_angle, cutoff): elsewhere it and its derivative are
+// zero.
 //
 // The guarded variant (GUARD = true) replaces the same call with a substep
 // guard (difflexmm_tpu/ops/pallas/core.py:330-625: make_interval_body with

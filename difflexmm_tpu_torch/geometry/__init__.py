@@ -5,4 +5,4 @@ from difflexmm_tpu_torch.geometry.polygon import (  # noqa: F401
     polygon_centroid,
     polygon_polar_moment,
 )
-from difflexmm_tpu_torch.geometry.quad import QuadGeometry  # noqa: F401
+from difflexmm_tpu_torch.geometry.quad import QuadGeometry, RotatedSquareGeometry  # noqa: F401

@@ -1,5 +1,6 @@
-"""Quadrilateral lattice geometry (counterpart of
-``difflexmm_tpu/geometry/quad.py``, ``QuadGeometry`` only).
+"""Quadrilateral lattice geometries (counterpart of
+``difflexmm_tpu/geometry/quad.py``): ``QuadGeometry`` and
+``RotatedSquareGeometry``.
 
 Block numbering is row-major with n1 fastest (``block = j * n1 + i``);
 local nodes are ordered (0: right, 1: top, 2: left, 3: bottom).
@@ -152,3 +153,68 @@ class QuadGeometry(LatticeGeometry):
             hinge_vector(sign_grid(n1, n2 + 1)) - offset,
         )
         return horizontal, vertical
+
+
+class RotatedSquareGeometry(LatticeGeometry):
+    """Rotated-square lattice: one global design angle, checkerboard parity.
+
+    ``n1_cells x n2_cells`` cells of 2 x 2 blocks. The block at grid
+    position (i, j) sits at ``spacing * (i, j)`` for any angle; its node
+    vectors are the four quarter-turn rotations of
+    ``(s - l) / (2 cos(p * angle)) * (cos(p * angle), sin(p * angle))``
+    with parity ``p = (-1)^(i + j)``. The design is the angle: a tensor
+    (its dtype and device are the parametrization's) or a Python number
+    (float64 on the CPU).
+    """
+
+    def __init__(
+        self,
+        n1_cells: int,
+        n2_cells: int,
+        spacing: float = 1.0,
+        bond_length: float = 0.1,
+    ):
+        super().__init__(n1_cells=n1_cells, n2_cells=n2_cells, n_bpc=4)
+        self.spacing = spacing
+        self.bond_length = bond_length
+        self.n1_blocks = 2 * n1_cells
+        self.n2_blocks = 2 * n2_cells
+        self.n_npb = 4
+        self.n_nodes = self.n_npb * self.n_blocks
+
+    def compute_geometry(self) -> None:
+        n1, n2 = self.n1_blocks, self.n2_blocks
+        I_np, J_np = _grid_indices(n1, n2)
+        parity_np = (-1.0) ** (I_np + J_np)
+        half = (self.spacing - self.bond_length) / 2
+        basis = self.spacing * np.eye(2)
+        ref_points_np = I_np[:, None] * basis[0] + J_np[:, None] * basis[1]
+
+        def as_angle(angle):
+            if isinstance(angle, torch.Tensor):
+                return angle
+            return torch.tensor(float(angle), dtype=torch.float64)
+
+        def centroid_node_vectors(angle):
+            angle = as_angle(angle)
+            like = dict(dtype=angle.dtype, device=angle.device)
+            a = torch.as_tensor(parity_np, **like) * angle  # (n_blocks,)
+            v0 = (half / torch.cos(a))[:, None] * torch.stack(
+                [torch.cos(a), torch.sin(a)], dim=-1
+            )  # (n_blocks, 2)
+            quarter_turns = torch.tensor([0.0, 0.5, 1.0, 1.5], **like) * math.pi
+            return _rot(quarter_turns[None, :], v0[:, None, :])
+
+        def block_centroids(angle):
+            angle = as_angle(angle)  # the centroids do not depend on it
+            return torch.as_tensor(ref_points_np, dtype=angle.dtype, device=angle.device)
+
+        bonds = _grid_bonds(n1, n2)
+        ref_bond_vecs = torch.as_tensor(
+            _grid_reference_bond_vectors(n1, n2, self.bond_length)
+        )
+
+        self.centroid_node_vectors = centroid_node_vectors
+        self.block_centroids = block_centroids
+        self.bond_connectivity = lambda: bonds
+        self.reference_bond_vectors = lambda: ref_bond_vecs

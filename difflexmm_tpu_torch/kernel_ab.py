@@ -3,10 +3,13 @@
 
     python3 -m difflexmm_tpu_torch.kernel_ab OTHER.cu
 
-``OTHER.cu`` must export the same C interface (for instance the file at
-another commit: ``git show REV:difflexmm_tpu_torch/csrc/verlet_quad.cu``).
-Both are built afresh with the same nvcc flags, at the same time (the
-repository's source with the headers of ``csrc/``). Each version
+``OTHER.cu`` must export the same C interface or an older form of it
+(the launch's extra arguments, such as the load pointers, come after the
+ones an older source reads). Its ``#include "verlet_common.cuh"`` finds the
+header beside it first, so unpack the other commit's package whole, for
+instance ``git archive REV difflexmm_tpu_torch | tar -x -C DIR`` and pass
+``DIR/difflexmm_tpu_torch/csrc/verlet_quad.cu``. Both are built afresh with
+the same nvcc flags, at the same time. Each version
 then runs the flagship trajectory (unguarded at float32 and float64,
 guarded at float64) and the contact probe (guarded and unguarded, float64);
 the largest difference between the two versions' outputs is printed.

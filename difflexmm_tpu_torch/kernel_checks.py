@@ -119,7 +119,76 @@ def batched_args(problem: ForwardProblem, designs, state0=None) -> core.Trajecto
         per[0].dts, cat([a.drive for a in per]),
         tuple(cat(list(leaves)) for leaves in zip(*(a.fixed for a in per))),
         tuple(cat(list(tables)) for tables in zip(*(a.micro for a in per))),
+        tuple(cat(list(tables)) for tables in zip(*(a.loads for a in per))),
     )
+
+
+#: Loaded (block, DOF) pairs of the kernel checks on the 8 x 6-quad and the
+#: 4 x 3-cell kagome inputs above: one pair named twice (the two add) and
+#: one on DOF 0 of block 0, a clamped corner (no effect), beside plain ones.
+QUAD_LOAD_PAIRS = ((47, 0), (21, 1), (47, 0), (0, 0), (30, 2))
+KAGOME_LOAD_PAIRS = ((23, 0), (9, 1), (23, 0), (0, 0), (14, 2))
+
+
+def loaded_cases(device="cuda", dtype=torch.float64, seed=7) -> dict:
+    """The inputs of the loaded kernel checks (kernel 1L in each of the four
+    instantiations), by name: the quad contact probe unguarded and under
+    ``guard="auto"``, tame 4 x 3 kagome cells (B = 2, 20 substeps of the
+    small problem's length) and the kagome contact probe under
+    ``guard="auto"``; and a batch, tame 8 x 6 quads (B = 2, 20 substeps),
+    whose stiff flagship ligaments amplify rounding to about 1e-12 of the
+    acceleration's scale. Each with :data:`QUAD_LOAD_PAIRS` or
+    :data:`KAGOME_LOAD_PAIRS` loaded (:func:`with_loads`)."""
+
+    rng = np.random.default_rng(seed)
+    quad = small_problem(n_timepoints=6, simulation_time=1.5e-3 * 5 / 11, device=device,
+                         dtype=dtype, amplitude_scale=0.01)
+    kagome = small_kagome(n_timepoints=6, simulation_time=3.0 * 5 / 11, device=device,
+                          dtype=dtype, amplitude_scale=0.01)
+    return {
+        "loaded 8x6 tame B=2": with_loads(
+            batched_args(quad, [random_design(quad, rng) for _ in range(2)]), QUAD_LOAD_PAIRS),
+        "loaded contact probe": with_loads(
+            contact_probe(device=device, dtype=dtype)[0], QUAD_LOAD_PAIRS),
+        "loaded contact probe auto": with_loads(
+            contact_probe(device=device, dtype=dtype, guard="auto")[0], QUAD_LOAD_PAIRS),
+        "loaded kagome 4x3 tame B=2": with_loads(
+            batched_args(kagome, [random_kagome_design(kagome, rng) for _ in range(2)]),
+            KAGOME_LOAD_PAIRS),
+        "loaded kagome contact probe auto": with_loads(
+            kagome_contact_probe(device=device, dtype=dtype, guard="auto")[0],
+            KAGOME_LOAD_PAIRS),
+    }
+
+
+def with_loads(args: core.TrajectoryArgs, pairs, seed=0, scale=0.02) -> core.TrajectoryArgs:
+    """``args`` (kernel forward) with external loads on the (block, DOF)
+    ``pairs`` (pairs may repeat and name constrained DOFs): a smooth pulse
+    ``a_j sin^2(pi s / S)`` over the S substeps (and micro-steps) with
+    amplitudes ``a_j`` drawn from ``seed``, sized so that a load alone
+    moves a block by about ``scale`` of its corner radius over the run."""
+
+    spec = args.spec
+    B, C, n2, n1 = args.U0.shape
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    lattice = verlet_kagome if _is_kagome(args.U0) else verlet_grid
+    slots = lattice.plane_slots(pairs[:, 0], pairs[:, 1], n1, n2)
+    spec = spec._replace(load_map=core.load_map(slots, (C, n2, n1), args.U0.device))
+    like = dict(dtype=args.U0.dtype, device=args.U0.device)
+    horizon = float(args.dts.sum()) * spec.n_substeps
+    radius = float(args.fixed[0].abs().max())
+    mass = float(args.fixed[-3][:, 0].mean())
+    amp = scale * radius * mass / horizon**2 * np.random.default_rng(seed).standard_normal(
+        (B, len(pairs)))
+    amp = torch.as_tensor(amp, **like)
+
+    def table(n_rows):
+        s = (torch.arange(n_rows, **like) + 1) / n_rows
+        return (torch.sin(math.pi * s)[None, :, None] ** 2 * amp[:, None, :]).contiguous()
+
+    rows = args.drive.shape[1]
+    loads = [table(rows)] + [table(m.shape[1]) for m in args.micro]
+    return args._replace(spec=spec, loads=tuple(loads))
 
 
 def _is_kagome(U) -> bool:
@@ -240,7 +309,7 @@ def guard_terms(args: core.TrajectoryArgs):
 
     guard, trace = args.spec.guard, []
     outs = core.plain_trajectory(args.U0, args.V0, args.A0, args.dts, args.drive, args.fixed,
-                                 args.spec, args.micro, trace=trace)
+                                 args.spec, args.micro, args.loads, trace=trace)
     decisions = outs[4]
     travel = torch.stack([t for t, _ in trace], dim=1)
     gap = torch.stack([g for _, g in trace], dim=1)
@@ -325,6 +394,15 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
             on = [(v >= cmin[b]) & (v < ccut[b]) for v in voids]
             bond_on = torch.cat([(on[k] | on[k + 1]).flatten(1) for k in range(0, len(on), 2)], 1)
             engaged += int(bond_on.sum()) * spec.n_substeps
+    if spec.load_map is not None:
+        k_load = spec.load_map.pairs.shape[0]
+        nbytes += args.loads[0].numel() * itemsize  # the substep load table
+        nbytes += 4 * C * ncell  # the int32 load map
+        if summary is not None:
+            nbytes += summary["fired"] * spec.guard["refine"] * k_load * B * itemsize
+        # Each loaded pair's value added to its slot, and each loaded slot's
+        # sum to the force.
+        ops += steps * B * (k_load + spec.load_map.slots.shape[0])
     ops += steps * B * (nbond * OPS_BOND + C * ncell * ops_dof) + engaged * OPS_BOND_CONTACT
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FLOPS[args.U0.dtype] * 1e3
@@ -342,9 +420,10 @@ def kernel_force(args: core.TrajectoryArgs):
         torch.ones_like(args.fixed[-3]), torch.zeros_like(args.fixed[-2]), args.fixed[-1]
     )
     zero = torch.zeros_like(args.U0)
+    loads = tuple(t[:, :1].contiguous() for t in args.loads[:1])
     _, _, outA = spec.forward(
         args.U0, zero, zero, args.dts[:1].contiguous(),
-        args.drive[:, :1].contiguous(), fixed, spec,
+        args.drive[:, :1].contiguous(), fixed, spec, (), loads,
     )
     return outA[:, 0]
 
@@ -352,7 +431,8 @@ def kernel_force(args: core.TrajectoryArgs):
 def plain_force(args: core.TrajectoryArgs):
     """The same force through autograd of the plain energy."""
 
-    return core.force(args.U0, args.drive[:, 0], args.fixed, args.spec)
+    return core.force(args.U0, args.drive[:, 0], args.fixed, args.spec,
+                      load_row=args.loads[0][:, 0] if args.loads else None)
 
 
 def cast(args: core.TrajectoryArgs, dtype) -> core.TrajectoryArgs:
@@ -362,7 +442,20 @@ def cast(args: core.TrajectoryArgs, dtype) -> core.TrajectoryArgs:
         **{k: getattr(args, k).to(dtype) for k in ("U0", "V0", "A0", "dts", "drive")},
         fixed=tuple(f.to(dtype) for f in args.fixed),
         micro=tuple(m.to(dtype) for m in args.micro),
+        loads=tuple(t.to(dtype) for t in args.loads),
     )
+
+
+def prefix(args: core.TrajectoryArgs, n_intervals: int) -> core.TrajectoryArgs:
+    """The first ``n_intervals`` output intervals of an unguarded
+    trajectory's inputs."""
+
+    if args.spec.guard is not None:
+        raise ValueError("prefix: unguarded trajectories only")
+    rows = n_intervals * args.spec.n_substeps
+    return args._replace(dts=args.dts[:n_intervals].contiguous(),
+                         drive=args.drive[:, :rows].contiguous(),
+                         loads=tuple(t[:, :rows].contiguous() for t in args.loads))
 
 
 def on_cpu(args: core.TrajectoryArgs) -> core.TrajectoryArgs:
@@ -370,12 +463,15 @@ def on_cpu(args: core.TrajectoryArgs) -> core.TrajectoryArgs:
     another process can hold a kernel's run against its plain version on
     the same inputs (no CUDA tensor, no kernel wrapper)."""
 
+    loads = args.spec.load_map
     spec = args.spec._replace(forward=core.plain_trajectory,
                               drive_slots=args.spec.drive_slots.cpu(),
-                              drive_cols=args.spec.drive_cols.cpu())
+                              drive_cols=args.spec.drive_cols.cpu(),
+                              load_map=None if loads is None else loads.to("cpu"))
     return core.TrajectoryArgs(
         spec, *(getattr(args, k).detach().cpu() for k in ("U0", "V0", "A0", "dts", "drive")),
-        tuple(f.detach().cpu() for f in args.fixed), tuple(m.detach().cpu() for m in args.micro))
+        tuple(f.detach().cpu() for f in args.fixed), tuple(m.detach().cpu() for m in args.micro),
+        tuple(t.detach().cpu() for t in args.loads))
 
 
 def to_bytes(obj) -> bytes:
@@ -405,7 +501,7 @@ def plain_reference(args_bytes: bytes, traced: bool = False) -> bytes:
     if traced:
         outs, summary = guard_terms(args)
     else:
-        outs, summary = core.plain_trajectory(*args[1:7], args.spec, args.micro), None
+        outs, summary = core.plain_trajectory(*args[1:7], args.spec, args.micro, args.loads), None
     return to_bytes((outs, (time.perf_counter() - t0) * 1e3, summary))
 
 

@@ -22,11 +22,84 @@ A guarded trajectory also takes one micro-step table per guard level:
 table ``l`` (1-based) has ``refine**l`` rows per substep, row
 ``(.. (k * n_substeps + i) * refine + j ..)`` holding the values at the end
 of that (micro-)step.
+
+External loads (JAX ``make_force_fn``'s ``load_values_fn``) come the same
+way: a load table ``(B, (T-1) * n_substeps, k_load)`` of the values of the
+k_load loaded (block, DOF) pairs at each substep's end time, plus one
+micro-step table per guard level. Pairs that name the same slot are summed
+in pair order into one column per loaded slot (:func:`slot_loads`, as
+``.at[].add`` sums them), and each slot's sum is added to the force after
+``-mask * dE/dU_eff``; a load on a constrained DOF has no effect (the
+acceleration is masked).
 """
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
+
+
+class LoadMap(NamedTuple):
+    """Where the loaded (block, DOF) pairs enter the force planes
+    (:func:`load_map`).
+
+    Attrs:
+        pairs: (k_load,) int64 flat ``C * n2 * n1`` plane index of each
+            loaded pair, in pair order (duplicates kept: they add).
+        slots: (n_slots,) int64 flat plane index of each loaded slot, the
+            columns of :func:`slot_loads`.
+        ranks: ``((pair indices, slot columns), ...)`` int64: rank r holds
+            every slot's r-th pair, so that :func:`slot_loads` adds a slot's
+            pairs in pair order, one rank at a time, without atomics.
+        columns: (C, n2, n1) int32 slot column of each plane element, -1
+            where nothing is loaded: the kernel's map, read as the drive
+            map is.
+    """
+
+    pairs: torch.Tensor
+    slots: torch.Tensor
+    ranks: tuple
+    columns: torch.Tensor
+
+    def to(self, device) -> "LoadMap":
+        return LoadMap(self.pairs.to(device), self.slots.to(device),
+                       tuple((p.to(device), c.to(device)) for p, c in self.ranks),
+                       self.columns.to(device))
+
+
+def load_map(pairs, plane_shape, device) -> LoadMap:
+    """The :class:`LoadMap` of loaded pairs at flat plane indices ``pairs``
+    (in pair order) on planes of shape ``plane_shape`` ``(C, n2, n1)``."""
+
+    pairs = np.asarray(torch.as_tensor(pairs).cpu(), dtype=np.int64).reshape(-1)
+    slots, column = np.unique(pairs, return_inverse=True)
+    rank = np.zeros_like(pairs)
+    seen = {}
+    for j, slot in enumerate(pairs.tolist()):
+        rank[j] = seen.get(slot, 0)
+        seen[slot] = rank[j] + 1
+    columns = np.full(int(np.prod(plane_shape)), -1, dtype=np.int32)
+    columns[slots] = np.arange(len(slots), dtype=np.int32)
+
+    def tensor(x, dtype=torch.int64):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    ranks = tuple((tensor(np.flatnonzero(rank == r)), tensor(column[rank == r]))
+                  for r in range(int(rank.max(initial=-1)) + 1))
+    return LoadMap(tensor(pairs), tensor(slots), ranks,
+                   tensor(columns, torch.int32).view(*plane_shape))
+
+
+def slot_loads(table: torch.Tensor, loads: LoadMap) -> torch.Tensor:
+    """A load table ``(..., k_load)`` summed into its loaded slots, ``(...,
+    n_slots)``: each slot's pairs added in pair order to zero, as
+    ``.at[].add`` adds them. The plain body and the kernel wrapper share
+    it, so the kernel adds the very sums the plain body adds."""
+
+    out = table.new_zeros(table.shape[:-1] + loads.slots.shape)
+    for pairs, columns in loads.ranks:
+        out = out.index_add(-1, columns, table.index_select(-1, pairs))
+    return out
 
 
 class TrajectorySpec(NamedTuple):
@@ -48,6 +121,8 @@ class TrajectorySpec(NamedTuple):
         guard: resolved guard spec (:func:`resolve_guard`) or None.
         gap_of: ``(U (B, C, n2, n1), fixed) -> (B,)`` barrier gap for the
             guard's proximity term, or None where the family has none.
+        load_map: where the external loads enter (:class:`LoadMap`), or
+            None without them.
     """
 
     n_substeps: int
@@ -57,6 +132,7 @@ class TrajectorySpec(NamedTuple):
     drive_cols: torch.Tensor
     guard: Optional[dict] = None
     gap_of: Optional[Callable] = None
+    load_map: Optional[LoadMap] = None
 
     @property
     def n_micro(self) -> int:
@@ -64,10 +140,18 @@ class TrajectorySpec(NamedTuple):
 
         return 0 if self.guard is None else self.guard["levels"]
 
+    @property
+    def n_loads(self) -> int:
+        """Number of load tables: 0 without loads, else the substep table
+        and one micro-step table per guard level."""
+
+        return 0 if self.load_map is None else 1 + self.n_micro
+
 
 class TrajectoryArgs(NamedTuple):
     """Inputs of one trajectory; run it with :func:`trajectory_forward`
-    (no autograd) or :func:`apply` (differentiable)."""
+    (no autograd) or :func:`apply` (differentiable). ``loads``: the load
+    tables (``spec.n_loads`` of them), empty without loads."""
 
     spec: TrajectorySpec
     U0: torch.Tensor
@@ -77,20 +161,21 @@ class TrajectoryArgs(NamedTuple):
     drive: torch.Tensor
     fixed: tuple
     micro: tuple = ()
+    loads: tuple = ()
 
 
 def trajectory_forward(args: TrajectoryArgs):
     """``args.spec.forward`` on ``args``: the kernel for CUDA tensors."""
 
     return args.spec.forward(args.U0, args.V0, args.A0, args.dts, args.drive,
-                             args.fixed, args.spec, args.micro)
+                             args.fixed, args.spec, args.micro, args.loads)
 
 
 def apply(args: TrajectoryArgs):
     """The differentiable trajectory (:class:`VerletTrajectory`)."""
 
     return VerletTrajectory.apply(args.spec, args.U0, args.V0, args.A0, args.dts,
-                                  args.drive, *args.micro, *args.fixed)
+                                  args.drive, *args.micro, *args.loads, *args.fixed)
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +353,18 @@ def drive_planes(drive_row: torch.Tensor, spec: TrajectorySpec, like: torch.Tens
     return flat.view(like.shape)
 
 
-def force(U_free, drive_row, fixed, spec: TrajectorySpec, create_graph=False):
-    """``-mask * dE/dU_eff`` at ``U_eff = U_free * mask + drive``.
+def load_planes(load_row: torch.Tensor, spec: TrajectorySpec, like: torch.Tensor):
+    """Scatter one load-table row ``(B, k_load)`` into ``like``-shaped planes:
+    pairs that name the same slot add, in pair order (:func:`slot_loads`)."""
+
+    flat = like.new_zeros((like.shape[0], like[0].numel()))
+    loads = spec.load_map
+    return flat.index_copy(1, loads.slots, slot_loads(load_row, loads)).view(like.shape)
+
+
+def force(U_free, drive_row, fixed, spec: TrajectorySpec, create_graph=False, load_row=None):
+    """``-mask * dE/dU_eff`` at ``U_eff = U_free * mask + drive``, plus the
+    loads of ``load_row`` (B, k_load) where given.
 
     The gradient is taken with ``torch.autograd.grad``; ``create_graph``
     keeps its graph for the adjoint's double backward.
@@ -282,52 +377,59 @@ def force(U_free, drive_row, fixed, spec: TrajectorySpec, create_graph=False):
         (grad,) = torch.autograd.grad(
             spec.energy_of(U_eff, fixed), Uf, create_graph=create_graph
         )
-    return -grad
+    if load_row is None:
+        return -grad
+    return -grad + load_planes(load_row, spec, grad)
 
 
-def one_step(U, V, A, ddt, drive_row, fixed, spec, create_graph=False):
+def one_step(U, V, A, ddt, drive_row, fixed, spec, create_graph=False, load_row=None):
     """One velocity-Verlet step with exact implicit diagonal damping
     (``make_interval_body``'s ``one_step``, same operations and order)."""
 
     inertia, damping, mask = fixed[-3:]
     inv_m = mask / inertia
     U1 = U + ddt * V + (0.5 * ddt * ddt) * A
-    F1 = force(U1, drive_row, fixed, spec, create_graph)
+    F1 = force(U1, drive_row, fixed, spec, create_graph, load_row)
     V_hat = V + 0.5 * ddt * (A + F1 * inv_m)
     V1 = V_hat / (1.0 + 0.5 * ddt * damping / inertia) * mask
     A1 = (F1 - damping * V1) * inv_m
     return U1, V1, A1
 
 
-def interval_body(U, V, A, dt, drive_rows, fixed, spec, create_graph=False):
+def interval_body(U, V, A, dt, drive_rows, fixed, spec, create_graph=False, load_rows=None):
     """All ``n_substeps`` steps of one output interval; ``drive_rows`` is
-    the ``(B, n_substeps, k)`` slice of the drive table."""
+    the ``(B, n_substeps, k)`` slice of the drive table, ``load_rows`` that
+    of the load table (or None)."""
 
     for i in range(spec.n_substeps):
-        U, V, A = one_step(U, V, A, dt, drive_rows[:, i], fixed, spec, create_graph)
+        U, V, A = one_step(U, V, A, dt, drive_rows[:, i], fixed, spec, create_graph,
+                           None if load_rows is None else load_rows[:, i])
     return U, V, A
 
 
-def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, risky=None):
+def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, risky=None,
+                  lrows=None):
     """One (micro-)step at guard depth ``depth`` (0: a substep), as
     ``make_guarded_stepper``'s ``stepper``: where ``risky``, the step re-runs
     as ``refine`` micro-steps of ``dt / refine``, each a guarded step of the
     next depth, down to ``levels``. ``rows[d]`` is the interval's slice of
-    drive table ``d``; this step's row is ``idx`` and its micro-steps' rows
-    ``idx * refine + j``. ``risky`` (B,) bool, on any device, is evaluated
-    here where None. Designs of a batch decide on their own: where they
-    disagree both branches run and each design takes its own, as
-    ``vmap(lax.cond)`` does."""
+    drive table ``d`` (``lrows[d]`` of load table ``d``, or ``lrows`` None);
+    this step's row is ``idx`` and its micro-steps' rows ``idx * refine +
+    j``. ``risky`` (B,) bool, on any device, is evaluated here where None.
+    Designs of a batch decide on their own: where they disagree both
+    branches run and each design takes its own, as ``vmap(lax.cond)``
+    does."""
 
     guard = spec.guard
+    load_row = None if lrows is None else lrows[depth][:, idx]
     if depth == guard["levels"]:
-        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph)
+        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph, load_row)
     if risky is None:
         with torch.no_grad():
             risky = risk(carry, dt)
 
     def coarse():
-        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph)
+        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph, load_row)
 
     def fine():
         refine = guard["refine"]
@@ -335,7 +437,7 @@ def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, 
         c = carry
         for j in range(refine):
             c = _guarded_step(c, ddt, idx * refine + j, depth + 1, rows, fixed, spec, risk,
-                              create_graph)
+                              create_graph, lrows=lrows)
         return c
 
     if not bool(risky.any()):
@@ -347,12 +449,13 @@ def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, 
 
 
 def guarded_interval_body(U, V, A, dt, rows, fixed, spec, create_graph=False, decisions=None,
-                          trace=None):
+                          trace=None, lrows=None):
     """All substeps of one interval under ``spec.guard``: the plain guarded
     body (``make_interval_body(guard, emit_risk=True)`` of the JAX package).
 
     ``rows``: the interval's slices of the drive table and of each
-    micro-step table. ``decisions`` (B, n_substeps) bool replays recorded
+    micro-step table; ``lrows`` the same of the load tables, or None.
+    ``decisions`` (B, n_substeps) bool replays recorded
     outer decisions instead of evaluating the predicate (the adjoint's
     replay: the gradient is the taken branch's, and the replay cannot take
     another branch than the forward did). ``trace``: a list that receives
@@ -370,14 +473,15 @@ def guarded_interval_body(U, V, A, dt, rows, fixed, spec, create_graph=False, de
                 if trace is not None:
                     trace.append((guard_travel(carry[1], carry[2], dt, spec.guard),
                                   spec.gap_of(carry[0], fixed)))
-        carry = _guarded_step(carry, dt, i, 0, rows, fixed, spec, risk, create_graph, risky)
+        carry = _guarded_step(carry, dt, i, 0, rows, fixed, spec, risk, create_graph, risky,
+                              lrows)
         taken.append(risky)
     return carry, torch.stack(taken, dim=1)
 
 
 def interval_rows(k, drive, micro, spec):
-    """Slices of the drive table and of each micro-step table that belong
-    to interval k."""
+    """Slices of the drive table and of each micro-step table (or of the
+    load tables: ``load, load_micro``) that belong to interval k."""
 
     n = spec.n_substeps
     rows = [drive[:, k * n:(k + 1) * n]]
@@ -387,29 +491,34 @@ def interval_rows(k, drive, micro, spec):
     return rows
 
 
-def plain_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec, micro=(), trace=None):
+def plain_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec, micro=(), loads=(),
+                     trace=None):
     """The plain PyTorch version of the trajectory kernel: every interval
     through :func:`interval_body` (or :func:`guarded_interval_body`, which
     appends to ``trace`` when given), boundary states stacked to ``(B,
     T-1, C, n2, n1)``; guarded, also the per-interval flags ``(B, T-1)``
-    and per-substep decisions ``(B, (T-1) * n_substeps)``. Counts its calls
-    in ``plain_trajectory.calls`` so that a run can show the kernel path
-    never reached it."""
+    and per-substep decisions ``(B, (T-1) * n_substeps)``. ``loads``: the
+    load tables (``spec.n_loads``). Counts its calls in
+    ``plain_trajectory.calls`` so that a run can show the kernel path never
+    reached it."""
 
     plain_trajectory.calls += 1
     fixed = tuple(f.detach() for f in fixed)
     drive = drive.detach()
     micro = tuple(m.detach() for m in micro)
+    loads = tuple(t.detach() for t in loads)
     carry = (U0.detach(), V0.detach(), A0.detach())
     outs, decisions = [], []
     with torch.no_grad():
         for k in range(dts.shape[0]):
             rows = interval_rows(k, drive, micro, spec)
+            lrows = interval_rows(k, loads[0], loads[1:], spec) if loads else None
             if spec.guard is None:
-                carry = interval_body(*carry, dts[k].detach(), rows[0], fixed, spec)
+                carry = interval_body(*carry, dts[k].detach(), rows[0], fixed, spec,
+                                      load_rows=None if lrows is None else lrows[0])
             else:
                 carry, taken = guarded_interval_body(*carry, dts[k].detach(), rows, fixed, spec,
-                                                     trace=trace)
+                                                     trace=trace, lrows=lrows)
                 decisions.append(taken.to(U0.device))
             outs.append(carry)
     stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
@@ -431,21 +540,27 @@ class GraphedIntervalVJP:
     the thousands of small operations again (the eager replay is bound by
     those launches, not by the card).
 
-    ``carry``, ``rows``, ``dt`` are one interval's inputs (their values
-    only seed the capture); ``fixed_in`` the fixed leaves, some requiring
+    ``carry``, ``rows``, ``dt`` (and ``load_rows``, the interval's slice of
+    the load table, or None) are one interval's inputs: their values only
+    seed the capture. ``fixed_in`` are the fixed leaves, some requiring
     grad, which every interval shares. A call copies an interval's inputs
     and cotangents into the captured buffers, replays the graph, and
-    returns copies of the gradients with respect to the carry, then to
-    each leaf of ``fixed_in`` that requires grad (None where the interval
-    does not depend on it). The drive rows and dt take no gradient here.
+    returns copies of the gradients with respect to the carry, then to the
+    load rows where ``load_grad``, then to each leaf of ``fixed_in`` that
+    requires grad (None where the interval does not depend on it). The
+    drive rows and dt take no gradient here.
     """
 
-    def __init__(self, spec, carry, rows, dt, fixed_in):
+    def __init__(self, spec, carry, rows, dt, fixed_in, load_rows=None, load_grad=False):
         self.spec, self.fixed = spec, fixed_in
         self.carry = [x.detach().clone().requires_grad_() for x in carry]
         self.rows, self.dt = rows.detach().clone(), dt.detach().clone()
+        self.loads = None
+        if load_rows is not None:
+            self.loads = load_rows.detach().clone().requires_grad_(load_grad)
         self.cot = [torch.zeros_like(x) for x in carry]
-        self.inputs = self.carry + [f for f in fixed_in if f.requires_grad]
+        self.inputs = self.carry + ([self.loads] if load_grad else [])
+        self.inputs += [f for f in fixed_in if f.requires_grad]
         # Capture after one eager run on a side stream, as CUDA graphs ask.
         side = torch.cuda.Stream(device=self.dt.device)
         side.wait_stream(torch.cuda.current_stream(self.dt.device))
@@ -459,13 +574,16 @@ class GraphedIntervalVJP:
     def _vjp(self):
         with torch.enable_grad():
             out = interval_body(*self.carry, self.dt, self.rows, self.fixed, self.spec,
-                                create_graph=True)
+                                create_graph=True, load_rows=self.loads)
             return torch.autograd.grad(out, self.inputs, self.cot, allow_unused=True)
 
-    def __call__(self, carry, rows, dt, cot):
+    def __call__(self, carry, rows, dt, cot, load_rows=None):
+        buffers, values = [*self.carry, self.rows, self.dt, *self.cot], [*carry, rows, dt, *cot]
+        if self.loads is not None:
+            buffers.append(self.loads)
+            values.append(load_rows)
         with torch.no_grad():
-            for buffer, value in zip([*self.carry, self.rows, self.dt, *self.cot],
-                                     [*carry, rows, dt, *cot]):
+            for buffer, value in zip(buffers, values):
                 buffer.copy_(value)
         self.graph.replay()
         return [None if g is None else g.clone() for g in self.grads]
@@ -474,14 +592,16 @@ class GraphedIntervalVJP:
 class VerletTrajectory(torch.autograd.Function):
     """Whole trajectory with a stored-boundary-state adjoint.
 
-    ``apply(spec, U0, V0, A0, dts, drive, *micro, *fixed) -> (outU, outV,
-    outA)``, plus ``(flags, decisions)`` when ``spec.guard`` is set
-    (``len(micro) == spec.n_micro``). The forward is ``spec.forward`` (the
-    kernel for CUDA tensors, the plain body for CPU tensors). The
-    interval-boundary states it returns are exact checkpoints, so the
-    backward replays one interval at a time, in reverse, through the plain
-    body and differentiates it with autograd (double backward through the
-    force), as ``trajectory_bwd`` of ``difflexmm_tpu/ops/pallas/core.py``.
+    ``apply(spec, U0, V0, A0, dts, drive, *micro, *loads, *fixed) -> (outU,
+    outV, outA)``, plus ``(flags, decisions)`` when ``spec.guard`` is set
+    (``len(micro) == spec.n_micro``, ``len(loads) == spec.n_loads``). The
+    forward is ``spec.forward`` (the kernel for CUDA tensors, the plain
+    body for CPU tensors). The interval-boundary states it returns are
+    exact checkpoints, so the backward replays one interval at a time, in
+    reverse, through the plain body and differentiates it with autograd
+    (double backward through the force), as ``trajectory_bwd`` of
+    ``difflexmm_tpu/ops/pallas/core.py``; the drive, micro-step and load
+    tables get their cotangents row by row.
 
     Guarded, an interval where no design fired replays the unguarded body:
     up to the first firing substep the two coincide, so this is exact. An
@@ -489,16 +609,19 @@ class VerletTrajectory(torch.autograd.Function):
     recorded per-substep decisions. The flags and decisions are read back
     to the host once per backward. On CUDA tensors, where neither the
     drive nor the substep sizes take a gradient, the unguarded replay is
-    captured once per backward as a CUDA graph (:class:`GraphedIntervalVJP`)
-    and replayed for each interval that takes it.
+    captured once per backward as a CUDA graph (:class:`GraphedIntervalVJP`,
+    with the load rows as one more input) and replayed for each interval
+    that takes it.
     """
 
     @staticmethod
     def forward(ctx, spec, U0, V0, A0, dts, drive, *rest):
-        micro, fixed = rest[:spec.n_micro], rest[spec.n_micro:]
-        outs = spec.forward(U0, V0, A0, dts, drive, fixed, spec, micro)
+        n_micro, n_loads = spec.n_micro, spec.n_loads
+        micro, loads = rest[:n_micro], rest[n_micro:n_micro + n_loads]
+        fixed = rest[n_micro + n_loads:]
+        outs = spec.forward(U0, V0, A0, dts, drive, fixed, spec, micro, loads)
         ctx.spec = spec
-        ctx.save_for_backward(U0, V0, A0, dts, drive, *micro, *fixed, *outs)
+        ctx.save_for_backward(U0, V0, A0, dts, drive, *micro, *loads, *fixed, *outs)
         if spec.guard is not None:
             ctx.mark_non_differentiable(*outs[3:])
         return outs
@@ -506,9 +629,10 @@ class VerletTrajectory(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gU, gV, gA, *_):
         spec = ctx.spec
-        n_micro = spec.n_micro
-        U0, V0, A0, dts, drive, *rest = ctx.saved_tensors
-        micro, rest = rest[:n_micro], rest[n_micro:]
+        n_micro, n_loads = spec.n_micro, spec.n_loads
+        n_tables = 1 + n_micro + n_loads
+        U0, V0, A0, dts, *rest = ctx.saved_tensors
+        tables, rest = rest[:n_tables], rest[n_tables:]
         n_out = 3 if spec.guard is None else 5
         fixed, outs = rest[:-n_out], rest[-n_out:]
         outU, outV, outA = outs[:3]
@@ -517,10 +641,15 @@ class VerletTrajectory(torch.autograd.Function):
             decisions = outs[4].cpu().view(U0.shape[0], dts.shape[0], spec.n_substeps)
             fired = decisions.any(-1).any(0).tolist()
         need = ctx.needs_input_grad
-        need_dts, need_drive = need[4], need[5]
-        need_micro, need_fixed = need[6:6 + n_micro], need[6 + n_micro:]
-        need_tables = (need_drive, *need_micro)
-        tables = (drive, *micro)
+        need_dts, need_tables, need_fixed = need[4], need[5:5 + n_tables], need[5 + n_tables:]
+        # Each table's guard level: the drive's and the loads' substep
+        # tables are level 0, their micro-step tables levels 1, 2, ...
+        levels = tuple(range(1 + n_micro)) + tuple(range(n_loads))
+        n_drive = 1 + n_micro  # drive tables before the load tables
+        # The graph serves the loads' substep table; their micro-step tables
+        # are not used where nothing fired.
+        graph_ok = not (any(need_tables[:n_drive]) or need_dts)
+        need_load0 = bool(n_loads) and need_tables[n_drive]
 
         fixed_in = tuple(
             f.detach().requires_grad_(bool(n)) for f, n in zip(fixed, need_fixed)
@@ -531,30 +660,49 @@ class VerletTrajectory(torch.autograd.Function):
         cot = (torch.zeros_like(U0), torch.zeros_like(V0), torch.zeros_like(A0))
         graphed = None
 
+        def rows_of(k):
+            """Interval k's slice of every table, in the order of ``tables``."""
+
+            rows = interval_rows(k, tables[0], tables[1:n_drive], spec)
+            if n_loads:
+                rows += interval_rows(k, tables[n_drive], tables[n_drive + 1:], spec)
+            return rows
+
         for k in reversed(range(dts.shape[0])):
             cot = (cot[0] + gU[:, k], cot[1] + gV[:, k], cot[2] + gA[:, k])
             if k == 0:
                 cin = (U0, V0, A0)
             else:
                 cin = (outU[:, k - 1], outV[:, k - 1], outA[:, k - 1])
-            if U0.is_cuda and not fired[k] and not (any(need_tables) or need_dts):
-                rows0 = interval_rows(k, drive, micro, spec)[0]
+            rows = rows_of(k)
+            if U0.is_cuda and not fired[k] and graph_ok:
+                load0 = rows[n_drive] if n_loads else None
                 if graphed is None:
-                    graphed = GraphedIntervalVJP(spec, cin, rows0, dts[k], fixed_in)
-                grads = graphed(cin, rows0, dts[k], cot)
+                    graphed = GraphedIntervalVJP(spec, cin, rows[0], dts[k], fixed_in, load0,
+                                                 need_load0)
+                out = graphed(cin, rows[0], dts[k], cot, load0)
+                # In the eager layout: a gradient (or None) for each table
+                # that needs one, then the fixed leaves'.
+                it = iter(out[3:])
+                grads = list(out[:3]) + [
+                    next(it) if i == n_drive and need_load0 else None
+                    for i, n in enumerate(need_tables) if n
+                ] + list(it)
             else:
                 with torch.enable_grad():
                     carry = [x.detach().requires_grad_() for x in cin]
-                    rows = [r.detach().requires_grad_(bool(n)) for r, n in
-                            zip(interval_rows(k, drive, micro, spec), need_tables)]
+                    rows = [r.detach().requires_grad_(bool(n)) for r, n in zip(rows, need_tables)]
+                    drows = rows[:n_drive]
+                    lrows = rows[n_drive:] or None
                     dt = dts[k].detach().requires_grad_(need_dts)
                     if fired[k]:
-                        out, _ = guarded_interval_body(*carry, dt, rows, fixed_in, spec,
+                        out, _ = guarded_interval_body(*carry, dt, drows, fixed_in, spec,
                                                        create_graph=True,
-                                                       decisions=decisions[:, k])
+                                                       decisions=decisions[:, k], lrows=lrows)
                     else:
-                        out = interval_body(*carry, dt, rows[0], fixed_in, spec,
-                                            create_graph=True)
+                        out = interval_body(*carry, dt, drows[0], fixed_in, spec,
+                                            create_graph=True,
+                                            load_rows=None if lrows is None else lrows[0])
                     extra = [r for r in rows if r.requires_grad]
                     extra += [dt] if need_dts else []
                     extra += [f for f in fixed_in if f.requires_grad]
@@ -563,14 +711,13 @@ class VerletTrajectory(torch.autograd.Function):
                 torch.zeros_like(c) if g is None else g for g, c in zip(grads[:3], cot)
             )
             it = iter(grads[3:])
-            n_rows = spec.n_substeps
-            for level, n in enumerate(need_tables):
-                if level:
-                    n_rows *= spec.guard["refine"]
+            for i, n in enumerate(need_tables):
                 if n:
                     g = next(it)
                     if g is not None:
-                        d_tables[level][:, k * n_rows:(k + 1) * n_rows] += g
+                        n_rows = spec.n_substeps * (spec.guard["refine"] ** levels[i]
+                                                    if levels[i] else 1)
+                        d_tables[i][:, k * n_rows:(k + 1) * n_rows] += g
             if need_dts:
                 g = next(it)
                 if g is not None:

@@ -7,12 +7,14 @@ exports the same C interface, ``<prefix>_launch``,
 a launch's arguments, allocates its outputs and calls it; the lattice's
 wrapper (``verlet_grid.verlet_quad_trajectory``,
 ``verlet_kagome.verlet_kagome_trajectory``) routes CPU tensors to the plain
-body and counts its launches.
+body; :func:`run` counts its launches on the wrapper.
 """
 
 import ctypes
 
 import torch
+
+from difflexmm_tpu_torch.ops.kernels import core
 
 
 def type_library(lib, prefix: str):
@@ -51,6 +53,24 @@ def carry_bytes(lib, prefix: str, n1: int, n2: int, dtype) -> tuple:
     return getattr(lib, f"{prefix}_scratch_bytes")(n1, n2, itemsize), available
 
 
+#: A wrapper's launch counters, by (guarded, loaded).
+COUNTERS = {(False, False): "launches", (True, False): "guarded_launches",
+            (False, True): "loaded_launches", (True, True): "loaded_guarded_launches"}
+
+
+def counter(spec) -> str:
+    """The name of the launch counter a launch with ``spec`` adds to."""
+
+    return COUNTERS[(spec.guard is not None, spec.load_map is not None)]
+
+
+def reset_counts(wrapper):
+    """Set every launch counter of a kernel wrapper to 0."""
+
+    for name in COUNTERS.values():
+        setattr(wrapper, name, 0)
+
+
 def guard_params(guard, theta_channels, prefix: str):
     """The resolved guard as the kernel's nine doubles: threshold,
     has_proximity, proximity, has_hard, hard, has_length_scale,
@@ -70,16 +90,21 @@ def guard_params(guard, theta_channels, prefix: str):
     return (ctypes.c_double * 9)(*(float(v) for v in values))
 
 
-def run(lib, prefix: str, U0, V0, A0, dts, drive, fixed, spec, micro, *, linearized,
-        use_contact, drive_map, fixed_shapes, theta_channels):
+def run(lib, prefix: str, wrapper, U0, V0, A0, dts, drive, fixed, spec, micro, loads=(), *,
+        linearized, use_contact, drive_map, fixed_shapes, theta_channels):
     """Launch the kernel of ``lib`` on CUDA tensors: ``(B, C, n2, n1)``
     initial state, ``(T-1,)`` substep sizes, ``(B, (T-1) * n_sub, k)`` drive
     table, the fixed leaves (``fixed_shapes``, the design batch leading)
-    and, guarded, the micro-step table. Returns ``(outU, outV, outA)``, each
-    ``(B, T-1, C, n2, n1)``, and guarded also the per-interval flags ``(B,
-    T-1)`` and per-substep decisions ``(B, (T-1) * n_sub)`` (bool). Raises
-    on what the kernel does not take. ``fixed_shapes`` ends with the mask
-    planes' ``(B, C, n2, n1)``, which the state must match."""
+    and, guarded, the micro-step table; with ``spec.load_map``, the load
+    tables ``(B, rows, k_load)`` (substep table, guarded also the
+    micro-step table), which the kernel gets summed into their slots
+    (``core.slot_loads``) with ``spec.load_map.columns``. Returns ``(outU,
+    outV, outA)``, each ``(B, T-1, C, n2, n1)``, and guarded also the
+    per-interval flags ``(B, T-1)`` and per-substep decisions ``(B, (T-1) *
+    n_sub)`` (bool). Raises on what the kernel does not take.
+    ``fixed_shapes`` ends with the mask planes' ``(B, C, n2, n1)``, which
+    the state must match. A launch adds one to ``wrapper``'s counter
+    (:func:`counter`)."""
 
     guard = None if spec.guard is None else guard_params(spec.guard, theta_channels, prefix)
     dtype = U0.dtype
@@ -89,23 +114,32 @@ def run(lib, prefix: str, U0, V0, A0, dts, drive, fixed, spec, micro, *, lineari
     n_sub = spec.n_substeps
     n_int = dts.shape[0]
     k_drive = drive.shape[-1]
-    tensors = (U0, V0, A0, dts, drive, *fixed, *micro)
+    k_load = 0 if spec.load_map is None else spec.load_map.pairs.shape[0]
+    tensors = (U0, V0, A0, dts, drive, *fixed, *micro, *loads)
     expected = ((B, C, n2, n1),) * 3 + ((n_int,), (B, n_int * n_sub, k_drive))
     expected += tuple(fixed_shapes)
+    rows = (n_int * n_sub,)
     if guard is not None:
-        expected += ((B, n_int * n_sub * spec.guard["refine"], k_drive),)
-    if len(fixed) != len(fixed_shapes) or k_drive < 1 or len(micro) != spec.n_micro:
+        rows += (n_int * n_sub * spec.guard["refine"],)
+        expected += ((B, rows[1], k_drive),)
+    expected += tuple((B, r, k_load) for r in rows) if k_load else ()
+    if (len(fixed) != len(fixed_shapes) or k_drive < 1 or len(micro) != spec.n_micro
+            or len(loads) != spec.n_loads):
         raise ValueError(f"{prefix}_trajectory: malformed arguments")
     for i, (t, shape) in enumerate(zip(tensors, expected)):
         if t.device != U0.device or t.dtype != dtype:
             raise ValueError(f"argument {i}: {t.device}/{t.dtype}, want {U0.device}/{dtype}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"argument {i}: shape {tuple(t.shape)}, want contiguous {shape}")
-    if (drive_map.device != U0.device or drive_map.dtype != torch.int32
-            or tuple(drive_map.shape) != (C, n2, n1) or not drive_map.is_contiguous()):
-        raise ValueError(
-            f"{prefix}_trajectory: drive_map must be contiguous int32 ({C}, n2, n1)"
-        )
+    for name, index in (("drive_map", drive_map),
+                        ("load_map", None if k_load == 0 else spec.load_map.columns)):
+        if index is not None and (index.device != U0.device or index.dtype != torch.int32
+                                  or tuple(index.shape) != (C, n2, n1)
+                                  or not index.is_contiguous()):
+            raise ValueError(f"{prefix}_trajectory: {name} must be contiguous int32 "
+                             f"({C}, n2, n1)")
+    # One column per loaded slot: pairs naming one slot are summed here.
+    slot_tables = tuple(core.slot_loads(t, spec.load_map).contiguous() for t in loads)
 
     itemsize = U0.element_size()
     with torch.cuda.device(U0.device):
@@ -120,10 +154,16 @@ def run(lib, prefix: str, U0, V0, A0, dts, drive, fixed, spec, micro, *, lineari
             workspace = torch.empty(B * scratch // itemsize, dtype=dtype, device=U0.device)
         pointers = [t.data_ptr() for t in (U0, V0, A0, dts, drive, drive_map, *fixed, *outs[:3])]
         pointers.append(workspace.data_ptr() if workspace is not None else None)
-        if guard is not None:
-            pointers += [micro[0].data_ptr(), outs[4].data_ptr(), outs[3].data_ptr()]
+        # The guarded and the load pointers have fixed places (None where
+        # absent): a library that knows no loads reads only the first ones.
+        pointers += [micro[0].data_ptr(), outs[4].data_ptr(), outs[3].data_ptr()] \
+            if guard is not None else [None] * 3
+        pointers += [slot_tables[0].data_ptr(),
+                     slot_tables[1].data_ptr() if guard is not None else None,
+                     spec.load_map.columns.data_ptr()] if k_load else [None] * 3
         ptrs = (ctypes.c_void_p * len(pointers))(*pointers)
-        dims = (ctypes.c_int * 6)(B, n1, n2, n_int, n_sub, k_drive)
+        n_slots = spec.load_map.slots.shape[0] if k_load else 0
+        dims = (ctypes.c_int * 7)(B, n1, n2, n_int, n_sub, k_drive, n_slots)
         stream = torch.cuda.current_stream(U0.device).cuda_stream
         err = getattr(lib, f"{prefix}_launch")(
             ptrs, dims, itemsize, int(linearized), int(use_contact), guard, stream
@@ -131,4 +171,6 @@ def run(lib, prefix: str, U0, V0, A0, dts, drive, fixed, spec, micro, *, lineari
     if err != 0:
         message = getattr(lib, f"{prefix}_error_string")(err).decode()
         raise RuntimeError(f"{prefix} launch failed: {message} ({err})")
+    name = counter(spec)
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
     return outs

@@ -242,7 +242,8 @@ def carry_bytes(n1: int, n2: int, dtype) -> tuple:
 
 
 def verlet_quad_trajectory(
-    U0, V0, A0, dts, drive, fixed, spec, micro=(), *, linearized, use_contact, drive_map
+    U0, V0, A0, dts, drive, fixed, spec, micro=(), loads=(), *, linearized, use_contact,
+    drive_map
 ):
     """Whole quad trajectory: ``(B, 3, n2, n1)`` initial state, ``(T-1,)``
     substep sizes, ``(B, (T-1) * n_sub, k)`` drive table and the
@@ -252,31 +253,37 @@ def verlet_quad_trajectory(
     returns the per-interval flags ``(B, T-1)`` and per-substep decisions
     ``(B, (T-1) * n_sub)`` (bool).
 
+    With ``spec.load_map`` it also takes the load tables ``loads`` (the
+    substep table ``(B, (T-1) * n_sub, k_load)`` and, guarded, the
+    micro-step table), added into the force (``launch.run``).
+
     CPU tensors go through the plain body (``core.plain_trajectory``).
     CUDA tensors launch ``csrc/verlet_quad.cu`` or raise: there is no
     fallback. Each launch adds one to ``verlet_quad_trajectory.launches``
-    (unguarded) or ``verlet_quad_trajectory.guarded_launches``.
+    (unguarded, unloaded), ``.guarded_launches``, ``.loaded_launches`` or
+    ``.loaded_guarded_launches`` (``launch.counter``).
     """
 
     if U0.device.type == "cpu":
-        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro)
+        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads)
     if U0.device.type != "cuda":
         raise ValueError(f"verlet_quad_trajectory: unsupported device {U0.device}")
     B, _, n2, n1 = U0.shape
-    outs = launch.run(
-        _load_library(), "verlet_quad", U0, V0, A0, dts, drive, fixed, spec, micro,
-        linearized=linearized, use_contact=use_contact, drive_map=drive_map,
+    return launch.run(
+        _load_library(), "verlet_quad", verlet_quad_trajectory, U0, V0, A0, dts, drive, fixed, spec, micro,
+        loads, linearized=linearized, use_contact=use_contact, drive_map=drive_map,
         fixed_shapes=_shapes(B, n1, n2), theta_channels=(2,),
     )
-    if spec.guard is None:
-        verlet_quad_trajectory.launches += 1
-    else:
-        verlet_quad_trajectory.guarded_launches += 1
-    return outs
 
 
-verlet_quad_trajectory.launches = 0
-verlet_quad_trajectory.guarded_launches = 0
+launch.reset_counts(verlet_quad_trajectory)
+
+
+def plane_slots(blocks, dofs, n1: int, n2: int):
+    """Flat ``(3, n2, n1)`` plane index of each (block, DOF) pair: channel
+    DOF, then the block (blocks are numbered row by row, as the planes)."""
+
+    return dofs * (n1 * n2) + blocks
 
 
 def quad_trajectory_spec(
@@ -290,11 +297,15 @@ def quad_trajectory_spec(
     use_contact: bool = True,
     kernel: bool = True,
     guard=None,
+    load_slots=None,
 ) -> core.TrajectorySpec:
     """The quad lattice's :class:`core.TrajectorySpec`.
 
     ``drive_slots``/``drive_cols``: flat ``(3, n2, n1)`` plane index of each
     driven slot and the drive-table column it takes (one entry per slot).
+    ``load_slots``: flat plane index of each loaded pair
+    (:func:`plane_slots`), in pair order (duplicates add), or None without
+    loads.
     ``kernel=False`` makes the forward the plain body on every device (the
     JAX package's ``verlet_ckpt``: same math and adjoint, no kernel).
     ``guard``: a resolved guard spec (``core.resolve_guard`` with
@@ -317,4 +328,6 @@ def quad_trajectory_spec(
         n_substeps, energy_of, forward, slots, cols,
         guard=guard,
         gap_of=functools.partial(_gap_of, use_contact=use_contact),
+        load_map=None if load_slots is None else core.load_map(load_slots, (3, n2, n1),
+                                                                device),
     )

@@ -291,7 +291,8 @@ def carry_bytes(n1: int, n2: int, dtype) -> tuple:
 
 
 def verlet_kagome_trajectory(
-    U0, V0, A0, dts, drive, fixed, spec, micro=(), *, linearized, use_contact, drive_map
+    U0, V0, A0, dts, drive, fixed, spec, micro=(), loads=(), *, linearized, use_contact,
+    drive_map
 ):
     """Whole kagome trajectory: ``(B, 6, n2, n1)`` initial state, ``(T-1,)``
     substep sizes, ``(B, (T-1) * n_sub, k)`` drive table and the
@@ -301,31 +302,38 @@ def verlet_kagome_trajectory(
     refine, k)`` and returns the per-interval flags ``(B, T-1)`` and
     per-substep decisions ``(B, (T-1) * n_sub)`` (bool).
 
+    With ``spec.load_map`` it also takes the load tables ``loads`` (the
+    substep table ``(B, (T-1) * n_sub, k_load)`` and, guarded, the
+    micro-step table), added into the force (``launch.run``).
+
     CPU tensors go through the plain body (``core.plain_trajectory``).
     CUDA tensors launch ``csrc/verlet_kagome.cu`` or raise: there is no
     fallback. Each launch adds one to ``verlet_kagome_trajectory.launches``
-    (unguarded) or ``verlet_kagome_trajectory.guarded_launches``.
+    (unguarded, unloaded), ``.guarded_launches``, ``.loaded_launches`` or
+    ``.loaded_guarded_launches`` (``launch.counter``).
     """
 
     if U0.device.type == "cpu":
-        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro)
+        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads)
     if U0.device.type != "cuda":
         raise ValueError(f"verlet_kagome_trajectory: unsupported device {U0.device}")
     B, _, n2, n1 = U0.shape
-    outs = launch.run(
-        _load_library(), "verlet_kagome", U0, V0, A0, dts, drive, fixed, spec, micro,
-        linearized=linearized, use_contact=use_contact, drive_map=drive_map,
+    return launch.run(
+        _load_library(), "verlet_kagome", verlet_kagome_trajectory, U0, V0, A0, dts, drive, fixed, spec, micro,
+        loads, linearized=linearized, use_contact=use_contact, drive_map=drive_map,
         fixed_shapes=_shapes(B, n1, n2), theta_channels=(2, 5),
     )
-    if spec.guard is None:
-        verlet_kagome_trajectory.launches += 1
-    else:
-        verlet_kagome_trajectory.guarded_launches += 1
-    return outs
 
 
-verlet_kagome_trajectory.launches = 0
-verlet_kagome_trajectory.guarded_launches = 0
+launch.reset_counts(verlet_kagome_trajectory)
+
+
+def plane_slots(blocks, dofs, n1: int, n2: int):
+    """Flat ``(6, n2, n1)`` plane index of each (block, DOF) pair: triangle
+    ``block % 2`` of cell ``block // 2`` has its DOF d in channel ``3 *
+    (block % 2) + d`` (JAX ``verlet_kagome.py:81-95``)."""
+
+    return ((blocks % 2) * 3 + dofs) * (n2 * n1) + blocks // 2
 
 
 def kagome_trajectory_spec(
@@ -339,11 +347,15 @@ def kagome_trajectory_spec(
     use_contact: bool = True,
     kernel: bool = True,
     guard=None,
+    load_slots=None,
 ) -> core.TrajectorySpec:
     """The kagome lattice's :class:`core.TrajectorySpec`.
 
     ``drive_slots``/``drive_cols``: flat ``(6, n2, n1)`` plane index of each
     driven slot and the drive-table column it takes (one entry per slot).
+    ``load_slots``: flat plane index of each loaded pair
+    (:func:`plane_slots`), in pair order (duplicates add), or None without
+    loads.
     ``kernel=False`` makes the forward the plain body on every device (the
     JAX package's ``verlet_ckpt``). ``guard``: a resolved guard spec
     (``core.resolve_guard`` with ``theta_channels=(2, 5)``) or None.
@@ -365,4 +377,6 @@ def kagome_trajectory_spec(
         n_substeps, energy_of, forward, slots, cols,
         guard=guard,
         gap_of=functools.partial(_gap_of, use_contact=use_contact),
+        load_map=None if load_slots is None else core.load_map(load_slots, (6, n2, n1),
+                                                                device),
     )

@@ -1,6 +1,8 @@
-"""Dynamic solver: the quad-grid and kagome-grid fast paths of
-``difflexmm_tpu/solver/dynamics.py`` (``setup_dynamic_solver``,
-``dynamics.py:584-616``, ``:786-868`` and ``:870-964``).
+"""Dynamic solver (counterpart of ``setup_dynamic_solver`` of
+``difflexmm_tpu/solver/dynamics.py``): the quad-grid and kagome-grid fast
+paths (``dynamics.py:584-616``, ``:786-868`` and ``:870-964``), with fused
+force loading (``:588-632``, ``:740-757``), and the dense velocity-Verlet
+``method="verlet"`` (``_integrate_verlet``, ``:177-...``).
 
 The state stays dense, ``(2, n_blocks, 3)`` with a free-DOF mask. Forces on
 constrained DOFs are masked, their displacements come from the drive
@@ -14,10 +16,11 @@ import numpy as np
 import torch
 
 from difflexmm_tpu_torch.geometry.polygon import compute_inertia
+from difflexmm_tpu_torch.ops.assembly import constrain_energy
 from difflexmm_tpu_torch.ops.grid import split_grid_bond_data
 from difflexmm_tpu_torch.ops.kernels import core, verlet_grid, verlet_kagome
-from difflexmm_tpu_torch.ops.kinematics import DOFSet
-from difflexmm_tpu_torch.ops.loading import build_damping_coefficients
+from difflexmm_tpu_torch.ops.kinematics import DOFSet, build_constrained_kinematics
+from difflexmm_tpu_torch.ops.loading import build_damping_coefficients, build_loading
 from difflexmm_tpu_torch.utils.types import ControlParams, LigamentParams
 
 _EMPTY_PAIRS = np.zeros((0, 2), dtype=np.int64)
@@ -26,11 +29,13 @@ _EMPTY_PAIRS = np.zeros((0, 2), dtype=np.int64)
 #: hand-written trajectory kernel for CUDA tensors (the plain body for CPU
 #: tensors); "verlet_ckpt" runs the plain body on every device, with the
 #: same stored-boundary-state adjoint (the JAX package's XLA-forward twin).
+#: "auto" without a grid is the dense "verlet", as in JAX.
 FAST_METHODS = ("verlet_pallas", "verlet_ckpt", "auto")
 
 
 def setup_dynamic_solver(
     geometry,
+    energy_fn: Optional[Callable] = None,
     loaded_block_DOF_pairs=None,
     loading_fn: Optional[Callable] = None,
     constrained_block_DOF_pairs=_EMPTY_PAIRS,
@@ -42,7 +47,8 @@ def setup_dynamic_solver(
     kagome_grid: Optional[dict] = None,
     guard=None,
 ):
-    """Set up the quad-grid or kagome-grid dynamic solver.
+    """Set up the dynamic solver: the quad-grid or kagome-grid fast path
+    (``quad_grid`` / ``kagome_grid``), or the dense ``method="verlet"``.
 
     Returns ``solve_dynamics(state0, timepoints, control_params)``: an
     initial ``(2, n_blocks, 3)`` state and ``(T,)`` timepoints to the full
@@ -53,6 +59,13 @@ def setup_dynamic_solver(
     ``constrained_DOFs_fn(t, **constraint_params)`` takes a tensor ``t`` of
     any shape and returns values broadcastable to ``t.shape + (k,)`` for
     the k constrained pairs (the JAX version takes scalar times).
+    ``loaded_block_DOF_pairs`` with ``loading_fn(state, t,
+    **loading_params)``: external forces on those pairs (pairs named twice
+    add), evaluated at scalar times ``t`` as in JAX (a scalar or
+    ``(n_loaded,)`` result). The fast path calls it with ``state=None``, so
+    it must depend on time only there; the dense path passes ``(u, v)``.
+    ``energy_fn(block_displacement, control_params)``: the energy of the
+    dense path (the fast path has its own plane energy and ignores it).
     ``quad_grid``: dict with n1, n2 (blocks) and optional linearized /
     use_contact. ``kagome_grid``: the same for a kagome lattice, n1 and n2
     counting cells (two triangles each). ``guard``: reactive substep
@@ -67,17 +80,25 @@ def setup_dynamic_solver(
     ``NotImplementedError`` naming the ROADMAP item; none is ignored.
     """
 
-    if loaded_block_DOF_pairs is not None or loading_fn is not None:
-        raise NotImplementedError(
-            "external force loading is not ported yet: ROADMAP A10 / B3."
-        )
-    if method not in FAST_METHODS:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP A4: dense 'verlet'; "
-            f"A12: 'rk4', 'semi_implicit', 'odeint'); use one of {FAST_METHODS}."
-        )
     is_kagome = kagome_grid is not None
     grid = kagome_grid if is_kagome else quad_grid
+    if method == "auto" and grid is None:
+        method = "verlet"
+    if method not in FAST_METHODS + ("verlet",):
+        raise NotImplementedError(
+            f"method={method!r} is not ported yet (ROADMAP A12: 'rk4', 'semi_implicit', "
+            f"'odeint'); use 'verlet' or one of {FAST_METHODS}."
+        )
+    n_blocks = geometry if isinstance(geometry, int) else geometry.n_blocks
+    # As in JAX, loads need both the pairs and the function.
+    has_loading = loaded_block_DOF_pairs is not None and loading_fn is not None
+    load_pairs = (np.asarray(loaded_block_DOF_pairs, dtype=np.int64).reshape(-1, 2)
+                  if has_loading else None)
+    if method == "verlet":
+        return _dense_verlet_solver(
+            n_blocks, energy_fn, load_pairs, loading_fn, constrained_block_DOF_pairs,
+            constrained_DOFs_fn, damped_blocks, n_substeps, guard,
+        )
     if grid is None:
         raise ValueError(
             f"method={method!r} requires quad_grid={{'n1':..., 'n2':...}} or "
@@ -90,7 +111,6 @@ def setup_dynamic_solver(
     lattice = verlet_kagome if is_kagome else verlet_grid
     guard = core.resolve_guard(guard, theta_channels=(2, 5) if is_kagome else (2,))
 
-    n_blocks = geometry if isinstance(geometry, int) else geometry.n_blocks
     n1, n2 = grid["n1"], grid["n2"]
     if (2 if is_kagome else 1) * n1 * n2 != n_blocks:
         raise ValueError(f"{'kagome' if is_kagome else 'quad'}_grid {n1}x{n2} does not "
@@ -99,12 +119,13 @@ def setup_dynamic_solver(
     use_contact = grid.get("use_contact", True)
 
     dof_set = DOFSet(n_blocks, constrained_block_DOF_pairs)
+
     # One write per constrained slot; duplicates keep the last pair.
     c_blocks, c_dofs, c_ids = dof_set.last_write_pairs()
-    if is_kagome:  # flat (6, n2, n1) index: channel triangle * 3 + DOF, then cell
-        plane_slots = ((c_blocks % 2) * 3 + c_dofs) * (n2 * n1) + c_blocks // 2
-    else:  # flat (3, n2, n1) index
-        plane_slots = c_dofs * n_blocks + c_blocks
+    plane_slots = lattice.plane_slots(c_blocks, c_dofs, n1, n2)
+    # Every loaded pair keeps its own column: pairs naming one slot add.
+    load_slots = (lattice.plane_slots(load_pairs[:, 0], load_pairs[:, 1], n1, n2)
+                  if has_loading else None)
 
     if damped_blocks is not None:
         damping_coeffs = build_damping_coefficients(n_blocks, damped_blocks)
@@ -121,7 +142,7 @@ def setup_dynamic_solver(
             specs[device] = make_spec(
                 n1, n2, n_substeps, plane_slots, c_ids, device,
                 linearized=linearized, use_contact=use_contact,
-                kernel=method != "verlet_ckpt", guard=guard,
+                kernel=method != "verlet_ckpt", guard=guard, load_slots=load_slots,
             )
         return specs[device]
 
@@ -193,7 +214,7 @@ def setup_dynamic_solver(
         return tuple(x[None].contiguous() for x in leaves)
 
     def prepare(state0, timepoints, control_params: ControlParams):
-        """(trajectory args, masked y0, timepoints, drive_values)."""
+        """(trajectory args, masked y0, timepoints)."""
 
         mp = control_params.mechanical_params
         cnv = control_params.geometrical_params.centroid_node_vectors
@@ -206,23 +227,42 @@ def setup_dynamic_solver(
         fixed = fixed_leaves(control_params, torch.as_tensor(inertia, **like), mask, like)
         cparams = control_params.constraint_params
 
-        def drive_values(t):
-            values = torch.as_tensor(constrained_DOFs_fn(t, **cparams), **like)
-            return torch.broadcast_to(values, t.shape + (dof_set.n_constrained,))
-
         def drive_table(t):
             """(..., n_drive) drive values, zero-padded to one column."""
 
             if dof_set.n_constrained == 0:
                 return t.new_zeros(t.shape + (1,))
-            return drive_values(t)
+            values = torch.as_tensor(constrained_DOFs_fn(t, **cparams), **like)
+            return torch.broadcast_to(values, t.shape + (dof_set.n_constrained,))
+
+        lparams = control_params.loading_params or {}
+
+        def load_one(t):
+            try:
+                values = loading_fn(None, t, **lparams)
+            except (TypeError, IndexError, AttributeError) as err:
+                raise TypeError(
+                    "fused force loading calls loading_fn(None, t, **loading_params): it must "
+                    "depend on time only (a state-dependent load needs method='verlet')"
+                ) from err
+            values = values.to(**like) if isinstance(values, torch.Tensor) \
+                else torch.as_tensor(values, **like)
+            return torch.broadcast_to(values, (len(load_pairs),))
+
+        def load_table(t):
+            """(..., n_loaded) loads, ``loading_fn`` evaluated at each scalar
+            time of ``t`` (vmapped, so a JAX-style function ports as it is)."""
+
+            return torch.func.vmap(load_one)(t.reshape(-1)).reshape(t.shape + (-1,))
 
         # Substep end times with JAX's operations and order:
         # dt = (t1 - t0) / n, t_start = t0 + i * dt, t_end = t_start + dt.
         dts = (ts[1:] - ts[:-1]) / n_substeps
         i = torch.arange(n_substeps, **like)
         starts = ts[:-1, None] + i[None, :] * dts[:, None]
-        drive = drive_table((starts + dts[:, None]).reshape(-1))[None].contiguous()
+        ends = (starts + dts[:, None]).reshape(-1)
+        drive = drive_table(ends)[None].contiguous()
+        loads = [load_table(ends)[None].contiguous()] if has_loading else []
         # Micro-step end times, one table per guard level, as the guarded
         # stepper computes them: ddt = dt / refine, start_j = start + j * ddt,
         # end_j = start_j + ddt.
@@ -232,18 +272,24 @@ def setup_dynamic_solver(
             step = step / guard["refine"]
             ddt = step.view((-1,) + (1,) * starts.dim())
             starts = starts[..., None] + torch.arange(guard["refine"], **like) * ddt
-            micro.append(drive_table((starts + ddt).reshape(-1))[None].contiguous())
+            ends = (starts + ddt).reshape(-1)
+            micro.append(drive_table(ends)[None].contiguous())
+            if has_loading:
+                loads.append(load_table(ends)[None].contiguous())
 
         U0 = lattice.to_planes(y0[0], n1, n2)[None].contiguous()
         V0 = lattice.to_planes(y0[1], n1, n2)[None].contiguous()
         inertia_p, damping_p, mask_p = fixed[-3:]
+        # F0 carries the load at ts[0], as JAX's force_fn does.
         F0 = core.force(
             U0, drive_table(ts[0])[None], fixed, spec,
             create_graph=torch.is_grad_enabled(),
+            load_row=load_table(ts[:1]) if has_loading else None,
         )
         A0 = (F0 - damping_p * V0) * (mask_p / inertia_p)
-        args = core.TrajectoryArgs(spec, U0, V0, A0, dts, drive, fixed, tuple(micro))
-        return args, y0, ts, drive_values
+        args = core.TrajectoryArgs(spec, U0, V0, A0, dts, drive, fixed, tuple(micro),
+                                   tuple(loads))
+        return args, y0, ts
 
     def trajectory_args(state0, timepoints, control_params: ControlParams):
         """The trajectory's inputs for one design (batch of 1), as
@@ -254,19 +300,126 @@ def setup_dynamic_solver(
     def solve_dynamics(state0, timepoints, control_params: ControlParams) -> torch.Tensor:
         """Integrate the dynamics; output (T, 2, n_blocks, 3)."""
 
-        args, y0, ts, drive_values = prepare(state0, timepoints, control_params)
+        args, y0, ts = prepare(state0, timepoints, control_params)
         outU, outV = core.apply(args)[:2]
         out = torch.stack([outU[0], outV[0]], dim=1)  # (T-1, 2, C, n2, n1)
         ys = torch.cat([y0[None], lattice.fields_from_planes(out, n_blocks)])
-
-        if dof_set.n_constrained == 0:
-            return ys
-        # Driven displacements and their exact time derivatives.
-        c_vals, c_rates = torch.func.jvp(drive_values, (ts,), (torch.ones_like(ts),))
-        u, v = ys[:, 0].clone(), ys[:, 1].clone()
-        u[:, c_blocks, c_dofs] = c_vals[:, c_ids]
-        v[:, c_blocks, c_dofs] = c_rates[:, c_ids]
-        return torch.stack([u, v], dim=1)
+        return _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn,
+                                 control_params.constraint_params,
+                                 dict(dtype=ys.dtype, device=ys.device))
 
     solve_dynamics.trajectory_args = trajectory_args
+    return solve_dynamics
+
+
+def _any_requires_grad(tree) -> bool:
+    """Whether a tensor in a tree of tuples, NamedTuples and dicts requires
+    grad."""
+
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (tuple, list)):
+        return False
+    return any(_any_requires_grad(x) for x in tree)
+
+
+def _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn, cparams, like):
+    """``ys`` (T, 2, n_blocks, 3) with the driven DOFs set to the drive
+    values and their exact time derivatives (one forward-mode jvp)."""
+
+    if dof_set.n_constrained == 0:
+        return ys
+
+    def drive_values(t):
+        values = torch.as_tensor(constrained_DOFs_fn(t, **cparams), **like)
+        return torch.broadcast_to(values, t.shape + (dof_set.n_constrained,))
+
+    c_blocks, c_dofs, c_ids = dof_set.last_write_pairs()
+    c_vals, c_rates = torch.func.jvp(drive_values, (ts,), (torch.ones_like(ts),))
+    u, v = ys[:, 0].clone(), ys[:, 1].clone()
+    u[:, c_blocks, c_dofs] = c_vals[:, c_ids]
+    v[:, c_blocks, c_dofs] = c_rates[:, c_ids]
+    return torch.stack([u, v], dim=1)
+
+
+def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
+                         constrained_block_DOF_pairs, constrained_DOFs_fn, damped_blocks,
+                         n_substeps, guard):
+    """The dense ``method="verlet"`` (JAX ``_integrate_verlet``): velocity
+    Verlet with exact implicit diagonal damping on the dense masked state,
+    the force ``-dE/du`` of the constrained energy by autograd plus the
+    loads (``loading_fn((u, v), t, ...)`` at each step's end time, with the
+    step's predicted velocity ``v + dt a``). Plain PyTorch, differentiated
+    by ordinary autograd through every step: the port's own cross-check of
+    the fast path."""
+
+    if guard is not None:
+        raise NotImplementedError(
+            "guard with the dense method='verlet' is not ported yet: ROADMAP A4 (use the "
+            "quad_grid/kagome_grid fast path)."
+        )
+    if energy_fn is None:
+        raise ValueError("method='verlet' needs energy_fn(block_displacement, control_params)")
+    kinematics = build_constrained_kinematics(n_blocks, constrained_block_DOF_pairs,
+                                              constrained_DOFs_fn)
+    dof_set = kinematics.dof_set
+    constrained_energy = constrain_energy(energy_fn, kinematics)
+    loading = None if load_pairs is None else build_loading(n_blocks, load_pairs, loading_fn)
+    if damped_blocks is not None:
+        damping_coeffs = build_damping_coefficients(n_blocks, damped_blocks)
+    else:
+        def damping_coeffs(damping):
+            return damping.new_zeros((n_blocks, 3))
+
+    def solve_dynamics(state0, timepoints, control_params: ControlParams) -> torch.Tensor:
+        """Integrate the dynamics; output (T, 2, n_blocks, 3)."""
+
+        mp = control_params.mechanical_params
+        cnv = control_params.geometrical_params.centroid_node_vectors
+        like = dict(dtype=cnv.dtype, device=cnv.device)
+        inertia = mp.inertia if mp.inertia is not None else compute_inertia(cnv, mp.density)
+        inertia = torch.as_tensor(inertia, **like)
+        mask = torch.as_tensor(dof_set.free_mask, **like)
+        y0 = torch.as_tensor(state0, **like) * mask
+        ts = torch.as_tensor(timepoints, **like)
+        c = damping_coeffs(torch.as_tensor(mp.damping, **like))
+        lparams = control_params.loading_params or {}
+        inv_m = mask / inertia
+        # Keep the force's graph only where something takes a gradient.
+        create_graph = torch.is_grad_enabled() and _any_requires_grad(
+            (state0, timepoints, control_params))
+
+        def force(u, v, t):
+            with torch.enable_grad():
+                uu = u if u.requires_grad else u.detach().requires_grad_()
+                (grad,) = torch.autograd.grad(constrained_energy(uu, t, control_params), uu,
+                                              create_graph=create_graph)
+            f = -grad
+            if loading is not None:
+                f = f + loading((u, v), t, lparams)
+            return f
+
+        u, v = y0[0], y0[1]
+        a = (force(u, v, ts[0]) - c * v) * inv_m
+        out = [y0]
+        steps = torch.arange(n_substeps, **like)
+        for k in range(ts.shape[0] - 1):
+            dt = (ts[k + 1] - ts[k]) / n_substeps
+            starts = ts[k] + dt * steps
+            for i in range(n_substeps):
+                t1 = starts[i] + dt
+                u1 = u + dt * v + (0.5 * dt * dt) * a
+                f1 = force(u1, v + dt * a, t1)
+                v_hat = v + 0.5 * dt * (a + f1 * inv_m)
+                v1 = v_hat / (1.0 + 0.5 * dt * c / inertia)
+                v1 = v1 * mask
+                a = (f1 - c * v1) * inv_m
+                u, v = u1, v1
+            out.append(torch.stack([u, v]))
+        ys = torch.stack(out)
+        return _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn,
+                                 control_params.constraint_params, like)
+
     return solve_dynamics

@@ -4,7 +4,11 @@
 ``forward_problem_from_jax_dict`` rebuilds a JAX ``ForwardProblem`` (its
 ``to_dict()``, arrays as numpy; the substep ``guard`` included) as this
 port's ``ForwardProblem`` of the same family (the dict's ``name``:
-``"quads_focusing"`` or ``"kagome_focusing"``), and
+``"quads_focusing"``, ``"kagome_focusing"`` or ``"reference_design"``),
+``reference_design_from_config`` does the same for a run configuration
+file's ``"forward"`` section (``examples/configs/pulse_forward.json``),
+``loading_params_from_numpy`` turns JAX loading parameters into tensors,
+and
 ``optimization_problem_from_jax_dict`` does the same for a JAX
 ``OptimizationProblem`` (target patch and iteration histories), so that one
 dict and one numpy design drive both packages.
@@ -15,10 +19,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from difflexmm_tpu_torch.models import kagome_focusing, quads_focusing
+from difflexmm_tpu_torch.models import kagome_focusing, quads_focusing, reference_design
 
 #: The model families the port has, by the JAX problem's ``name``.
-FAMILIES = {"quads_focusing": quads_focusing, "kagome_focusing": kagome_focusing}
+FAMILIES = {"quads_focusing": quads_focusing, "kagome_focusing": kagome_focusing,
+            "reference_design": reference_design}
 
 # JAX ForwardProblem fields that this port does not carry:
 # atol / rtol tune the odeint backend only, which the fast path never runs.
@@ -32,10 +37,19 @@ def _family(d: dict):
     return FAMILIES[name]
 
 
+def known_fields(cls) -> set:
+    """The field names of a dataclass."""
+
+    return {f.name for f in dataclasses.fields(cls)}
+
+
 def design_from_numpy(design, device="cuda", dtype=torch.float64):
     """A design's numpy arrays (quads: the two shift grids; kagome: the
-    three) -> tensors."""
+    three) -> tensors; a rotated-square design, one angle, -> a 0-dim
+    tensor."""
 
+    if not isinstance(design, (tuple, list)):
+        return torch.tensor(float(design), device=device, dtype=dtype)
     return tuple(torch.tensor(np.asarray(x), device=device, dtype=dtype) for x in design)
 
 
@@ -47,16 +61,32 @@ def forward_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64):
     data = {k: v for k, v in d.items() if k not in _INERT_FIELDS}
     if data.pop("pallas_interpret", False):
         raise ValueError("pallas_interpret has no meaning in the port (there is no Pallas)")
-    if not data.pop("grid_energy", True):
+    if "grid_energy" not in known_fields(ForwardProblem) and not data.pop("grid_energy", True):
         raise NotImplementedError("grid_energy=False (dense assembly) is ROADMAP A3.")
     if data.get("solution_data") is not None:
         raise NotImplementedError("carrying solution_data across is ROADMAP A2.")
-    known = {f.name for f in dataclasses.fields(ForwardProblem)}
-    unknown = set(data) - known
+    unknown = set(data) - known_fields(ForwardProblem)
     if unknown:
         raise ValueError(f"JAX ForwardProblem fields the port does not know: {sorted(unknown)}")
     data.update(device=device, dtype=dtype, is_setup=False)
     return ForwardProblem(**data)
+
+
+def reference_design_from_config(forward: dict, device="cuda", dtype=torch.float64, **overrides):
+    """The rotated-square ``reference_design.ForwardProblem`` of a run
+    configuration's ``"forward"`` section (the JAX ``ForwardProblem``
+    keywords, e.g. ``examples/configs/pulse_forward.json``), with
+    ``overrides`` (``method``, ``guard``, ...) on top."""
+
+    data = dict(forward, **overrides)
+    return forward_problem_from_jax_dict(dict(data, name="reference_design"), device, dtype)
+
+
+def loading_params_from_numpy(loading_params: dict, device="cuda", dtype=torch.float64) -> dict:
+    """JAX ``loading_params`` (numbers or arrays) -> tensors."""
+
+    return {k: torch.tensor(np.asarray(v), device=device, dtype=dtype)
+            for k, v in loading_params.items()}
 
 
 def optimization_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64):

@@ -1,6 +1,7 @@
 """The hand-written trajectory kernels against their plain PyTorch versions
 on a CUDA device: kernels 1 and 1g (quads, unguarded and guarded) and 1K
-and 1Kg (kagome, unguarded and guarded). Marked
+and 1Kg (kagome, unguarded and guarded), each also with external loads
+(1L; float64 within 1e-12 there, as ``chip_smoke.py`` holds it). Marked
 ``cuda``: skipped (with the reason) where there is no CUDA device; on a
 machine with one, run
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
@@ -20,7 +21,7 @@ import torch
 from difflexmm_tpu_torch import kernel_checks as kc
 from difflexmm_tpu_torch.models.flagship import build_flagship
 from difflexmm_tpu_torch.models.kagome_config import build_kagome
-from difflexmm_tpu_torch.ops.kernels import core, verlet_kagome
+from difflexmm_tpu_torch.ops.kernels import core, launch, verlet_kagome
 from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
 from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
 
@@ -35,11 +36,11 @@ def device():
 
 
 def _plain(args):
-    return core.plain_trajectory(*args[1:7], args.spec, args.micro)
+    return core.plain_trajectory(*args[1:7], args.spec, args.micro, args.loads)
 
 
 def _kernel(args):
-    counter = "launches" if args.spec.guard is None else "guarded_launches"
+    counter = launch.counter(args.spec)
     wrapper = verlet_kagome_trajectory if args.U0.shape[1] == 6 else verlet_quad_trajectory
     launches = getattr(wrapper, counter)
     calls = core.plain_trajectory.calls
@@ -49,12 +50,12 @@ def _kernel(args):
     return outs
 
 
-def _assert_matches(args64, dtype):
+def _assert_matches(args64, dtype, tol64=1e-9):
     if dtype == torch.float64:
         kernel, plain = _kernel(args64), _plain(args64)
         for k, p in zip(kernel[:3], plain[:3]):
             assert torch.isfinite(k).all()
-            assert kc.max_rel_err(k, p) <= 1e-9
+            assert kc.max_rel_err(k, p) <= tol64
         for k, p in zip(kernel[3:], plain[3:]):  # guarded: flags, decisions
             assert torch.equal(k, p)
         return kernel
@@ -271,4 +272,84 @@ def test_graphed_interval_vjp_equals_the_eager_replay(device, lattice):
         if graphed is None:
             graphed = core.GraphedIntervalVJP(spec, cin, rows, dt, fixed_in)
         for g, e in zip(graphed(cin, rows, dt, cot), eager(cin, rows, dt, cot)):
+            assert torch.equal(g, e)
+
+
+# ---------------------------------------------------------------------------
+# External loads (1L) in all four instantiations
+# ---------------------------------------------------------------------------
+
+# Each case of kc.loaded_cases with its float64 limit (as chip_smoke.py's
+# LOAD_CHECKS): 1e-12 for the four instantiations, 1e-9 for the batch of
+# stiff 8 x 6 quads.
+LOADED = {"loaded contact probe": 1e-12, "loaded contact probe auto": 1e-12,
+          "loaded kagome 4x3 tame B=2": 1e-12, "loaded kagome contact probe auto": 1e-12,
+          "loaded 8x6 tame B=2": 1e-9}
+
+
+def _loaded(label, device):
+    """One of ``kc.loaded_cases`` and its loaded pairs. Pair (0, 0), a
+    clamped corner's DOF, is plane slot 0 on either lattice, and its mask
+    is 0 there."""
+
+    args = kc.loaded_cases(device=device)[label]
+    assert float(args.fixed[-1].flatten(1)[0, 0]) == 0.0
+    return args, [list(p) for p in (kc.KAGOME_LOAD_PAIRS if "kagome" in label
+                                    else kc.QUAD_LOAD_PAIRS)]
+
+
+@pytest.mark.parametrize("label", sorted(LOADED))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_loaded_kernel_matches_plain(device, label, dtype):
+    args, pairs = _loaded(label, device)
+    kernel = _assert_matches(args, dtype, tol64=LOADED[label])
+    if dtype == torch.float64:
+        if args.spec.guard is not None:
+            assert kernel[4].any()
+        # Without the pair on the clamped corner: the same bits.
+        keep = [i for i, p in enumerate(pairs) if p != [0, 0]]
+        fewer = kc.with_loads(args._replace(loads=()), [pairs[i] for i in keep])
+        fewer = fewer._replace(loads=tuple(t[..., keep].contiguous() for t in args.loads))
+        for a, b in zip(kernel, _kernel(fewer)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("label", ["loaded 8x6 tame B=2", "loaded kagome 4x3 tame B=2"])
+def test_zero_loads_leave_the_kernel_bit_identical(device, label):
+    # The load branch adds exactly nothing when every load is zero, so the
+    # loaded kernel's outputs equal the unloaded kernel's bit for bit.
+    args, _ = _loaded(label, device)
+    zero = args._replace(loads=tuple(torch.zeros_like(t) for t in args.loads))
+    plain = args._replace(spec=args.spec._replace(load_map=None), loads=())
+    for a, b in zip(_kernel(zero), _kernel(plain)):
+        assert torch.equal(a, b)
+
+
+def test_graphed_interval_vjp_with_load_rows_equals_the_eager_replay(device):
+    rng = np.random.default_rng(9)
+    args, _ = _loaded("loaded 8x6 tame B=2", device)
+    spec, n = args.spec, args.spec.n_substeps
+    outU, outV, outA = core.trajectory_forward(args)[:3]
+    fixed_in = tuple(f.detach().requires_grad_(i < 2) for i, f in enumerate(args.fixed))
+
+    def eager(cin, rows, dt, cot, lrows):
+        with torch.enable_grad():
+            carry = [x.detach().requires_grad_() for x in cin]
+            lr = lrows.detach().requires_grad_()
+            out = core.interval_body(*carry, dt, rows, fixed_in, spec, create_graph=True,
+                                     load_rows=lr)
+            return torch.autograd.grad(out, carry + [lr] + list(fixed_in[:2]), cot,
+                                       allow_unused=True)
+
+    graphed = None
+    for k in (4, 2):  # two of the five intervals through one captured graph
+        cin = (outU[:, k - 1], outV[:, k - 1], outA[:, k - 1])
+        rows, dt = args.drive[:, k * n:(k + 1) * n], args.dts[k]
+        lrows = args.loads[0][:, k * n:(k + 1) * n]
+        cot = tuple(torch.tensor(rng.standard_normal(tuple(x.shape)), device=device)
+                    for x in cin)
+        if graphed is None:
+            graphed = core.GraphedIntervalVJP(spec, cin, rows, dt, fixed_in, lrows,
+                                              load_grad=True)
+        for g, e in zip(graphed(cin, rows, dt, cot, lrows), eager(cin, rows, dt, cot, lrows)):
             assert torch.equal(g, e)

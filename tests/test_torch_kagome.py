@@ -599,12 +599,19 @@ def test_kagome_solver_checks_its_grid():
         setup_dynamic_solver(geometry=geo, kagome_grid=dict(n1=N1, n2=N2 + 1))
     with pytest.raises(ValueError, match="unknown kagome_grid keys"):
         setup_dynamic_solver(geometry=geo, kagome_grid=dict(n1=N1, n2=N2, tiled=True))
-    with pytest.raises(NotImplementedError, match="A10"):
-        setup_dynamic_solver(geometry=geo, kagome_grid=dict(n1=N1, n2=N2),
-                             loaded_block_DOF_pairs=[[0, 0]], loading_fn=lambda s, t: 1.0)
+    # Loads map each (block, DOF) pair to a plane slot: triangle b % 2 at
+    # channel offset 3 * (b % 2), cell b // 2; a pair named twice keeps both
+    # columns (they add).
+    loaded = setup_dynamic_solver(geometry=geo, kagome_grid=dict(n1=N1, n2=N2),
+                                  loaded_block_DOF_pairs=[[0, 0], [3, 2], [3, 2]],
+                                  loading_fn=lambda s, t: 1.0)
     # A CUDA tensor launches the kernel or raises; a tensor on any other
     # device than the CPU is refused, never run on the plain body.
     problem = kc.small_kagome(n_timepoints=3, n_substeps=2, device="cpu")
+    loaded_args = loaded.trajectory_args(problem.state0, problem.timepoints,
+                                         problem.control_params(problem.geometry.zero_design()))
+    assert loaded_args.spec.load_map.pairs.tolist() == [0, 5 * N2 * N1 + 1, 5 * N2 * N1 + 1]
+    assert loaded_args.loads[0].shape == (1, 2 * 64, 3)  # 2 intervals of 64 substeps
     args = kc.batched_args(problem, [problem.geometry.zero_design()])
     calls = core.plain_trajectory.calls
     meta = [x.to("meta") for x in (args.U0, args.V0, args.A0, args.dts, args.drive)]
