@@ -11,7 +11,7 @@ identical at float64), the kagome kernels (1K and 1Kg, the same) and the
 fused external loads (1L) in all four of them. The plain version's runs, and
 the dense ``method="verlet"`` runs of the loaded problems, go to worker
 processes on the host's CPU cores while the kernels build. Then it drives
-seven main paths.
+eight main paths.
 On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
 value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
 1), and the guarded constrained optimizer
@@ -30,7 +30,16 @@ against JAX's float64 values and its trajectory against the dense path
 tensile oracle of ``tools/tpu_parity_check.py`` at float32 (kernel 1L): the
 chain's final strain equals the applied one. ``reference_design`` on
 ``examples/configs/pulse_forward.json`` (kernel 1 on the rotated-square
-lattice), held against JAX's float64 trajectory summary. Objectives and
+lattice), held against JAX's float64 trajectory summary. Populations of
+designs (main path 8): the flagship's and the 12 x 10-cell kagome
+population's values and design gradients at B = 128
+(``parallel.population_value_and_grad``), each population one launch of
+kernel 1 or 1K with one block per design, four designs held against B = 1
+runs (forward outputs bit for bit), the kernel at the population's shapes
+against the plain body on the card; and the multistart MMA
+(``OptimizationProblem.run_multistart_mma``: eight flagship candidates
+screened through kernel 1, the four finalists re-ranked through one
+launch of kernel 1g). Objectives and
 float64 design gradients are checked against the JAX package's float64
 values, and the kernels are timed against their plain versions. Fails
 (non-zero exit, no result line) without a CUDA device or outside a
@@ -42,6 +51,7 @@ paths, errors, times and bounds; the card's name and power limit come
 before that.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -123,6 +133,41 @@ MMA_ITERATIONS_F32 = 1
 # Worker processes for the plain body's runs (one core each): the card's
 # machine has 8 cores, two of which the builds take at first.
 PLAIN_WORKERS = 5
+# Main path 8: the flagship and the kagome population at POPULATION_B
+# designs, and four of its designs held against B = 1 runs. A design's
+# forward outputs in a population equal its B = 1 outputs bit for bit (one
+# thread block per design, nothing shared between blocks). The value
+# reduces the design's kinetic energies in an order that follows the
+# batch's shape, so it may differ by a few rounding steps (1e-13
+# relative); the float64 gradient replays the same per-design operations
+# at another batch width (1e-12 relative).
+POPULATION_B = 128
+POPULATION_CHECKED = (0, 42, 85, 127)
+POP_VALUE_TOL, POP_GRAD_TOL = 1e-13, 1e-12
+# Design b of a population is the configuration's design scaled by 1 +
+# POPULATION_STEP b (bench.py's populations; the kagome design, zero, is
+# shifted by POPULATION_STEP b instead). The float32 gradients are also
+# taken at the second population, step -POPULATION_STEP.
+POPULATION_STEP = 1e-3
+# The population's float32 gradients against its float64 gradients, each
+# design relative to its own float64 gradient's scale, through the kernel
+# and with the plain body as the forward on the same inputs (the same
+# adjoint). A design's float32 forward in the population equals its B = 1
+# float32 forward bit for bit (checked), so the population adds no float32
+# error of its own. The rule for kernel 1 (three times the plain body's
+# error) is held by the population as a whole: the largest error of any
+# design through the kernel within three times the largest with the plain
+# forward, and the median of the per-design ratios (kernel over plain)
+# within three. A single design's two float32 errors are two draws of
+# rounding that scatter either way (6.8e-4 through the kernel against
+# 1.9e-4 with the plain forward at one design on an H100, and the other way
+# round at others; PERF.md has the ratios' distribution), so the rule is
+# not held design by design.
+# Multistart MMA of main path 8: candidates, iterations, finalists.
+MULTISTART_B, MULTISTART_ITERATIONS, MULTISTART_FINALISTS = 8, 2, 4
+# Batch sizes of the designs/s curve: 1, a few designs, one design on each
+# of the H100's 132 SMs (and just below), two and four per SM.
+CURVE_BATCHES = (1, 8, 32, 128, 132, 264, 528)
 
 
 def log(*parts):
@@ -141,15 +186,29 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
+def stepped_designs(design, B, step, scaled=True):
+    """``B`` copies of ``design`` (a tuple of tensors) on a leading
+    dimension, copy b scaled by ``1 + step b`` (or, not ``scaled``, shifted
+    by ``step b``)."""
+
+    import torch
+
+    def each(x):
+        b = torch.arange(B, dtype=x.dtype, device=x.device).view((B,) + (1,) * x.dim())
+        return x[None] * (1 + step * b) if scaled else x[None] + step * b
+
+    return tuple(each(x) for x in design)
+
+
 #: Checks that failed; the script goes on to its end and then exits 1.
 FAILED = []
 
 
-def check(name, err, tol):
+def check(name, err, tol, what="max rel err"):
     ok = err <= tol
-    log(f"  {name}: max rel err {err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
+    log(f"  {name}: {what} {err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        FAILED.append(f"{name}: error {err:.3e} above tolerance {tol:.1e}")
+        FAILED.append(f"{name}: {what} {err:.3e} above tolerance {tol:.1e}")
 
 
 def stats_err(got, ref):
@@ -206,7 +265,8 @@ def smoke(pool):
     f64, f32 = torch.float64, torch.float32
     dtypes = (f64, f32)
     results = {"verlet_quad": {}, "verlet_quad_guarded": {}, "verlet_kagome": {},
-               "verlet_kagome_guarded": {}, "verlet_quad_loaded": {}}
+               "verlet_kagome_guarded": {}, "verlet_quad_loaded": {},
+               "verlet_quad_population": {}, "verlet_kagome_population": {}}
 
     def reset_counts():
         """Every launch count and the plain-body count to 0."""
@@ -542,7 +602,6 @@ def smoke(pool):
     results["verlet_quad_loaded"].update(errors)
     results["verlet_quad_loaded"]["checks"] = load_checks
     results["verlet_quad_loaded"].update(kc.trajectory_bound(kc.cast(pulse_args, f32), k64[0]))
-    pool.shutdown()
 
     phase_done("loaded checks")
 
@@ -912,6 +971,246 @@ def smoke(pool):
 
     phase_done("reference_design")
 
+    # -- main path 8: populations through kernels 1 and 1K, the multistart MMA --
+    import math
+
+    from difflexmm_tpu_torch.models import kagome_focusing
+    from difflexmm_tpu_torch.models.runner import population_unflatten
+    from difflexmm_tpu_torch.parallel import population_value_and_grad
+
+    def population_run(opt, designs):
+        """Values and flattened per-design gradients of a population, and
+        the host seconds they took."""
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values, grads = population_value_and_grad(opt.population_objective_fn, designs,
+                                                  grad_chunk=None)
+        torch.cuda.synchronize()
+        return values, torch.cat([g.flatten(1) for g in grads], 1), time.perf_counter() - t0
+
+    kagome_zero = {}
+    objectives = {("quad", dt): kernel_path[dt][0] for dt in dtypes}
+    for dt in dtypes:
+        kopt = kagome_focusing.OptimizationProblem(
+            kc.kagome_multistart_problem(device=device, dtype=dt), target_size=(2, 2))
+        kopt.setup_objective()
+        objectives[("kagome", dt)] = kopt
+        kagome_zero[dt] = kopt.forward_problem.geometry.zero_design(device=device, dtype=dt)
+
+    def population(lattice, dt, step=POPULATION_STEP):
+        """The population of ``step``: the flagship's design scaled, the
+        kagome design (zero) shifted."""
+
+        if lattice == "quad":
+            return stepped_designs(kernel_path[dt][1], POPULATION_B, step)
+        return stepped_designs(kagome_zero[dt], POPULATION_B, step, scaled=False)
+
+    # The same float32 objectives with the plain body as the forward
+    # ("verlet_ckpt": the same adjoint), the measure of the float32 rule on
+    # the population's gradients.
+    plain_objectives = {"quad": fl.build_flagship(method="verlet_ckpt", device=device,
+                                                  dtype=f32)[0]}
+    plain_objectives["kagome"] = kagome_focusing.OptimizationProblem(
+        dataclasses.replace(objectives[("kagome", f32)].forward_problem,
+                            method="verlet_ckpt", is_setup=False), target_size=(2, 2))
+    plain_objectives["kagome"].setup_objective()
+    reset_counts()
+    pop_runs, peak_bytes = {}, {}
+    for key, opt in objectives.items():
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pop_runs[key] = population_run(opt, population(*key))
+        peak_bytes[key] = torch.cuda.max_memory_allocated() - base
+    quad_launches = verlet_quad_trajectory.launches
+    kagome_launches = verlet_kagome_trajectory.launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 8 (populations of {POPULATION_B}, value and gradient at float64 and "
+        f"float32): {quad_launches} kernel-1 launches, {kagome_launches} kernel-1K launches, "
+        f"{plain_calls} plain-body forwards")
+    if quad_launches != len(dtypes) or kagome_launches != len(dtypes) or plain_calls != 0:
+        raise AssertionError("main path 8 did not run each population as one launch")
+    results["verlet_quad_population"]["launches"] = quad_launches
+    results["verlet_kagome_population"]["launches"] = kagome_launches
+
+    def per_design(a, b):
+        """Each design's largest difference, relative to its largest entry
+        of ``b``."""
+
+        return (a - b).flatten(1).abs().amax(1) / b.flatten(1).abs().amax(1)
+
+    def population_checks(lattice):
+        """Main path 8's checks of one lattice's population: values finite,
+        four designs against B = 1 runs, float32 gradients against float64
+        (at this population and the one of step -POPULATION_STEP), forward
+        outputs bit-identical to B = 1 at float64 and float32, and the
+        kernel at the population's shapes against the plain body on the
+        card. Returns the float64 trajectory inputs and the errors."""
+
+        opt, opt32 = objectives[(lattice, f64)], objectives[(lattice, f32)]
+        designs, designs32 = population(lattice, f64), population(lattice, f32)
+        values, grads, seconds = pop_runs[(lattice, f64)]
+        values32, grads32, seconds32 = pop_runs[(lattice, f32)]
+        for name, v, g in (("float64", values, grads), ("float32", values32, grads32)):
+            if not (bool(torch.isfinite(v).all()) and bool(torch.isfinite(g).all())
+                    and tuple(v.shape) == (POPULATION_B,)):
+                raise AssertionError(f"{lattice} population {name}: values or gradients")
+        for b in POPULATION_CHECKED:
+            v1, g1, _ = population_run(opt, tuple(x[b:b + 1] for x in designs))
+            check(f"{lattice} population float64 design {b} value vs B = 1",
+                  abs(float(values[b]) - float(v1[0])) / abs(float(v1[0])), POP_VALUE_TOL)
+            check(f"{lattice} population float64 design {b} gradient vs B = 1",
+                  kc.max_rel_err(grads[b], g1[0]), POP_GRAD_TOL)
+
+        # The float32 rule, at this population and at the second one.
+        ratios = []
+        for step in (POPULATION_STEP, -POPULATION_STEP):
+            if step == POPULATION_STEP:
+                g64, g32 = grads, grads32
+            else:
+                g64 = population_run(opt, population(lattice, f64, step))[1]
+                g32 = population_run(opt32, population(lattice, f32, step))[1]
+            g_plain = population_run(plain_objectives[lattice], population(lattice, f32, step))[1]
+            e_kernel, e_plain = per_design(g32.double(), g64), per_design(g_plain.double(), g64)
+            if step == POPULATION_STEP:
+                worst = int(e_kernel.argmax())
+            ratios.append(e_kernel / e_plain)
+            log(f"  {lattice} population (step {step:+g}) float32 gradients vs float64, per "
+                f"design: through the kernel median {float(e_kernel.median()):.3e}, largest "
+                f"{float(e_kernel.max()):.3e} (design {int(e_kernel.argmax())}); with the plain "
+                f"forward median {float(e_plain.median()):.3e}, largest "
+                f"{float(e_plain.max()):.3e} (design {int(e_plain.argmax())})")
+            check(f"{lattice} population (step {step:+g}) float32 gradients vs float64, largest "
+                  f"of any design (the plain forward's {float(e_plain.max()):.3e})",
+                  float(e_kernel.max()), max(F32_TRAJ_FACTOR * float(e_plain.max()),
+                                             F32_TRAJ_FLOOR))
+        ratio = torch.cat(ratios)
+        log(f"  {lattice} population float32 gradient errors, kernel over plain forward, "
+            f"{ratio.numel()} designs of both populations: median {float(ratio.median()):.3f}, "
+            f"10th and 90th percentiles {float(ratio.quantile(0.1)):.3f} and "
+            f"{float(ratio.quantile(0.9)):.3f}, smallest {float(ratio.min()):.3f}, largest "
+            f"{float(ratio.max()):.3f}")
+        check(f"{lattice} population float32 gradient errors, kernel over plain forward",
+              float(ratio.median()), F32_TRAJ_FACTOR, what="median ratio")
+
+        # Each checked design's forward outputs, and those of the design
+        # whose float32 gradient is the worst, equal its B = 1 outputs.
+        identical = 0
+        shown = POPULATION_CHECKED + (worst,)
+        for dt, problem, ds in ((f64, opt.forward_problem, designs),
+                                (f32, opt32.forward_problem, designs32)):
+            with torch.no_grad():
+                fields = problem.solve(ds).fields
+                for b in shown:
+                    if torch.equal(problem.solve(tuple(x[b:b + 1] for x in ds)).fields[0],
+                                   fields[b]):
+                        identical += 1
+                    else:
+                        FAILED.append(f"{lattice} population design {b} {dtype_name(dt)}: "
+                                      "forward outputs differ from its B = 1 run")
+        _, g1, _ = population_run(opt32, tuple(x[worst:worst + 1] for x in designs32))
+        log(f"  {lattice} population: forward outputs of designs {list(shown)} bit-identical "
+            f"to B = 1 in {identical} of {2 * len(shown)} runs (float64, float32); design "
+            f"{worst}'s float32 gradient error at B = 1 "
+            f"{kc.max_rel_err(g1[0].double(), grads[worst]):.3e} (in the population "
+            f"{kc.max_rel_err(grads32[worst].double(), grads[worst]):.3e}); value and gradient "
+            f"{seconds:.2f} s (float64), {seconds32:.2f} s (float32)")
+
+        problem = opt.forward_problem
+        with torch.no_grad():
+            args = problem.solve_dynamics.trajectory_args(problem.state0, problem.timepoints,
+                                                          problem.control_params(designs))
+            kout = core.trajectory_forward(args)
+            plain = {}
+            for dt in dtypes:
+                a = kc.cast(args, dt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = core.plain_trajectory(a.U0, a.V0, a.A0, a.dts, a.drive, a.fixed, a.spec)
+                torch.cuda.synchronize()
+                plain[dt] = (out, time.perf_counter() - t0)
+        pout = plain[f64][0]
+        for name, k, p in zip("UVA", kout, pout):
+            check(f"{lattice} population B={POPULATION_B} float64 {name}: kernel vs plain body "
+                  "(on the card)", kc.max_rel_err(k, p), F64_TRAJ_TOL)
+        errors = dict(
+            max_abs_err=max(float((k - p).abs().max()) for k, p in zip(kout, pout)),
+            # One float32 plain trajectory of the whole population, on the
+            # card (on a host core it would take hours).
+            plain_ms=plain[f32][1] * 1e3, plain_ms_float64=plain[f64][1] * 1e3,
+            plain_device="cuda",
+            fwd_grad_s=seconds, fwd_grad_s_float32=seconds32,
+            fwd_grad_peak_bytes_float64=peak_bytes[(lattice, f64)],
+            float32_grad_ratio_median=float(ratio.median()),
+            float32_grad_ratio_max=float(ratio.max()),
+        )
+        return args, errors
+
+    pop_args = {}
+    for lattice, name in (("quad", "verlet_quad"), ("kagome", "verlet_kagome")):
+        pop_args[lattice], errors = population_checks(lattice)
+        results[f"{name}_population"].update(errors)
+
+    phase_done("populations")
+
+    # The multistart MMA: flagship candidates screened through kernel 1, the
+    # finalists re-ranked through one launch of kernel 1g.
+    opt, design = fl.build_flagship(device=device, dtype=f64)
+    guesses = [tuple(x[b] for x in stepped_designs(design, MULTISTART_B, POPULATION_STEP))
+               for b in range(MULTISTART_B)]
+    settings = {k: v for k, v in fl.MMA_SETTINGS.items() if k not in ("guard", "feasibility_tol")}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = opt.run_multistart_mma(guesses, MULTISTART_ITERATIONS,
+                                    n_finalists=MULTISTART_FINALISTS,
+                                    final_guard=fl.MMA_SETTINGS["guard"], **settings)
+    torch.cuda.synchronize()
+    multistart_s = time.perf_counter() - t0
+    launches = verlet_quad_trajectory.launches
+    guarded_launches = verlet_quad_trajectory.guarded_launches
+    plain_calls = core.plain_trajectory.calls
+    log(f"main path 8 (multistart MMA, {MULTISTART_B} candidates, {MULTISTART_ITERATIONS} "
+        f"iterations at float64, {MULTISTART_FINALISTS} finalists): {launches} kernel-1 "
+        f"launches, {guarded_launches} kernel-1g launches, {plain_calls} plain-body forwards, "
+        f"{multistart_s:.2f} s (host clock)")
+    if launches != MULTISTART_ITERATIONS or guarded_launches != 1 or plain_calls != 0:
+        raise AssertionError("the multistart MMA did not screen through kernel 1 and re-rank "
+                             "through one launch of kernel 1g")
+    results["verlet_quad_population"]["launches"] += launches
+    finalists = result.finalists
+    log(f"  multistart winner: candidate {result.best_index}, guarded value "
+        f"{finalists.best_value!r}; finalists {finalists.indices.tolist()}, screening values "
+        f"{finalists.screen_values.tolist()}, guarded values {finalists.values.tolist()}")
+    if not math.isfinite(finalists.best_value) \
+            or opt.objective_values[-1] != finalists.best_value:
+        raise AssertionError("the multistart MMA's recorded value is not the winner's own")
+    guarded = opt._guarded_sibling(fl.MMA_SETTINGS["guard"])
+    gp = guarded.forward_problem
+    finalist_designs = population_unflatten(design)(result.designs[finalists.indices])
+    with torch.no_grad():
+        finalist_args = gp.solve_dynamics.trajectory_args(
+            gp.state0, gp.timepoints, gp.control_params(finalist_designs))
+        # The plain guarded body on the finalists' batch, float64, in a
+        # worker process while the timing below runs.
+        finalist_plain = pool.submit(kc.plain_reference, kc.to_bytes(kc.on_cpu(finalist_args)))
+        batch = core.trajectory_forward(finalist_args)
+        for j in range(len(finalists.indices)):
+            one = tuple(x[j:j + 1] for x in finalist_designs)
+            single = core.trajectory_forward(gp.solve_dynamics.trajectory_args(
+                gp.state0, gp.timepoints, gp.control_params(one)))
+            same = torch.equal(single[4][0], batch[4][j])
+            if not same:
+                FAILED.append(f"multistart finalist {j}: guard decisions differ from B = 1")
+            value = float(guarded.population_objective_fn(one)[0])
+            log(f"  finalist {j}: guard fired on {int(single[4].sum())} substeps, decisions "
+                f"{'equal' if same else 'DIFFER'} at B = 1")
+            check(f"multistart finalist {j} guarded value vs its B = 1 guarded forward",
+                  abs(value - float(finalists.values[j])) / abs(value), POP_VALUE_TOL)
+    timings["multistart_s"] = multistart_s
+
+    phase_done("multistart")
+
     # -- timing (flagship and kagome) ------------------------------------------
     def event_ms(fn, reps):
         times = []
@@ -1009,6 +1308,88 @@ def smoke(pool):
         ms=statistics.median([tk["guarded_ms"], tk["guarded_ms_2"]]),
         ms_float64=tk["guarded_ms_float64"])
 
+    # Main path 8's populations: kernels 1 and 1K at B = POPULATION_B (CUDA
+    # events, float32 and float64) with their bounds; designs per second of
+    # the flagship's population objective (host clock, one run each, no
+    # warm-up: the adjoint captures its graph anew in every backward; value
+    # and gradient at B = 1 from main path 1, at B = POPULATION_B from main
+    # path 8) with the peak memory of each value and gradient; the host's
+    # share of a population's forward; the graph replay's capture at
+    # B = POPULATION_B (float64).
+    for lattice, name in (("quad", "verlet_quad_population"),
+                          ("kagome", "verlet_kagome_population")):
+        args32 = kc.cast(pop_args[lattice], f32)
+        out32 = core.trajectory_forward(args32)  # warm up
+        results[name].update(B=POPULATION_B, ms=event_ms(trajectory(args32), 3),
+                             ms_float64=event_ms(trajectory(pop_args[lattice]), 3))
+        results[name].update(kc.trajectory_bound(args32, out32[0]))
+        log(f"timing ({card_line}), {lattice} population B={POPULATION_B}, CUDA events, medians "
+            f"of 3: float32 {results[name]['ms']:.3f} ms, float64 "
+            f"{results[name]['ms_float64']:.3f} ms (bound {results[name]['bound_ms']:.4f} ms)")
+    curve = {}
+    for dt in dtypes:
+        opt, design = kernel_path[dt]
+        curve[dtype_name(dt)] = c = {}
+        for B in CURVE_BATCHES:
+            designs = stepped_designs(design, B, POPULATION_STEP)
+            with torch.no_grad():
+                _, fwd_s = host_seconds(lambda: opt.population_objective_fn(designs))
+            if B == 1:
+                fwd_grad_s, peak = main[dt][2], None
+            elif B == POPULATION_B:
+                fwd_grad_s, peak = pop_runs[("quad", dt)][2], peak_bytes[("quad", dt)]
+            else:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fwd_grad_s = population_run(opt, designs)[2]
+                peak = torch.cuda.max_memory_allocated() - base
+            c[B] = dict(fwd_s=fwd_s, fwd_designs_per_s=B / fwd_s, fwd_grad_s=fwd_grad_s,
+                        fwd_grad_designs_per_s=B / fwd_grad_s, fwd_grad_peak_bytes=peak)
+            log(f"  flagship population {dtype_name(dt)} B={B}: forward {fwd_s:.4f} s "
+                f"({B / fwd_s:.1f} designs/s), value and gradient {fwd_grad_s:.3f} s "
+                f"({B / fwd_grad_s:.2f} designs/s, peak memory {peak} B)")
+
+    opt, design = kernel_path[f64]
+    problem = opt.forward_problem
+    designs = stepped_designs(design, POPULATION_B, POPULATION_STEP)
+
+    def build():
+        with torch.no_grad():
+            return problem.solve_dynamics.trajectory_args(
+                problem.state0, problem.timepoints, problem.control_params(designs))
+
+    def forward():
+        with torch.no_grad():
+            opt.population_objective_fn(designs)
+
+    args = build()
+    share = dict(B=POPULATION_B,
+                 prepare_s=statistics.median(host_seconds(build)[1] for _ in range(3)),
+                 kernel_s=event_ms(trajectory(args), 3) / 1e3,
+                 forward_s=statistics.median(host_seconds(forward)[1] for _ in range(3)))
+    share["host_share"] = 1 - share["kernel_s"] / share["forward_s"]
+    # One interval's graphed vector-Jacobian product at the population, as
+    # the adjoint captures it: host seconds and the device memory it holds.
+    with torch.no_grad():
+        outU, outV, outA = core.trajectory_forward(args)[:3]
+    fixed_in = tuple(f.detach().requires_grad_(i < 2) for i, f in enumerate(args.fixed))
+    k, n = args.dts.shape[0] - 1, args.spec.n_substeps
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    graphed, capture_s = host_seconds(lambda: core.GraphedIntervalVJP(
+        args.spec, (outU[:, k - 1], outV[:, k - 1], outA[:, k - 1]),
+        args.drive[:, k * n:(k + 1) * n], args.dts[k], fixed_in))
+    capture = dict(B=POPULATION_B, capture_s=capture_s,
+                   graph_bytes=torch.cuda.memory_allocated() - before)
+    del graphed, args, outU, outV, outA, fixed_in
+    torch.cuda.empty_cache()
+    log(f"  flagship population B={POPULATION_B} float64 forward: inputs built in "
+        f"{share['prepare_s']:.4f} s, kernel {share['kernel_s']:.4f} s, objective "
+        f"{share['forward_s']:.4f} s, host share {share['host_share']:.3f}; graph capture "
+        f"{capture['capture_s']:.3f} s holding {capture['graph_bytes']} B")
+    timings.update(population_curve=curve, population_host_share=share,
+                   population_graph_capture=capture)
+
     # Kernel 1L at main paths 5 (the pulse) and 6 (the tensile chain at
     # strain 0.6), float32 and float64.
     pulse32 = kc.cast(pulse_args, f32)
@@ -1034,6 +1415,24 @@ def smoke(pool):
 
     phase_done("timing")
 
+    # Main path 8's finalists: the launch of kernel 1g at B =
+    # MULTISTART_FINALISTS against the plain guarded body on the same
+    # inputs (run in a worker process during the timing).
+    p_out, p_ms, _ = kc.from_bytes(finalist_plain.result())
+    batch = [x.cpu() for x in batch]
+    if not torch.equal(batch[4], p_out[4]) or not torch.equal(batch[3], p_out[3]):
+        FAILED.append("multistart finalists: decisions of kernel 1g and the plain guarded body "
+                      "differ")
+    log(f"  multistart finalists B={MULTISTART_FINALISTS} float64: decisions of kernel 1g and "
+        f"the plain guarded body {'identical' if torch.equal(batch[4], p_out[4]) else 'DIFFER'}"
+        f", {int(batch[4].sum())} of {batch[4].numel()} substeps fired (plain body on a host "
+        f"core {p_ms / 1e3:.1f} s)")
+    for name, k, p in zip("UVA", batch, p_out):
+        check(f"multistart finalists B={MULTISTART_FINALISTS} float64 {name}: kernel 1g vs "
+              "plain guarded body", kc.max_rel_err(k, p), F64_TRAJ_TOL)
+    results["verlet_quad_guarded"]["finalists_max_rel_err"] = max(
+        kc.max_rel_err(k, p) for k, p in zip(batch[:3], p_out[:3]))
+
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
                 "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "
                                        "core.py:330-625, verlet_grid.py:201-262)",
@@ -1042,7 +1441,12 @@ def smoke(pool):
                 "verlet_kagome_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (kagome, guarded: "
                                          "core.py:330-625, verlet_kagome.py:245-308)",
                 "verlet_quad_loaded": "difflexmm_tpu/ops/pallas/core.py:822 (with load_values_fn: "
-                                      "core.py:129-181, scatter verlet_grid.py:68-80)"}
+                                      "core.py:129-181, scatter verlet_grid.py:68-80)",
+                "verlet_quad_population": "difflexmm_tpu/ops/pallas/core.py:822 (tiled: "
+                                          "verlet_grid.py:265-287 on tiling.py, from "
+                                          "solver/dynamics.py:984-1000)",
+                "verlet_kagome_population": "difflexmm_tpu/ops/pallas/core.py:822 (kagome, "
+                                            "tiled: verlet_kagome.py:311-333)"}
     kernels = []
     for name, r in results.items():
         source = "verlet_kagome.cu" if name.startswith("verlet_kagome") else "verlet_quad.cu"

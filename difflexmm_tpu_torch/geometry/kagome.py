@@ -62,7 +62,8 @@ class KagomeGeometry(LatticeGeometry):
     points: ``shifts_1`` (n1+1, n2, 2) nodes 2 (of cell i, j) and 4 (of cell
     i-1, j); ``shifts_2`` (n1, n2+1, 2) nodes 0 (of cell i, j) and 5 (of
     cell i, j-1); ``shifts_3`` (n1, n2, 2) the internal hinge, nodes 1 and
-    3. Design maps follow the shifts' device and dtype.
+    3. Design maps follow the shifts' device and dtype, and keep leading
+    batch dimensions of a population of designs.
     """
 
     def __init__(
@@ -108,18 +109,20 @@ class KagomeGeometry(LatticeGeometry):
             like = dict(dtype=shifts_1.dtype, device=shifts_1.device)
             I = torch.as_tensor(I_np, device=shifts_1.device)
             J = torch.as_tensor(J_np, device=shifts_1.device)
-            b1 = torch.as_tensor(block_1_np, **like)[None] + torch.stack(
-                [shifts_2[I, J], shifts_3[I, J], shifts_1[I, J]], dim=1
+            b1 = torch.as_tensor(block_1_np, **like) + torch.stack(
+                [shifts_2[..., I, J, :], shifts_3[..., I, J, :], shifts_1[..., I, J, :]], dim=-2
             )
-            b2 = torch.as_tensor(block_2_np, **like)[None] + torch.stack(
-                [shifts_3[I, J], shifts_1[I + 1, J], shifts_2[I, J + 1]], dim=1
+            b2 = torch.as_tensor(block_2_np, **like) + torch.stack(
+                [shifts_3[..., I, J, :], shifts_1[..., I + 1, J, :], shifts_2[..., I, J + 1, :]],
+                dim=-2,
             )
-            # Interleave per cell: (n_cells, 2, 3, 2) -> (n_blocks, 3, 2)
-            return torch.stack([b1, b2], dim=1).reshape(self.n_blocks, 3, 2)
+            # Interleave per cell: (..., n_cells, 2, 3, 2) -> (..., n_blocks, 3, 2)
+            cells = torch.stack([b1, b2], dim=-3)
+            return cells.reshape(cells.shape[:-4] + (self.n_blocks, 3, 2))
 
         def centroid_node_vectors(shifts_1, shifts_2, shifts_3):
             ref = reference_node_vectors(shifts_1, shifts_2, shifts_3)
-            return ref - polygon_centroid(ref)[:, None, :]
+            return ref - polygon_centroid(ref)[..., None, :]
 
         def block_centroids(shifts_1, shifts_2, shifts_3):
             ref = reference_node_vectors(shifts_1, shifts_2, shifts_3)

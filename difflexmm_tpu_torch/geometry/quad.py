@@ -62,7 +62,9 @@ class QuadGeometry(LatticeGeometry):
     the horizontally aligned hinges, ``vertical_shift`` (n1, n2+1, 2) the
     vertically aligned ones. Node offsets of block (i, j): node 0 takes
     horizontal_shift[i+1, j], node 1 vertical_shift[i, j+1], node 2
-    horizontal_shift[i, j], node 3 vertical_shift[i, j].
+    horizontal_shift[i, j], node 3 vertical_shift[i, j]. A population of
+    designs carries leading batch dimensions on both shift grids; the
+    parametrization keeps them (``(B, n_blocks, 4, 2)`` corner vectors).
     """
 
     def __init__(
@@ -94,19 +96,19 @@ class QuadGeometry(LatticeGeometry):
             J = torch.as_tensor(J_np, **like)
             offsets = torch.stack(
                 [
-                    horizontal_shift[I + 1, J],
-                    vertical_shift[I, J + 1],
-                    horizontal_shift[I, J],
-                    vertical_shift[I, J],
+                    horizontal_shift[..., I + 1, J, :],
+                    vertical_shift[..., I, J + 1, :],
+                    horizontal_shift[..., I, J, :],
+                    vertical_shift[..., I, J, :],
                 ],
-                dim=1,
-            )  # (n_blocks, 4, 2)
+                dim=-2,
+            )  # (..., n_blocks, 4, 2)
             v0s = torch.as_tensor(v0s_np, dtype=horizontal_shift.dtype, **like)
-            return v0s[None] + offsets
+            return v0s + offsets
 
         def centroid_node_vectors(horizontal_shift, vertical_shift):
             ref = reference_node_vectors(horizontal_shift, vertical_shift)
-            return ref - polygon_centroid(ref)[:, None, :]
+            return ref - polygon_centroid(ref)[..., None, :]
 
         def block_centroids(horizontal_shift, vertical_shift):
             ref = reference_node_vectors(horizontal_shift, vertical_shift)

@@ -13,6 +13,9 @@ import torch
 
 from difflexmm_tpu_torch.geometry.edges import compute_block_angles, compute_edge_angles
 from difflexmm_tpu_torch.geometry.polygon import compute_edge_lengths
+from difflexmm_tpu_torch.ops.assembly import build_strain_energy, combine_block_energies
+from difflexmm_tpu_torch.ops.bonds import ligament_energy, ligament_energy_linearized
+from difflexmm_tpu_torch.ops.contact import build_contact_energy
 from difflexmm_tpu_torch.utils.types import SolutionData
 
 
@@ -156,6 +159,23 @@ def resolve_model_guard(guard, min_angle, cutoff_angle, spacing):
         guard["window"] = float(cutoff_angle) - float(min_angle)
     guard.setdefault("length_scale", float(spacing))
     return guard
+
+
+def dense_energy(build_grid_energy, n1: int, n2: int, bonds, linearized: bool,
+                 use_contact: bool, grid_energy: bool):
+    """The energy of a model's dense ``method="verlet"`` (JAX
+    ``models/quads_focusing.py:149-162``): the lattice's gather-free grid
+    energy ``build_grid_energy(n1, n2, bond_energy_fn, use_contact=...)``
+    where ``grid_energy``, else the strain energy over the bond list plus,
+    with ``use_contact``, the angle-based contact barrier."""
+
+    bond_energy_fn = ligament_energy_linearized if linearized else ligament_energy
+    if grid_energy:
+        return build_grid_energy(n1, n2, bond_energy_fn, use_contact=use_contact)
+    strain_energy = build_strain_energy(bonds, bond_energy_fn)
+    if not use_contact:
+        return strain_energy
+    return combine_block_energies(strain_energy, build_contact_energy(bonds))
 
 
 def pulse(t, amplitude, loading_rate):

@@ -20,8 +20,9 @@ from difflexmm_tpu_torch.geometry.kagome import KagomeGeometry
 from difflexmm_tpu_torch.geometry.polygon import compute_inertia
 from difflexmm_tpu_torch.models import base
 from difflexmm_tpu_torch.models.runner import OptimizationRunnerMixin
-from difflexmm_tpu_torch.ops.observables import kinetic_energy
-from difflexmm_tpu_torch.solver.dynamics import setup_dynamic_solver
+from difflexmm_tpu_torch.ops.kagome_grid import build_kagome_grid_energy
+from difflexmm_tpu_torch.ops.observables import trajectory_kinetic_energy
+from difflexmm_tpu_torch.solver.dynamics import FAST_METHODS, setup_dynamic_solver
 from difflexmm_tpu_torch.utils.types import (
     ContactParams,
     ControlParams,
@@ -57,11 +58,14 @@ class ForwardProblem:
 
     ``setup()`` installs ``self.solve(design) -> SolutionData`` where
     ``design = (shifts_1, shifts_2, shifts_3)``, tensors on ``device`` in
-    ``dtype`` (every physical parameter is cast to them). ``device`` is the
-    CUDA device unless the caller asks for the CPU. ``method`` is one of
-    ``solver.dynamics.FAST_METHODS``; the JAX package's default, the dense
-    ``"verlet"``, is ROADMAP A4. ``guard``: None, ``"auto"`` or a spec dict
-    (``base.resolve_model_guard``, travel scaled by ``cell_size``).
+    ``dtype`` (every physical parameter is cast to them). A population of
+    B designs, each shift grid with a leading dimension B, solves in one
+    call on the fast path. ``device`` is the CUDA device unless the caller
+    asks for the CPU. ``method``: one of ``solver.dynamics.FAST_METHODS``
+    (the grid fast path) or the dense ``"verlet"`` on the gridded energy
+    (``grid_energy``) or the bond-list energy. ``guard``: None, ``"auto"``
+    or a spec dict (``base.resolve_model_guard``, travel scaled by
+    ``cell_size``; the dense ``"verlet"`` takes none yet, ROADMAP A4).
     """
 
     # Geometry
@@ -104,6 +108,9 @@ class ForwardProblem:
     # Solver configuration.
     method: str = "auto"
     n_substeps: int = 20
+    # The dense "verlet" path's energy: gather-free on the cell grid, or
+    # assembled over the bond list (the fast path has its own).
+    grid_energy: bool = True
     guard: Any = None
     device: Any = "cuda"
     dtype: Any = torch.float64
@@ -150,19 +157,27 @@ class ForwardProblem:
         def constrained_DOFs_fn(t, amplitude, loading_rate, input_delay):
             return base.pulse(t - input_delay, amplitude, loading_rate)[..., None] * drive_vector
 
+        energy = base.dense_energy(build_kagome_grid_energy, self.n1_cells, self.n2_cells,
+                                   bonds, self.linearized_strains, self.use_contact,
+                                   self.grid_energy)
+        kagome_grid = (
+            dict(
+                n1=self.n1_cells,
+                n2=self.n2_cells,
+                linearized=self.linearized_strains,
+                use_contact=self.use_contact,
+            )
+            if self.method in FAST_METHODS else None
+        )
         solve_dynamics = setup_dynamic_solver(
             geometry=geometry,
+            energy_fn=energy,
             constrained_block_DOF_pairs=constrained_pairs,
             constrained_DOFs_fn=constrained_DOFs_fn,
             damped_blocks=np.arange(geometry.n_blocks),
             method=self.method,
             n_substeps=self.n_substeps,
-            kagome_grid=dict(
-                n1=self.n1_cells,
-                n2=self.n2_cells,
-                linearized=self.linearized_strains,
-                use_contact=self.use_contact,
-            ),
+            kagome_grid=kagome_grid,
             guard=base.resolve_model_guard(
                 self.guard, self.min_angle, self.cutoff_angle, self.cell_size
             ),
@@ -190,7 +205,7 @@ class ForwardProblem:
         damping = torch.as_tensor(np.array(self.damping, dtype=np.float64), **like)
 
         def control_params(design) -> ControlParams:
-            """The solver's parameters for a design."""
+            """The solver's parameters for a design (or a population)."""
 
             return ControlParams(
                 geometrical_params=GeometricalParams(
@@ -241,7 +256,9 @@ class ForwardProblem:
 @dataclass
 class OptimizationProblem(OptimizationRunnerMixin):
     """Maximize target-cell kinetic energy over the kagome hinge shifts
-    (``run_optimization_mma`` from the runner mixin)."""
+    (``run_optimization_mma`` and ``run_multistart_mma`` from the runner
+    mixin). ``setup_objective()`` installs ``objective_fn(design) ->
+    scalar`` and ``population_objective_fn(designs) -> (B,)``."""
 
     forward_problem: ForwardProblem
     target_size: Tuple[int, int]
@@ -272,12 +289,16 @@ class OptimizationProblem(OptimizationRunnerMixin):
         target_blocks = np.stack([2 * cells, 2 * cells + 1], axis=1).reshape(-1)
         target = torch.as_tensor(target_blocks, device=torch.device(fp.device))
 
-        def target_kinetic_energy(design):
-            solution = fp.solve(design)
-            inertia = compute_inertia(solution.centroid_node_vectors, fp.density)
-            return kinetic_energy(solution.fields[:, 1, target, :], inertia[target])
+        def target_kinetic_energy(designs):
+            """Of one design (a scalar) or of a population (each design
+            tensor with a leading dimension B, ``(B,)``)."""
 
-        self.objective_fn = target_kinetic_energy
+            solution = fp.solve(designs)
+            inertia = compute_inertia(solution.centroid_node_vectors, fp.density)
+            return trajectory_kinetic_energy(solution.fields[..., 1, target, :],
+                                             inertia[..., None, target, :])
+
+        self.objective_fn = self.population_objective_fn = target_kinetic_energy
         self.target_blocks = target_blocks
         self.is_setup = True
 

@@ -3,9 +3,9 @@
 
 A pulse enters from one side of an aperiodic quad lattice; the design
 (hinge shift grids) is optimized to maximize the kinetic energy delivered
-to a target patch. This module ports the forward problem and the
-objective; the fabrication constraints and the MMA loop are ROADMAP A5
-and A7.
+to a target patch. This module ports the forward problem, the objective
+and its population form (B designs in one solve); the constraints, the
+MMA loop and the multistart driver come from ``models/runner.py``.
 """
 
 import dataclasses
@@ -20,8 +20,9 @@ from difflexmm_tpu_torch.geometry.polygon import compute_inertia
 from difflexmm_tpu_torch.geometry.quad import QuadGeometry
 from difflexmm_tpu_torch.models import base
 from difflexmm_tpu_torch.models.runner import OptimizationRunnerMixin
-from difflexmm_tpu_torch.ops.observables import kinetic_energy
-from difflexmm_tpu_torch.solver.dynamics import setup_dynamic_solver
+from difflexmm_tpu_torch.ops.grid import build_quad_grid_energy
+from difflexmm_tpu_torch.ops.observables import trajectory_kinetic_energy
+from difflexmm_tpu_torch.solver.dynamics import FAST_METHODS, setup_dynamic_solver
 from difflexmm_tpu_torch.utils.types import (
     ContactParams,
     ControlParams,
@@ -39,10 +40,14 @@ class ForwardProblem:
     ``setup()`` installs ``self.solve(design) -> SolutionData`` where
     ``design = (horizontal_shifts, vertical_shifts)``, tensors on
     ``device`` in ``dtype`` (every physical parameter is cast to them).
-    ``device`` is the CUDA device unless the caller asks for the CPU.
-    ``method`` is one of ``solver.dynamics.FAST_METHODS``; the JAX
-    package's default, the dense ``"verlet"``, is ROADMAP A4. ``guard``:
-    None, ``"auto"`` or a spec dict (``base.resolve_model_guard``).
+    A population of B designs, each shift grid with a leading dimension B,
+    solves in one call on the fast path (fields ``(B, T, 2, n_blocks,
+    3)``). ``device`` is the CUDA device unless the caller asks for the
+    CPU. ``method``: one of ``solver.dynamics.FAST_METHODS`` (the grid fast
+    path) or the dense ``"verlet"`` on the gridded energy
+    (``grid_energy``) or the bond-list energy. ``guard``: None, ``"auto"``
+    or a spec dict (``base.resolve_model_guard``; the dense ``"verlet"``
+    takes none yet, ROADMAP A4).
     """
 
     # Geometry
@@ -84,6 +89,9 @@ class ForwardProblem:
     # Solver configuration.
     method: str = "auto"
     n_substeps: int = 20
+    # The dense "verlet" path's energy: gather-free on the block grid, or
+    # assembled over the bond list (the fast path has its own).
+    grid_energy: bool = True
     guard: Any = None
     device: Any = "cuda"
     dtype: Any = torch.float64
@@ -123,19 +131,27 @@ class ForwardProblem:
         def constrained_DOFs_fn(t, amplitude, loading_rate, input_delay):
             return base.pulse(t - input_delay, amplitude, loading_rate)[..., None] * drive_vector
 
+        energy = base.dense_energy(build_quad_grid_energy, self.n1_blocks, self.n2_blocks,
+                                   bonds, self.linearized_strains, self.use_contact,
+                                   self.grid_energy)
+        quad_grid = (
+            dict(
+                n1=self.n1_blocks,
+                n2=self.n2_blocks,
+                linearized=self.linearized_strains,
+                use_contact=self.use_contact,
+            )
+            if self.method in FAST_METHODS else None
+        )
         solve_dynamics = setup_dynamic_solver(
             geometry=geometry,
+            energy_fn=energy,
             constrained_block_DOF_pairs=constrained_pairs,
             constrained_DOFs_fn=constrained_DOFs_fn,
             damped_blocks=np.arange(geometry.n_blocks),
             method=self.method,
             n_substeps=self.n_substeps,
-            quad_grid=dict(
-                n1=self.n1_blocks,
-                n2=self.n2_blocks,
-                linearized=self.linearized_strains,
-                use_contact=self.use_contact,
-            ),
+            quad_grid=quad_grid,
             guard=base.resolve_model_guard(
                 self.guard, self.min_angle, self.cutoff_angle, self.spacing
             ),
@@ -165,7 +181,7 @@ class ForwardProblem:
         damping = torch.as_tensor(np.array(self.damping, dtype=np.float64), **like)
 
         def control_params(design) -> ControlParams:
-            """The solver's parameters for a design."""
+            """The solver's parameters for a design (or a population)."""
 
             horizontal_shifts, vertical_shifts = design
             return ControlParams(
@@ -216,7 +232,10 @@ class ForwardProblem:
 @dataclass
 class OptimizationProblem(OptimizationRunnerMixin):
     """Maximize target-patch kinetic energy over the hinge-shift design
-    (``run_optimization_mma`` from the runner mixin)."""
+    (``run_optimization_mma`` and ``run_multistart_mma`` from the runner
+    mixin). ``setup_objective()`` installs ``objective_fn(design) ->
+    scalar`` and ``population_objective_fn(designs) -> (B,)``, whose
+    designs carry a leading dimension B and solve as one population."""
 
     forward_problem: ForwardProblem
     target_size: Tuple[int, int]
@@ -243,14 +262,16 @@ class OptimizationProblem(OptimizationRunnerMixin):
         )
         target = torch.as_tensor(target_blocks, device=torch.device(fp.device))
 
-        def target_kinetic_energy(design):
-            solution = fp.solve(design)
-            inertia = compute_inertia(solution.centroid_node_vectors, fp.density)
-            return kinetic_energy(
-                solution.fields[:, 1, target, :], inertia[target]
-            )
+        def target_kinetic_energy(designs):
+            """Of one design (a scalar) or of a population (each design
+            tensor with a leading dimension B, ``(B,)``)."""
 
-        self.objective_fn = target_kinetic_energy
+            solution = fp.solve(designs)
+            inertia = compute_inertia(solution.centroid_node_vectors, fp.density)
+            return trajectory_kinetic_energy(solution.fields[..., 1, target, :],
+                                             inertia[..., None, target, :])
+
+        self.objective_fn = self.population_objective_fn = target_kinetic_energy
         self.target_blocks = target_blocks
         self.is_setup = True
 

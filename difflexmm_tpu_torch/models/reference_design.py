@@ -16,9 +16,6 @@ import torch
 
 from difflexmm_tpu_torch.geometry.quad import RotatedSquareGeometry
 from difflexmm_tpu_torch.models import base
-from difflexmm_tpu_torch.ops.assembly import build_strain_energy, combine_block_energies
-from difflexmm_tpu_torch.ops.bonds import ligament_energy, ligament_energy_linearized
-from difflexmm_tpu_torch.ops.contact import build_contact_energy
 from difflexmm_tpu_torch.ops.grid import build_quad_grid_energy
 from difflexmm_tpu_torch.solver.dynamics import FAST_METHODS, setup_dynamic_solver
 from difflexmm_tpu_torch.utils.types import (
@@ -124,15 +121,8 @@ class ForwardProblem:
             def constrained_DOFs_fn(t, **kwargs):
                 return torch.as_tensor(excited_blocks_fn(t))[..., None] * drive_vector
 
-        bond_energy_fn = (
-            ligament_energy_linearized if self.linearized_strains else ligament_energy
-        )
-        if self.grid_energy:
-            energy = build_quad_grid_energy(n1, n2, bond_energy_fn, use_contact=self.use_contact)
-        else:
-            strain_energy = build_strain_energy(bonds, bond_energy_fn)
-            energy = (combine_block_energies(strain_energy, build_contact_energy(bonds))
-                      if self.use_contact else strain_energy)
+        energy = base.dense_energy(build_quad_grid_energy, n1, n2, bonds,
+                                   self.linearized_strains, self.use_contact, self.grid_energy)
 
         # The rotated-square lattice is an n1 x n2 grid of 4-gons, so the
         # quad-grid fast path applies unchanged.

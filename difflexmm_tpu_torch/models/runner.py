@@ -1,12 +1,14 @@
 """The optimization-runner mixin of the model families (counterpart of
 ``difflexmm_tpu/models/runner.py``: ``_ensure_guarded``,
 ``_guarded_objective_fn``, ``_design_constraints``,
-``run_optimization_mma``, ``_history_extras`` and ``compute_best_forward``).
+``run_optimization_mma``, ``run_multistart_mma``, ``_history_extras`` and
+``compute_best_forward``).
 
 A model's ``OptimizationProblem`` supplies ``setup_objective`` (installing
-``self.objective_fn``, maximized) and inherits the constrained MMA driver,
-the fabrication-constraint wiring and the iteration histories from here.
-Batched multistart (ROADMAP A8) and the optax driver are not ported yet.
+``self.objective_fn``, maximized, and ``self.population_objective_fn`` for
+a population of designs) and inherits the constrained MMA driver, the
+batched multistart driver, the fabrication-constraint wiring and the
+iteration histories from here. The optax drivers are ROADMAP A7.
 """
 
 import copy
@@ -18,6 +20,8 @@ import torch
 
 from difflexmm_tpu_torch.models import base
 from difflexmm_tpu_torch.optim.mma import run_mma, run_mma_fused
+from difflexmm_tpu_torch.parallel.multistart import reevaluate_finalists
+from difflexmm_tpu_torch.parallel.multistart import run_multistart_mma as _run_multistart
 
 
 def ravel_design(design):
@@ -30,6 +34,20 @@ def ravel_design(design):
         return tuple(part.reshape(shape) for part, shape in zip(torch.split(flat, sizes), shapes))
 
     return torch.cat([x.reshape(-1) for x in design]), unflatten
+
+
+def population_unflatten(design):
+    """For a design's structure (tuple of tensors): ``(B, n)`` flat
+    candidates -> the design tuple with a leading dimension B."""
+
+    shapes = [tuple(x.shape) for x in design]
+    sizes = [x.numel() for x in design]
+
+    def unflatten(xs):
+        return tuple(part.reshape((xs.shape[0],) + shape)
+                     for part, shape in zip(torch.split(xs, sizes, dim=1), shapes))
+
+    return unflatten
 
 
 class OptimizationRunnerMixin:
@@ -97,21 +115,29 @@ class OptimizationRunnerMixin:
             self.is_setup = False
             self.forward_problem = dataclasses.replace(fp, guard=guard, is_setup=False)
 
-    def _guarded_objective_fn(self, guard):
-        """A guarded sibling's ``objective_fn`` without changing self: the
-        existing objective when the forward problem is already guarded,
-        None when it cannot take a guard."""
+    def _guarded_sibling(self, guard):
+        """A guarded sibling of this problem (set up) without changing self:
+        self when the forward problem is already guarded, None when it
+        cannot take a guard."""
 
         fp = self.forward_problem
         if not self._guardable(fp):
             return None
         if fp.guard is not None:
-            return self.objective_fn
+            return self
         clone = copy.copy(self)
         clone.forward_problem = dataclasses.replace(fp, guard=guard, is_setup=False)
         clone.is_setup = False
         clone.setup_objective()
-        return clone.objective_fn
+        return clone
+
+    def _guarded_objective_fn(self, guard):
+        """A guarded sibling's ``objective_fn`` without changing self: the
+        existing objective when the forward problem is already guarded,
+        None when it cannot take a guard."""
+
+        sibling = self._guarded_sibling(guard)
+        return None if sibling is None else sibling.objective_fn
 
     def run_optimization_mma(
         self,
@@ -221,6 +247,92 @@ class OptimizationRunnerMixin:
         if self.design_values:
             self.compute_best_forward()
         return unflatten(x_final)
+
+    def run_multistart_mma(
+        self,
+        initial_guesses,
+        n_iterations: int,
+        lower_bound: Optional[float] = None,
+        upper_bound: Optional[float] = None,
+        min_void_angle: Optional[float] = None,
+        min_block_angle: Optional[float] = None,
+        min_edge_length: Optional[float] = None,
+        boundary_angle_constraint: bool = False,
+        move_limit: float = 0.2,
+        mesh=None,
+        final_guard="auto",
+        n_finalists: int = 8,
+    ):
+        """Batched constrained restarts: every candidate runs an MMA
+        optimization at once, one population solve and one vmapped update
+        per iteration (``parallel.run_multistart_mma``).
+
+        ``initial_guesses`` is a list of designs. The candidates are
+        screened with the problem as configured (unguarded unless it was
+        built guarded); then the top ``n_finalists`` by their last value are
+        re-evaluated, forward only, by the guarded sibling objective
+        (``final_guard``, default "auto"; ``None`` skips the re-ranking)
+        through ``parallel.reevaluate_finalists``, in one population solve,
+        and the winner is re-ranked by that value: integrator error that
+        screens well cannot win. One (value, design) pair lands in the
+        histories, so that ``compute_best_forward`` works as usual: the
+        winner's own re-evaluated value (the JAX package records the
+        largest finalist value, NaN when any finalist is not finite), or its
+        screening value without a re-ranking. Returns the
+        ``MultistartMMAResult`` (with ``.finalists``). ``mesh``: ROADMAP
+        A11.
+        """
+
+        if not self.is_setup:
+            self.setup_objective()
+        designs = torch.stack([ravel_design(guess)[0] for guess in initial_guesses]).detach()
+        _, unflatten = ravel_design(initial_guesses[0])
+        unflatten_population = population_unflatten(initial_guesses[0])
+
+        def objective(xs):
+            return self.population_objective_fn(unflatten_population(xs))
+
+        constraint_fns = self._design_constraints(
+            min_void_angle, min_block_angle, min_edge_length, boundary_angle_constraint,
+        )
+        if constraint_fns:
+            fns = [fn for _, fn in constraint_fns]
+
+            def stacked(x):
+                return torch.cat([fn(unflatten(x)) for fn in fns])
+
+            jacobian = torch.func.jacrev(stacked)
+
+            def constraints_and_jac(x):
+                return stacked(x), jacobian(x)
+        else:
+            constraints_and_jac = None
+
+        span = float(torch.max(torch.abs(designs))) + 1.0
+        xmin = torch.full(designs.shape[1:], lower_bound if lower_bound is not None else -10 * span,
+                          dtype=designs.dtype, device=designs.device)
+        xmax = torch.full(designs.shape[1:], upper_bound if upper_bound is not None else 10 * span,
+                          dtype=designs.dtype, device=designs.device)
+        result = _run_multistart(
+            objective, designs, xmin, xmax, n_iterations=n_iterations,
+            constraints_and_jac=constraints_and_jac, maximize=True, move_limit=move_limit,
+            mesh=mesh,
+        )
+        best_value = float(result.objective_values[-1, result.best_index])
+        sibling = None if final_guard is None else self._guarded_sibling(final_guard)
+        if sibling is not None:
+            finalists = reevaluate_finalists(
+                lambda xs: sibling.population_objective_fn(unflatten_population(xs)),
+                result.designs, result.objective_values[-1], k=n_finalists, maximize=True,
+            )
+            result = result._replace(best_index=finalists.best_index,
+                                     best_design=finalists.best_design, finalists=finalists)
+            best_value = finalists.best_value
+        # One (value, design) pair: histories stay index-aligned; the full
+        # per-candidate, per-iteration curves live on the result.
+        self.objective_values.append(best_value)
+        self.design_values.append(unflatten(result.best_design))
+        return result
 
     def _history_extras(self):
         """Auxiliary per-iteration histories kept beside the objective."""

@@ -367,11 +367,18 @@ def force(U_free, drive_row, fixed, spec: TrajectorySpec, create_graph=False, lo
     loads of ``load_row`` (B, k_load) where given.
 
     The gradient is taken with ``torch.autograd.grad``; ``create_graph``
-    keeps its graph for the adjoint's double backward.
+    keeps its graph for the adjoint's double backward. It runs on the
+    calling thread: autograd numbers graph nodes with a thread-local
+    counter and a backward runs ready nodes in the order of those numbers,
+    so a gradient graph built on the engine's CUDA worker thread beside a
+    forward built on the caller's would interleave by the two counters'
+    positions, which depend on the process's history, and the double
+    backward would add its gradient contributions in an order, and with
+    last bits, that change from call to call.
     """
 
     mask = fixed[-1]
-    with torch.enable_grad():
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
         Uf = U_free if U_free.requires_grad else U_free.detach().requires_grad_()
         U_eff = Uf * mask + drive_planes(drive_row, spec, Uf)
         (grad,) = torch.autograd.grad(

@@ -32,22 +32,23 @@ N_FIXED_ARRAYS = 16
 
 
 def to_planes(field: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
-    """(nb, C) block field -> (C, n2, n1) planes."""
+    """(..., nb, C) block field -> (..., C, n2, n1) planes (leading batch
+    dimensions kept)."""
 
     C = field.shape[-1]
-    return torch.movedim(field.reshape(n2, n1, C), -1, 0)
+    return torch.movedim(field.reshape(field.shape[:-2] + (n2, n1, C)), -1, -3)
 
 
 def cnv_to_planes(cnv: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
-    """(nb, 4, 2) centroid-node vectors -> (4, 2, n2, n1)."""
+    """(..., nb, 4, 2) centroid-node vectors -> (..., 4, 2, n2, n1)."""
 
-    return cnv.reshape(n2, n1, 4, 2).permute(2, 3, 0, 1)
+    return torch.movedim(cnv.reshape(cnv.shape[:-3] + (n2, n1, 4, 2)), (-2, -1), (-4, -3))
 
 
 def fields_from_planes(out: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """(T-1, 2, 3, n2, n1) stacked (U, V) planes -> (T-1, 2, nb, 3)."""
+    """(..., 2, 3, n2, n1) stacked (U, V) planes -> (..., 2, nb, 3)."""
 
-    return torch.movedim(out, 2, -1).reshape(out.shape[0], 2, n_blocks, 3)
+    return torch.movedim(out, -3, -1).reshape(out.shape[:-3] + (n_blocks, 3))
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +221,7 @@ def _gap_of(U, fixed, use_contact):
 # ---------------------------------------------------------------------------
 
 
-def _shapes(B, n1, n2):
+def fixed_shapes(B, n1, n2):
     """Expected shapes of the fixed leaves, in order."""
 
     h, v, full = (B, n2, n1 - 1), (B, n2 - 1, n1), (B, 3, n2, n1)
@@ -272,7 +273,7 @@ def verlet_quad_trajectory(
     return launch.run(
         _load_library(), "verlet_quad", verlet_quad_trajectory, U0, V0, A0, dts, drive, fixed, spec, micro,
         loads, linearized=linearized, use_contact=use_contact, drive_map=drive_map,
-        fixed_shapes=_shapes(B, n1, n2), theta_channels=(2,),
+        fixed_shapes=fixed_shapes(B, n1, n2), theta_channels=(2,),
     )
 
 

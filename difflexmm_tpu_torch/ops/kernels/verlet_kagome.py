@@ -45,30 +45,33 @@ N_FIXED_ARRAYS = 20
 
 
 def to_planes(field: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
-    """(nb, C) block field -> (2 * C, n2, n1) planes, down channels first."""
+    """(..., nb, C) block field -> (..., 2 * C, n2, n1) planes, down channels
+    first (leading batch dimensions kept)."""
 
-    C = field.shape[-1]
-    return field.reshape(n2, n1, 2, C).permute(2, 3, 0, 1).reshape(2 * C, n2, n1)
+    lead, C = field.shape[:-2], field.shape[-1]
+    planes = torch.movedim(field.reshape(lead + (n2, n1, 2, C)), (-2, -1), (-4, -3))
+    return planes.reshape(lead + (2 * C, n2, n1))
 
 
 def fields_from_planes(out: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """(T-1, 2, 6, n2, n1) stacked (U, V) planes -> (T-1, 2, nb, 3)."""
+    """(..., 2, 6, n2, n1) stacked (U, V) planes -> (..., 2, nb, 3)."""
 
-    T1, two, _, n2, n1 = out.shape
-    out = out.reshape(T1, two, 2, 3, n2, n1).permute(0, 1, 4, 5, 2, 3)
-    return out.reshape(T1, two, n_blocks, 3)
+    lead, (n2, n1) = out.shape[:-2], out.shape[-2:]
+    out = torch.movedim(out.reshape(lead[:-1] + (2, 3, n2, n1)), (-4, -3), (-2, -1))
+    return out.reshape(lead[:-1] + (n_blocks, 3))
 
 
 def cnv_to_planes(cnv: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
-    """(nb, 3, 2) centroid-node vectors -> (2, 3, 2, n2, n1)."""
+    """(..., nb, 3, 2) centroid-node vectors -> (..., 2, 3, 2, n2, n1)."""
 
-    return cnv.reshape(n2, n1, 2, 3, 2).permute(2, 3, 4, 0, 1)
+    return torch.movedim(cnv.reshape(cnv.shape[:-3] + (n2, n1, 2, 3, 2)), (-5, -4), (-2, -1))
 
 
 def centroids_to_planes(bc: torch.Tensor, n1: int, n2: int) -> torch.Tensor:
-    """(nb, 2) block centroids -> (2, 2, n2, n1) [triangle, comp, j, i]."""
+    """(..., nb, 2) block centroids -> (..., 2, 2, n2, n1) [triangle, comp,
+    j, i]."""
 
-    return bc.reshape(n2, n1, 2, 2).permute(2, 3, 0, 1)
+    return torch.movedim(bc.reshape(bc.shape[:-2] + (n2, n1, 2, 2)), (-4, -3), (-2, -1))
 
 
 def split_bond_planes(value, n1: int, n2: int):
@@ -268,7 +271,7 @@ def _gap_of(U, fixed, use_contact):
 # ---------------------------------------------------------------------------
 
 
-def _shapes(B, n1, n2):
+def fixed_shapes(B, n1, n2):
     """Expected shapes of the fixed leaves, in order."""
 
     i, b1, b2, full = (B, n2, n1), (B, n2 - 1, n1), (B, n2, n1 - 1), (B, 6, n2, n1)
@@ -321,7 +324,7 @@ def verlet_kagome_trajectory(
     return launch.run(
         _load_library(), "verlet_kagome", verlet_kagome_trajectory, U0, V0, A0, dts, drive, fixed, spec, micro,
         loads, linearized=linearized, use_contact=use_contact, drive_map=drive_map,
-        fixed_shapes=_shapes(B, n1, n2), theta_channels=(2, 5),
+        fixed_shapes=fixed_shapes(B, n1, n2), theta_channels=(2, 5),
     )
 
 

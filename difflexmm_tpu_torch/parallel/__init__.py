@@ -1,0 +1,11 @@
+"""Populations of designs (counterpart of ``difflexmm_tpu/parallel``: the
+multistart drivers; scenarios, meshes and domains are ROADMAP A11)."""
+
+from difflexmm_tpu_torch.parallel.multistart import (  # noqa: F401
+    FinalistResult,
+    MultistartMMAResult,
+    population_value_and_grad,
+    random_initial_designs,
+    reevaluate_finalists,
+    run_multistart_mma,
+)

@@ -8,6 +8,13 @@ The state stays dense, ``(2, n_blocks, 3)`` with a free-DOF mask. Forces on
 constrained DOFs are masked, their displacements come from the drive
 function, and after the solve the driven DOFs are overwritten with the
 drive values and their exact time derivatives (one forward-mode jvp).
+
+A population of designs (the counterpart of the JAX solver under ``vmap``,
+``dynamics.py:984-1000``) is one call of the fast path: control parameters
+whose geometry carries a leading design dimension B run as one trajectory
+of B designs, the batch on the kernel's grid. The JAX package's design
+tiling and its crossover routing exist for the TPU's lanes and are not
+ported.
 """
 
 from typing import Callable, Optional
@@ -54,7 +61,12 @@ def setup_dynamic_solver(
     initial ``(2, n_blocks, 3)`` state and ``(T,)`` timepoints to the full
     ``(T, 2, n_blocks, 3)`` solution, differentiable with respect to every
     tensor in ``control_params`` and ``state0``. Device and dtype follow
-    the centroid-node vectors of ``control_params``.
+    the centroid-node vectors of ``control_params``. On the fast path a
+    population of B designs, whose centroid-node vectors ``(B, n_blocks, V,
+    2)`` and block centroids ``(B, n_blocks, 2)`` carry the design
+    dimension (``state0`` shared or ``(B, 2, n_blocks, 3)``; every other
+    parameter shared), gives ``(B, T, 2, n_blocks, 3)`` from one trajectory
+    of B designs (one kernel launch on CUDA tensors).
 
     ``constrained_DOFs_fn(t, **constraint_params)`` takes a tensor ``t`` of
     any shape and returns values broadcastable to ``t.shape + (k,)`` for
@@ -206,25 +218,39 @@ def setup_dynamic_solver(
             *solver_planes(mp, inertia, mask, like),
         )
 
-    def fixed_leaves(control_params: ControlParams, inertia, mask, like):
-        """The lattice's fixed leaves, each with a leading design batch of 1."""
+    def fixed_leaves(control_params: ControlParams, inertia, mask, like, B):
+        """The lattice's fixed leaves, each with the leading design batch B
+        (shared leaves broadcast to it), contiguous."""
 
         leaves = (kagome_leaves if is_kagome else quad_leaves)(control_params, inertia, mask,
                                                                like)
-        return tuple(x[None].contiguous() for x in leaves)
+        return tuple(torch.broadcast_to(x, shape).contiguous()
+                     for x, shape in zip(leaves, lattice.fixed_shapes(B, n1, n2)))
 
     def prepare(state0, timepoints, control_params: ControlParams):
-        """(trajectory args, masked y0, timepoints)."""
+        """(trajectory args, masked y0, timepoints, population size or None
+        for one design)."""
 
         mp = control_params.mechanical_params
         cnv = control_params.geometrical_params.centroid_node_vectors
         like = dict(dtype=cnv.dtype, device=cnv.device)
+        population = cnv.shape[0] if cnv.dim() == 4 else None
+        B = population or 1
+
+        def batched(x):
+            """A shared (per-design) tensor on the design batch, contiguous."""
+
+            return torch.broadcast_to(x, (B,) + x.shape).contiguous()
+
         spec = spec_for(cnv.device)
         inertia = mp.inertia if mp.inertia is not None else compute_inertia(cnv, mp.density)
         mask = torch.as_tensor(dof_set.free_mask, **like)
         y0 = torch.as_tensor(state0, **like) * mask
+        if population is None and y0.dim() != 3:
+            raise ValueError(f"state0 of one design has shape {tuple(y0.shape)}, want "
+                             f"(2, {n_blocks}, 3)")
         ts = torch.as_tensor(timepoints, **like)
-        fixed = fixed_leaves(control_params, torch.as_tensor(inertia, **like), mask, like)
+        fixed = fixed_leaves(control_params, torch.as_tensor(inertia, **like), mask, like, B)
         cparams = control_params.constraint_params
 
         def drive_table(t):
@@ -261,8 +287,8 @@ def setup_dynamic_solver(
         i = torch.arange(n_substeps, **like)
         starts = ts[:-1, None] + i[None, :] * dts[:, None]
         ends = (starts + dts[:, None]).reshape(-1)
-        drive = drive_table(ends)[None].contiguous()
-        loads = [load_table(ends)[None].contiguous()] if has_loading else []
+        drive = batched(drive_table(ends))
+        loads = [batched(load_table(ends))] if has_loading else []
         # Micro-step end times, one table per guard level, as the guarded
         # stepper computes them: ddt = dt / refine, start_j = start + j * ddt,
         # end_j = start_j + ddt.
@@ -273,37 +299,40 @@ def setup_dynamic_solver(
             ddt = step.view((-1,) + (1,) * starts.dim())
             starts = starts[..., None] + torch.arange(guard["refine"], **like) * ddt
             ends = (starts + ddt).reshape(-1)
-            micro.append(drive_table(ends)[None].contiguous())
+            micro.append(batched(drive_table(ends)))
             if has_loading:
-                loads.append(load_table(ends)[None].contiguous())
+                loads.append(batched(load_table(ends)))
 
-        U0 = lattice.to_planes(y0[0], n1, n2)[None].contiguous()
-        V0 = lattice.to_planes(y0[1], n1, n2)[None].contiguous()
+        y0 = torch.broadcast_to(y0, (B,) + y0.shape[-3:])
+        U0, V0 = (lattice.to_planes(y0[:, i], n1, n2).contiguous() for i in range(2))
         inertia_p, damping_p, mask_p = fixed[-3:]
         # F0 carries the load at ts[0], as JAX's force_fn does.
         F0 = core.force(
-            U0, drive_table(ts[0])[None], fixed, spec,
+            U0, batched(drive_table(ts[0])), fixed, spec,
             create_graph=torch.is_grad_enabled(),
-            load_row=load_table(ts[:1]) if has_loading else None,
+            load_row=batched(load_table(ts[0])) if has_loading else None,
         )
         A0 = (F0 - damping_p * V0) * (mask_p / inertia_p)
         args = core.TrajectoryArgs(spec, U0, V0, A0, dts, drive, fixed, tuple(micro),
                                    tuple(loads))
-        return args, y0, ts
+        return args, y0, ts, population
 
     def trajectory_args(state0, timepoints, control_params: ControlParams):
-        """The trajectory's inputs for one design (batch of 1), as
-        :class:`core.TrajectoryArgs`."""
+        """The trajectory's inputs (a batch of 1 for one design, of B for a
+        population), as :class:`core.TrajectoryArgs`."""
 
         return prepare(state0, timepoints, control_params)[0]
 
     def solve_dynamics(state0, timepoints, control_params: ControlParams) -> torch.Tensor:
-        """Integrate the dynamics; output (T, 2, n_blocks, 3)."""
+        """Integrate the dynamics; output (T, 2, n_blocks, 3), or (B, T, 2,
+        n_blocks, 3) for a population."""
 
-        args, y0, ts = prepare(state0, timepoints, control_params)
+        args, y0, ts, population = prepare(state0, timepoints, control_params)
         outU, outV = core.apply(args)[:2]
-        out = torch.stack([outU[0], outV[0]], dim=1)  # (T-1, 2, C, n2, n1)
-        ys = torch.cat([y0[None], lattice.fields_from_planes(out, n_blocks)])
+        out = torch.stack([outU, outV], dim=2)  # (B, T-1, 2, C, n2, n1)
+        ys = torch.cat([y0[:, None], lattice.fields_from_planes(out, n_blocks)], dim=1)
+        if population is None:
+            ys = ys[0]
         return _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn,
                                  control_params.constraint_params,
                                  dict(dtype=ys.dtype, device=ys.device))
@@ -326,7 +355,7 @@ def _any_requires_grad(tree) -> bool:
 
 
 def _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn, cparams, like):
-    """``ys`` (T, 2, n_blocks, 3) with the driven DOFs set to the drive
+    """``ys`` (..., T, 2, n_blocks, 3) with the driven DOFs set to the drive
     values and their exact time derivatives (one forward-mode jvp)."""
 
     if dof_set.n_constrained == 0:
@@ -338,10 +367,10 @@ def _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn, cparams, like):
 
     c_blocks, c_dofs, c_ids = dof_set.last_write_pairs()
     c_vals, c_rates = torch.func.jvp(drive_values, (ts,), (torch.ones_like(ts),))
-    u, v = ys[:, 0].clone(), ys[:, 1].clone()
-    u[:, c_blocks, c_dofs] = c_vals[:, c_ids]
-    v[:, c_blocks, c_dofs] = c_rates[:, c_ids]
-    return torch.stack([u, v], dim=1)
+    u, v = ys[..., 0, :, :].clone(), ys[..., 1, :, :].clone()
+    u[..., c_blocks, c_dofs] = c_vals[:, c_ids]
+    v[..., c_blocks, c_dofs] = c_rates[:, c_ids]
+    return torch.stack([u, v], dim=-3)
 
 
 def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
@@ -378,6 +407,9 @@ def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
 
         mp = control_params.mechanical_params
         cnv = control_params.geometrical_params.centroid_node_vectors
+        if cnv.dim() != 3:
+            raise ValueError("the dense method='verlet' solves one design; a population of "
+                             "designs runs on the quad_grid/kagome_grid fast path")
         like = dict(dtype=cnv.dtype, device=cnv.device)
         inertia = mp.inertia if mp.inertia is not None else compute_inertia(cnv, mp.density)
         inertia = torch.as_tensor(inertia, **like)

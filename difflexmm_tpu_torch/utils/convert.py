@@ -61,8 +61,6 @@ def forward_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64):
     data = {k: v for k, v in d.items() if k not in _INERT_FIELDS}
     if data.pop("pallas_interpret", False):
         raise ValueError("pallas_interpret has no meaning in the port (there is no Pallas)")
-    if "grid_energy" not in known_fields(ForwardProblem) and not data.pop("grid_energy", True):
-        raise NotImplementedError("grid_energy=False (dense assembly) is ROADMAP A3.")
     if data.get("solution_data") is not None:
         raise NotImplementedError("carrying solution_data across is ROADMAP A2.")
     unknown = set(data) - known_fields(ForwardProblem)

@@ -11,7 +11,9 @@ Tolerances as in ``chip_smoke.py``: float64 kernel vs plain body within
 decisions; at float32 both are held against the float64 plain body on the
 same inputs, and the kernel's error may be at most three times the plain
 body's (floor 1e-5). Where the guard fires nowhere, the guarded kernel
-matches the unguarded one within 1e-12 at float64.
+matches the unguarded one within 1e-12 at float64. A population's launch
+equals its designs' single launches bit for bit, and its design gradients
+through the adjoint's graph replay equal an eager replay's.
 """
 
 import numpy as np
@@ -353,3 +355,93 @@ def test_graphed_interval_vjp_with_load_rows_equals_the_eager_replay(device):
                                               load_grad=True)
         for g, e in zip(graphed(cin, rows, dt, cot, lrows), eager(cin, rows, dt, cot, lrows)):
             assert torch.equal(g, e)
+
+
+# ---------------------------------------------------------------------------
+# Populations: the design batch on the kernels' grid (the counterparts of
+# the TPU's design-tiled kernels)
+# ---------------------------------------------------------------------------
+
+
+def _population(lattice, device, dtype=torch.float64, guard=None, B=4, seed=11):
+    """A small problem of ``lattice`` and a population of ``B`` random
+    designs (each design tensor with the leading dimension B)."""
+
+    rng = np.random.default_rng(seed)
+    if lattice == "quad":
+        problem = kc.small_problem(device=device, dtype=dtype, guard=guard)
+        designs = [kc.random_design(problem, rng) for _ in range(B)]
+    else:
+        problem = kc.small_kagome(device=device, dtype=dtype, guard=guard)
+        designs = [kc.random_kagome_design(problem, rng) for _ in range(B)]
+    return problem, tuple(torch.stack(x) for x in zip(*designs))
+
+
+@pytest.mark.parametrize("guard", [None, "auto"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_population_launch_equals_single_launches(device, lattice, dtype, guard):
+    """One launch of B different designs gives each design's outputs (and,
+    guarded, its flags and decisions) bit for bit as its own launch on the
+    same inputs: one block per design, nothing shared between blocks."""
+
+    problem, designs = _population(lattice, device, dtype, guard)
+    with torch.no_grad():
+        args = problem.solve_dynamics.trajectory_args(problem.state0, problem.timepoints,
+                                                      problem.control_params(designs))
+    batch = _kernel(args)
+    B = args.U0.shape[0]
+    for b in range(B):
+        def one(x, b=b):
+            return x[b:b + 1].contiguous()
+
+        single = _kernel(args._replace(
+            U0=one(args.U0), V0=one(args.V0), A0=one(args.A0), drive=one(args.drive),
+            fixed=tuple(one(f) for f in args.fixed), micro=tuple(one(m) for m in args.micro)))
+        for x, y in zip(batch, single):
+            assert torch.equal(x[b], y[0])
+    if guard is not None:
+        assert bool(batch[4].any())  # the guard fired somewhere
+
+
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_population_gradient_graph_replay_equals_eager_replay(device, lattice, monkeypatch):
+    """The population's design gradients through the adjoint's graph replay
+    equal those of an eager replay of every interval, at B = 4."""
+
+    from difflexmm_tpu_torch.models import kagome_focusing, quads_focusing
+    from difflexmm_tpu_torch.parallel import population_value_and_grad
+
+    problem, designs = _population(lattice, device)
+    module = quads_focusing if lattice == "quad" else kagome_focusing
+    optimization = module.OptimizationProblem(problem, target_size=(2, 2))
+    optimization.setup_objective()
+    captured = []
+
+    class Counting(core.GraphedIntervalVJP):
+        def __init__(self, *args, **kwargs):
+            captured.append(1)
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(core, "GraphedIntervalVJP", Counting)
+    values, grads = population_value_and_grad(optimization.population_objective_fn, designs)
+    assert captured == [1]  # one graph, replayed for every interval
+
+    class Eager:
+        """The interval's vector-Jacobian product, computed eagerly."""
+
+        def __init__(self, spec, carry, rows, dt, fixed_in, load_rows=None, load_grad=False):
+            self.spec, self.fixed = spec, fixed_in
+
+        def __call__(self, carry, rows, dt, cot, load_rows=None):
+            with torch.enable_grad():
+                c = [x.detach().requires_grad_() for x in carry]
+                out = core.interval_body(*c, dt, rows, self.fixed, self.spec, create_graph=True)
+                inputs = c + [f for f in self.fixed if f.requires_grad]
+                return list(torch.autograd.grad(out, inputs, cot, allow_unused=True))
+
+    monkeypatch.setattr(core, "GraphedIntervalVJP", Eager)
+    values_e, grads_e = population_value_and_grad(optimization.population_objective_fn, designs)
+    assert torch.equal(values, values_e)
+    for g, e in zip(grads, grads_e):
+        assert torch.isfinite(g).all() and torch.equal(g, e)
