@@ -11,7 +11,7 @@ identical at float64), the kagome kernels (1K and 1Kg, the same) and the
 fused external loads (1L) in all four of them. The plain version's runs, and
 the dense ``method="verlet"`` runs of the loaded problems, go to worker
 processes on the host's CPU cores while the kernels build. Then it drives
-eight main paths.
+nine main paths.
 On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
 value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
 1), and the guarded constrained optimizer
@@ -39,9 +39,15 @@ runs (forward outputs bit for bit), the kernel at the population's shapes
 against the plain body on the card; and the multistart MMA
 (``OptimizationProblem.run_multistart_mma``: eight flagship candidates
 screened through kernel 1, the four finalists re-ranked through one
-launch of kernel 1g). Objectives and
-float64 design gradients are checked against the JAX package's float64
-values, and the kernels are timed against their plain versions. Fails
+launch of kernel 1g). Kernel 2, the quad force (main path 9): held against
+its plain version at the shape of ``tools/microbench_lanes_batch.py`` (B =
+128) and timed; the flagship's value and gradient through
+``method="verlet_ckpt"`` (one launch of kernel 2 a substep), guard levels =
+2 on the card through it (held against the plain guarded body), and the 96
+x 64 lattice of ``bench.py`` through kernel 2 and through kernel 1.
+Objectives and float64 design gradients are checked against the JAX
+package's float64 values, and the kernels are timed against their plain
+versions. Fails
 (non-zero exit, no result line) without a CUDA device or outside a
 checkout of the repository. Imports no JAX.
 
@@ -165,9 +171,22 @@ POPULATION_STEP = 1e-3
 # not held design by design.
 # Multistart MMA of main path 8: candidates, iterations, finalists.
 MULTISTART_B, MULTISTART_ITERATIONS, MULTISTART_FINALISTS = 8, 2, 4
-# Batch sizes of the designs/s curve: 1, a few designs, one design on each
-# of the H100's 132 SMs (and just below), two and four per SM.
-CURVE_BATCHES = (1, 8, 32, 128, 132, 264, 528)
+# Batch sizes of the designs/s curve: 1, a few designs, about one design
+# on each of the H100's 132 SMs, and four per SM (B = 8, 132 and 264 ran
+# until the time limit needed their minute).
+CURVE_BATCHES = (1, 32, 128, 528)
+# Main path 9: kernel 2 at the microbenchmark's B, each time the median of
+# KERNEL2_REPS runs after a warm-up.
+KERNEL2_B, KERNEL2_REPS = 128, 30
+# The flagship's guard ("auto": proximity 2 windows, hard 0.1 window)
+# refined to depth 2.
+TWO_LEVELS = {"proximity_windows": 2.0, "hard_fraction": 0.1, "levels": 2}
+# The 96 x 64 lattice (bench.py:405-440) through kernel 2 and through kernel
+# 1: the two forwards differ by rounding (the force's summation is the same
+# code; the Verlet update is fused on the card in kernel 1, not in the
+# stepped forward), which over 1,990 damped substeps stays far below 1e-10
+# of the objective at float64.
+LARGE_OBJECTIVE_TOL = 1e-10
 
 
 def log(*parts):
@@ -259,20 +278,27 @@ def smoke(pool):
     from difflexmm_tpu_torch.models import kagome_config as kg
     from difflexmm_tpu_torch.models import loaded_configs as lc
     from difflexmm_tpu_torch.ops.kernels import build, core, launch
-    from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
+    from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
+        carry_bytes,
+        quad_force,
+        quad_grid_force_planes,
+        quad_grid_energy_planes,
+        verlet_quad_trajectory,
+    )
     from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
 
     f64, f32 = torch.float64, torch.float32
     dtypes = (f64, f32)
     results = {"verlet_quad": {}, "verlet_quad_guarded": {}, "verlet_kagome": {},
                "verlet_kagome_guarded": {}, "verlet_quad_loaded": {},
-               "verlet_quad_population": {}, "verlet_kagome_population": {}}
+               "verlet_quad_population": {}, "verlet_kagome_population": {}, "quad_force": {}}
 
     def reset_counts():
         """Every launch count and the plain-body count to 0."""
 
         for wrapper in (verlet_quad_trajectory, verlet_kagome_trajectory):
             launch.reset_counts(wrapper)
+        quad_force.launches = 0
         core.plain_trajectory.calls = 0
 
     def finite(outs, label):
@@ -282,7 +308,7 @@ def smoke(pool):
 
     # -- build: one nvcc per source, started together, in the background ---------
     t0 = time.perf_counter()
-    sources = ("verlet_quad", "verlet_kagome")
+    sources = ("verlet_quad", "verlet_kagome", "quad_force")
     builders = ThreadPoolExecutor(len(sources))
     builds = [builders.submit(build.load, name) for name in sources]
 
@@ -340,6 +366,11 @@ def smoke(pool):
         cases["tensile chain 0.6"] = tensile64[0].trajectory_args(
             tensile64[2], tensile64[3], tensile64[1](0.6))
     cases["pulse 20x10 prefix"] = kc.prefix(cases["pulse 20x10"], PULSE_F32_INTERVALS)
+    # Main path 9 (c): guard levels = 2 through method="verlet_ckpt" on the
+    # violent 8 x 6 problem, whose micro-steps fire at depth 2 too.
+    deep_small = kc.batched_args(
+        kc.small_problem(n_timepoints=4, device=device, guard=TWO_LEVELS, method="verlet_ckpt"),
+        [kc.random_design(small, rng)])
 
     # The dense method="verlet" runs of main paths 5 and 6 (float64, on the
     # CPU), the longest first.
@@ -365,8 +396,10 @@ def smoke(pool):
     # The configurations' runs (the longest) first.
     for label in sorted(cases, key=lambda label: not ("16" in label or "20x10" in label)):
         submit(label)
-    log(f"plain body: {3 * len(cases)} runs of {len(cases)} cases sent to {PLAIN_WORKERS} "
-        f"worker processes at {time.perf_counter() - started:.1f} s")
+    deep_jobs = {"8x6 violent": pool.submit(kc.plain_reference,
+                                            kc.to_bytes(kc.on_cpu(deep_small)))}
+    log(f"plain body: {3 * len(cases) + 1} runs of {len(cases) + 1} cases sent to "
+        f"{PLAIN_WORKERS} worker processes at {time.perf_counter() - started:.1f} s")
 
     def plain(label, name):
         return kc.from_bytes(plain_jobs[label][name].result())
@@ -478,18 +511,97 @@ def smoke(pool):
         if not energy > 0:
             raise AssertionError(f"{label}: the barrier is not engaged")
 
+    # -- main path 8's float32 yardstick, while the kernels build -------------
+    # The population's float32 gradients with the plain body as the forward
+    # need no kernel of this repository, so they run on the card while nvcc
+    # builds.
+    import math
+
+    from difflexmm_tpu_torch.models import kagome_focusing
+    from difflexmm_tpu_torch.models.runner import population_unflatten
+    from difflexmm_tpu_torch.parallel import population_value_and_grad
+
+    kernel_path = {dt: fl.build_flagship(device=device, dtype=dt) for dt in dtypes}
+
+    def population_run(opt, designs):
+        """Values and flattened per-design gradients of a population, and
+        the host seconds they took."""
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values, grads = population_value_and_grad(opt.population_objective_fn, designs,
+                                                  grad_chunk=None)
+        torch.cuda.synchronize()
+        return values, torch.cat([g.flatten(1) for g in grads], 1), time.perf_counter() - t0
+
+    kagome_zero = {}
+    objectives = {("quad", dt): kernel_path[dt][0] for dt in dtypes}
+    for dt in dtypes:
+        kopt = kagome_focusing.OptimizationProblem(
+            kc.kagome_multistart_problem(device=device, dtype=dt), target_size=(2, 2))
+        kopt.setup_objective()
+        objectives[("kagome", dt)] = kopt
+        kagome_zero[dt] = kopt.forward_problem.geometry.zero_design(device=device, dtype=dt)
+
+    def population(lattice, dt, step=POPULATION_STEP):
+        """The population of ``step``: the flagship's design scaled, the
+        kagome design (zero) shifted."""
+
+        if lattice == "quad":
+            return stepped_designs(kernel_path[dt][1], POPULATION_B, step)
+        return stepped_designs(kagome_zero[dt], POPULATION_B, step, scaled=False)
+
+    # The same float32 objectives with the plain body as the forward (the
+    # "verlet_ckpt" solver, whose adjoint is the same), the measure of the
+    # float32 rule on the population's gradients. On the card the quad
+    # "verlet_ckpt" steps through kernel 2, so each solver's spec on the
+    # card gets core.plain_trajectory as its forward here, and the count of
+    # plain-body forwards shows it ran.
+    plain_objectives = {"quad": fl.build_flagship(method="verlet_ckpt", device=device,
+                                                  dtype=f32)[0]}
+    plain_objectives["kagome"] = kagome_focusing.OptimizationProblem(
+        dataclasses.replace(objectives[("kagome", f32)].forward_problem,
+                            method="verlet_ckpt", is_setup=False), target_size=(2, 2))
+    plain_objectives["kagome"].setup_objective()
+    card_device = torch.device("cuda", torch.cuda.current_device())
+    for plain_opt in plain_objectives.values():
+        solve = plain_opt.forward_problem.solve_dynamics
+        solve.specs[card_device] = solve.spec_for(card_device)._replace(
+            forward=core.plain_trajectory)
+
+    def plain_forward_run(lattice, designs):
+        """``population_run`` of the plain objective of ``lattice``, checked
+        by the counts: one more plain-body forward, no launch of kernel 2."""
+
+        calls, launches = core.plain_trajectory.calls, quad_force.launches
+        out = population_run(plain_objectives[lattice], designs)
+        if core.plain_trajectory.calls != calls + 1 or quad_force.launches != launches:
+            raise AssertionError(f"{lattice} float32 yardstick: the forward was not the plain "
+                                 "body")
+        return out
+
+    yardstick = {(lattice, step): plain_forward_run(lattice, population(lattice, f32, step))[1]
+                 for lattice in ("quad", "kagome") for step in (POPULATION_STEP, -POPULATION_STEP)}
+    phase_done("float32 yardstick of main path 8")
+
     for job in builds:
         job.result()
     builders.shutdown()
     log(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
     registers = {}
+    # Kernel templates by source: the trajectory kernels' (dtype,
+    # linearized, contact, guard), the force kernel's bond pass' (dtype,
+    # linearized, contact).
+    templates = {"verlet_quad": "verlet_quad", "verlet_kagome": "verlet_kagome",
+                 "quad_force": "quad_bond"}
     for name in sources:
         info = build.BUILD_INFO[name]
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
-        registers[name] = build.ptxas_registers(info["log"], name)
+        registers[name] = build.ptxas_registers(info["log"], templates[name])
         for key in sorted(registers[name]):
-            log(f"  ptxas {name} {key[0]} linearized={key[1]} contact={key[2]} guard={key[3]}: "
-                f"{registers[name][key]} registers")
+            flags = " ".join(f"{flag}={value}" for flag, value in
+                             zip(("linearized", "contact", "guard"), key[1:]))
+            log(f"  ptxas {templates[name]} {key[0]} {flags}: {registers[name][key]} registers")
         for line in info["log"].splitlines():
             if "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
                                                  line):
@@ -634,7 +746,6 @@ def smoke(pool):
         grad = torch.cat([x.grad.flatten() for x in d])
         return float(value.detach()), grad, time.perf_counter() - t0
 
-    kernel_path = {dt: fl.build_flagship(device=device, dtype=dt) for dt in dtypes}
     reset_counts()
     main = {dt: value_and_grad(*kernel_path[dt]) for dt in dtypes}
     launches = verlet_quad_trajectory.launches
@@ -742,6 +853,14 @@ def smoke(pool):
         intervals = int(fired.view(n_int, -1).any(-1).sum())
         log(f"  MMA float64 iterate {k}: guard fired on {int(fired.sum())} of "
             f"{fired.numel()} substeps, in {intervals} of {n_int} intervals")
+    # Main path 9 (c): the second float64 iterate with the guard refined to
+    # depth 2 through method="verlet_ckpt"; its plain guarded body runs in a
+    # worker process from here on.
+    deep_flagship = kc.batched_args(
+        fl.build_flagship(method="verlet_ckpt", device=device, dtype=f64,
+                          guard=TWO_LEVELS)[0].forward_problem, [opt.design_values[1]])
+    deep_jobs["flagship MMA iterate 1"] = pool.submit(
+        kc.plain_reference, kc.to_bytes(kc.on_cpu(deep_flagship)))
     opt, design, per_iter = mma[f32]
     violation = max(v[-1] for v in opt.constraints_violation.values())
     values = opt.objective_values
@@ -972,49 +1091,6 @@ def smoke(pool):
     phase_done("reference_design")
 
     # -- main path 8: populations through kernels 1 and 1K, the multistart MMA --
-    import math
-
-    from difflexmm_tpu_torch.models import kagome_focusing
-    from difflexmm_tpu_torch.models.runner import population_unflatten
-    from difflexmm_tpu_torch.parallel import population_value_and_grad
-
-    def population_run(opt, designs):
-        """Values and flattened per-design gradients of a population, and
-        the host seconds they took."""
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        values, grads = population_value_and_grad(opt.population_objective_fn, designs,
-                                                  grad_chunk=None)
-        torch.cuda.synchronize()
-        return values, torch.cat([g.flatten(1) for g in grads], 1), time.perf_counter() - t0
-
-    kagome_zero = {}
-    objectives = {("quad", dt): kernel_path[dt][0] for dt in dtypes}
-    for dt in dtypes:
-        kopt = kagome_focusing.OptimizationProblem(
-            kc.kagome_multistart_problem(device=device, dtype=dt), target_size=(2, 2))
-        kopt.setup_objective()
-        objectives[("kagome", dt)] = kopt
-        kagome_zero[dt] = kopt.forward_problem.geometry.zero_design(device=device, dtype=dt)
-
-    def population(lattice, dt, step=POPULATION_STEP):
-        """The population of ``step``: the flagship's design scaled, the
-        kagome design (zero) shifted."""
-
-        if lattice == "quad":
-            return stepped_designs(kernel_path[dt][1], POPULATION_B, step)
-        return stepped_designs(kagome_zero[dt], POPULATION_B, step, scaled=False)
-
-    # The same float32 objectives with the plain body as the forward
-    # ("verlet_ckpt": the same adjoint), the measure of the float32 rule on
-    # the population's gradients.
-    plain_objectives = {"quad": fl.build_flagship(method="verlet_ckpt", device=device,
-                                                  dtype=f32)[0]}
-    plain_objectives["kagome"] = kagome_focusing.OptimizationProblem(
-        dataclasses.replace(objectives[("kagome", f32)].forward_problem,
-                            method="verlet_ckpt", is_setup=False), target_size=(2, 2))
-    plain_objectives["kagome"].setup_objective()
     reset_counts()
     pop_runs, peak_bytes = {}, {}
     for key, opt in objectives.items():
@@ -1070,7 +1146,7 @@ def smoke(pool):
             else:
                 g64 = population_run(opt, population(lattice, f64, step))[1]
                 g32 = population_run(opt32, population(lattice, f32, step))[1]
-            g_plain = population_run(plain_objectives[lattice], population(lattice, f32, step))[1]
+            g_plain = yardstick[(lattice, step)]
             e_kernel, e_plain = per_design(g32.double(), g64), per_design(g_plain.double(), g64)
             if step == POPULATION_STEP:
                 worst = int(e_kernel.argmax())
@@ -1433,6 +1509,233 @@ def smoke(pool):
     results["verlet_quad_guarded"]["finalists_max_rel_err"] = max(
         kc.max_rel_err(k, p) for k, p in zip(batch[:3], p_out[:3]))
 
+    # -- main path 9: kernel 2 and the stepped forward of "verlet_ckpt" --------
+    t9 = time.perf_counter()
+    force = results["quad_force"]
+
+    def timed_ms(fn):
+        fn()  # warm up
+        return event_ms(fn, KERNEL2_REPS)
+
+    def graphed_ms(fn):
+        """The time of one replay of ``fn`` captured as a CUDA graph: the
+        device's time without the host's work in the wrapper (an eager call
+        of kernel 2 waits on the host; ``timed_ms`` of the call measures
+        that)."""
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return timed_ms(graph.replay)
+
+    # (a) Kernel 2 against its plain version at the microbenchmark's inputs,
+    # (3, 16, 24) x KERNEL2_B (no bond engaged there), and at the contact
+    # probe's state (engaged), float64 within F64_FORCE_TOL and float32 by
+    # the trajectory rule against the float64 plain force.
+    lanes = {dt: kc.lanes_microbench_inputs(B=KERNEL2_B, device=device, dtype=dt)
+             for dt in dtypes}
+    probe_state = (probe.U0 * probe.fixed[-1]
+                   + core.drive_planes(probe.drive[:, 0], probe.spec, probe.U0))
+    force_inputs = {f"microbench B={KERNEL2_B}": lanes[f64],
+                    "contact probe": (probe_state, probe.fixed[:13])}
+    for label, (U64, fixed64) in force_inputs.items():
+        log(f"  kernel 2 {label}: {kc.engaged_bonds(U64, fixed64)} bonds engaged")
+        for lin in (False, True):
+            for contact in (False, True):
+                opts = dict(linearized=lin, use_contact=contact)
+                name = f"kernel 2 {label} linearized={lin} contact={contact}"
+                k64 = quad_force(U64, fixed64, **opts)
+                p64 = quad_grid_force_planes(U64, *fixed64, **opts)
+                check(f"{name} float64", kc.max_rel_err(k64, p64), F64_FORCE_TOL)
+                if label.startswith("microbench") and not lin and contact:
+                    force["max_abs_err"] = float((k64 - p64).abs().max())
+                U32, fixed32 = U64.float(), tuple(f.float() for f in fixed64)
+                ref = quad_grid_force_planes(U32.double(), *(f.double() for f in fixed32), **opts)
+                e_plain = kc.max_rel_err(quad_grid_force_planes(U32, *fixed32, **opts).double(),
+                                         ref)
+                check(f"{name} float32 vs float64 (plain float32 {e_plain:.3e})",
+                      kc.max_rel_err(quad_force(U32, fixed32, **opts).double(), ref),
+                      max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+    # Times at the flagship's variant (nonlinear ligaments, contact): ms is
+    # the kernel's two launches replayed from a CUDA graph, call_ms one
+    # eager call of the wrapper. No single PyTorch call computes this
+    # gradient, so there is no library time; vmap_ms is the counterpart of
+    # the microbenchmark's form a), torch.func.vmap of the gradient of one
+    # design's plain energy.
+    vmap_grad = torch.func.vmap(torch.func.grad(
+        lambda u, *leaves: quad_grid_energy_planes(u, *leaves)))
+    for dt in dtypes:
+        U, fixed = lanes[dt]
+        suffix = "" if dt == f32 else "_float64"
+        def kernel():
+            return quad_force(U, fixed, linearized=False, use_contact=True)
+
+        force["ms" + suffix] = graphed_ms(kernel)
+        force["call_ms" + suffix] = timed_ms(kernel)
+        force["plain_ms" + suffix] = timed_ms(lambda: quad_grid_force_planes(U, *fixed))
+        force["vmap_ms" + suffix] = timed_ms(lambda: vmap_grad(U, *fixed))
+    force.update(kc.force_bound(*lanes[f32]), B=KERNEL2_B, plain_device="cuda",
+                 bound_ms_float64=kc.force_bound(*lanes[f64])["bound_ms"])
+    log(f"timing ({card_line}), kernel 2 at (3, 16, 24) x {KERNEL2_B}, CUDA events, medians of "
+        f"{KERNEL2_REPS}: " + ", ".join(f"{k} {force[k]:.4f}" for k in (
+            "ms", "ms_float64", "call_ms", "call_ms_float64", "plain_ms", "plain_ms_float64",
+            "vmap_ms", "vmap_ms_float64", "bound_ms", "bound_ms_float64"))
+        + f" ({force['bound_by']})")
+    U, fixed = lanes[f64]
+    U = U[:4].clone()
+    clean = quad_force(U, tuple(f[:4].contiguous() for f in fixed), linearized=False,
+                       use_contact=True)
+    U[1, 2, 5, 7] = float("nan")
+    dirty = quad_force(U, tuple(f[:4].contiguous() for f in fixed), linearized=False,
+                       use_contact=True)
+    if bool(torch.isfinite(dirty[1]).all()) or not torch.equal(dirty[[0, 2, 3]],
+                                                               clean[[0, 2, 3]]):
+        FAILED.append("kernel 2: a NaN in design 1 did not stay in design 1")
+
+    # (b) The flagship's value and design gradient through "verlet_ckpt".
+    ckpt_path = {dt: fl.build_flagship(method="verlet_ckpt", device=device, dtype=dt)
+                 for dt in dtypes}
+    reset_counts()
+    ckpt = {}
+    for dt in dtypes:
+        ckpt[dt] = value_and_grad(*ckpt_path[dt])
+        if quad_force.launches != 1990 * len(ckpt) or core.plain_trajectory.calls != 0:
+            raise AssertionError(f"main path 9 {dtype_name(dt)}: {quad_force.launches} kernel-2 "
+                                 f"launches, {core.plain_trajectory.calls} plain-body forwards "
+                                 f"(want 1990 a forward, none)")
+    force["launches"] = quad_force.launches
+    log(f"main path 9 (flagship value and gradient through method='verlet_ckpt'): "
+        f"{quad_force.launches} kernel-2 launches, {core.plain_trajectory.calls} plain-body "
+        f"forwards, {verlet_quad_trajectory.launches} kernel-1 launches")
+    for dt in dtypes:
+        name = dtype_name(dt)
+        value, grad, seconds = ckpt[dt]
+        log(f"  flagship verlet_ckpt {name}: objective {value!r} (JAX f64 "
+            f"{fl.JAX_F64_OBJECTIVE!r}, kernel 1 {main[dt][0]!r}), fwd+grad {seconds:.2f} s")
+        check(f"flagship verlet_ckpt {name} objective vs JAX float64",
+              abs(value - fl.JAX_F64_OBJECTIVE) / fl.JAX_F64_OBJECTIVE, OBJECTIVE_TOL[name])
+        check(f"flagship verlet_ckpt {name} objective vs kernel 1",
+              abs(value - main[dt][0]) / abs(main[dt][0]), OBJECTIVE_TOL[name])
+        if not (bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0):
+            raise AssertionError(f"flagship verlet_ckpt {name} gradient is not finite and "
+                                 "non-zero")
+    stats = fl.vector_stats(ckpt[f64][1].cpu().numpy())
+    log(f"  flagship verlet_ckpt float64 gradient (|g|, sum g, g.r) {stats} (JAX "
+        f"{fl.JAX_F64_GRAD_STATS})")
+    check("flagship verlet_ckpt float64 gradient vs JAX float64",
+          stats_err(stats, fl.JAX_F64_GRAD_STATS), GRAD_TOL)
+    e_plain = results["verlet_quad"]["plain_float32_rel_err"]["V"]
+    check(f"flagship verlet_ckpt float32 gradient vs float64 (plain body float32 V "
+          f"{e_plain:.3e})", kc.max_rel_err(ckpt[f32][1].double(), ckpt[f64][1]),
+          max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
+    for dt in dtypes:
+        opt, design = ckpt_path[dt]
+        with torch.no_grad():
+            force[f"flagship_fwd_s_{dtype_name(dt)}"] = statistics.median(
+                host_seconds(lambda: opt.objective_fn(design))[1] for _ in range(3))
+        force[f"flagship_fwd_grad_s_{dtype_name(dt)}"] = ckpt[dt][2]
+    log(f"  flagship forward (host clock, median of 3): verlet_ckpt float32 "
+        f"{force['flagship_fwd_s_float32']:.3f} s, float64 {force['flagship_fwd_s_float64']:.3f} "
+        f"s; kernel 1 objective float32 {timings['fwd_kernel_s']:.3f} s")
+
+    def force_at_state(label, args, k):
+        """Kernel 2 against its plain version at float64 on the state that
+        kernel 1 reaches at the end of interval ``k`` of ``args``, with the
+        drive of the next substep (the configuration's variant)."""
+
+        U = core.trajectory_forward(args)[0][:, k]
+        U_eff = U * args.fixed[-1] + core.drive_planes(
+            args.drive[:, (k + 1) * args.spec.n_substeps], args.spec, U)
+        plain = quad_grid_force_planes(U_eff, *args.fixed[:13], **args.spec.force_of.keywords)
+        check(f"kernel 2 {label} float64", kc.max_rel_err(args.spec.force_of(U_eff, args.fixed),
+                                                          plain), F64_FORCE_TOL)
+
+    force_at_state("flagship B=1 at interval 99", cases["flagship 24x16"], 99)
+
+    # (c) Guard levels = 2 on the card through "verlet_ckpt" (float64,
+    # forward only) against the plain guarded body on a host core, the
+    # decisions of both depths identical. At B = 1 the launches count the
+    # steps: every substep, refine - 1 more where a substep fired, and
+    # refine - 1 more where a micro-step fired at depth 1 (then refine
+    # micro-steps at depth 2).
+    refine = deep_flagship.spec.guard["refine"]
+    depth2 = {}
+    for label, args in (("flagship MMA iterate 1", deep_flagship), ("8x6 violent", deep_small)):
+        launches = quad_force.launches
+        calls = core.plain_trajectory.calls
+        out, seconds = host_seconds(lambda: core.trajectory_forward(args))
+        steps = quad_force.launches - launches
+        substeps, fired, micro_fired = out[4].numel(), int(out[4].sum()), int(out[5].sum())
+        depth2[label] = refine * micro_fired
+        if core.plain_trajectory.calls != calls:
+            raise AssertionError(f"guard levels=2 {label}: the plain body ran on the card")
+        if steps != substeps + (refine - 1) * (fired + micro_fired):
+            raise AssertionError(f"guard levels=2 {label}: {steps} kernel-2 launches for "
+                                 f"{fired} and {micro_fired} refined steps of {substeps}")
+        p_out, p_ms, _ = kc.from_bytes(deep_jobs[label].result())
+        cpu = [x.cpu() for x in out]
+        same = len(cpu) == len(p_out) and all(torch.equal(c, p)
+                                              for c, p in zip(cpu[3:], p_out[3:]))
+        log(f"  guard levels=2 {label} float64: {fired} of {substeps} substeps fired, "
+            f"{micro_fired} micro-steps fired at depth 1, {depth2[label]} micro-steps at depth "
+            f"2, {steps} kernel-2 launches in {seconds:.2f} s (plain guarded body on a host core "
+            f"{p_ms / 1e3:.1f} s); decisions {'identical' if same else 'DIFFER'}")
+        if not same:
+            FAILED.append(f"guard levels=2 {label}: decisions of the stepped forward and the "
+                          "plain guarded body differ")
+        for name, k, p in zip("UVA", cpu, p_out):
+            check(f"guard levels=2 {label} float64 {name}: kernel 2 vs plain guarded body",
+                  kc.max_rel_err(k, p), F64_TRAJ_TOL)
+        force[f"levels2_{label.split()[0]}"] = dict(fired=fired, substeps=substeps,
+                                                    depth1_fired=micro_fired,
+                                                    depth2_steps=depth2[label], s=seconds)
+    if not sum(depth2.values()):
+        FAILED.append("guard levels=2: no micro-step ran at depth 2")
+
+    # (d) The 96 x 64 lattice (bench.py:405-440: its damping, target shift
+    # (40, 30), the 25-degree design; 200 timepoints, 10 substeps), forward
+    # only at float64: through kernel 2 (many SMs) and through kernel 1 (one
+    # SM, its carry on a global workspace).
+    from difflexmm_tpu_torch.models.quads_focusing import ForwardProblem, OptimizationProblem
+
+    def large(method):
+        cfg = fl.paper_config(method, fl.N_SUBSTEPS, device, f64)
+        cfg.update(n1_blocks=96, n2_blocks=64, damping=0.0186 * 2 * (
+            0.36125 * cfg["density"] * cfg["spacing"] ** 2 * cfg["k_shear"]) ** 0.5)
+        problem = ForwardProblem(**cfg)
+        opt = OptimizationProblem(problem, target_size=(2, 2), target_shift=(40, 30))
+        opt.setup_objective()
+        return opt, problem.geometry.get_design_from_rotated_square(
+            25 * math.pi / 180, device=device, dtype=f64)
+
+    large_runs = {}
+    for method in ("verlet_ckpt", "auto"):
+        opt, design = large(method)
+        if method == "auto":
+            force_at_state("96x64 at interval 99", kc.batched_args(opt.forward_problem, [design]),
+                           99)
+        reset_counts()
+        with torch.no_grad():
+            value, seconds = host_seconds(lambda: float(opt.objective_fn(design)))
+        large_runs[method] = (value, seconds, quad_force.launches,
+                              verlet_quad_trajectory.launches)
+    (v2, s2, l2, _), (v1, s1, _, l1) = large_runs["verlet_ckpt"], large_runs["auto"]
+    log(f"  96x64 float64 forward (host clock, one run each): kernel 2 {s2:.3f} s ({l2} "
+        f"launches), objective {v2!r}; kernel 1 {s1:.3f} s ({l1} launch), objective {v1!r}")
+    if l2 != 1990 or l1 != 1 or not math.isfinite(v2):
+        raise AssertionError("96x64: the forwards did not run through kernels 2 and 1")
+    check("96x64 float64 objective: kernel 2 vs kernel 1", abs(v2 - v1) / abs(v1),
+          LARGE_OBJECTIVE_TOL)
+    force.update(large_96x64=dict(kernel2_s=s2, kernel1_s=s1, objective=v2,
+                                  objective_kernel1=v1))
+    force["main_path_9_s"] = time.perf_counter() - t9
+    phase_done(f"main path 9 ({force['main_path_9_s']:.1f} s)")
+
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
                 "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "
                                        "core.py:330-625, verlet_grid.py:201-262)",
@@ -1446,17 +1749,20 @@ def smoke(pool):
                                           "verlet_grid.py:265-287 on tiling.py, from "
                                           "solver/dynamics.py:984-1000)",
                 "verlet_kagome_population": "difflexmm_tpu/ops/pallas/core.py:822 (kagome, "
-                                            "tiled: verlet_kagome.py:311-333)"}
+                                            "tiled: verlet_kagome.py:311-333)",
+                "quad_force": "tools/microbench_lanes_batch.py:143"}
     kernels = []
     for name, r in results.items():
-        source = "verlet_kagome.cu" if name.startswith("verlet_kagome") else "verlet_quad.cu"
+        source = ("quad_force.cu" if name == "quad_force" else "verlet_kagome.cu"
+                  if name.startswith("verlet_kagome") else "verlet_quad.cu")
         entry = {"name": name, "route": "cuda", "source": f"difflexmm_tpu_torch/csrc/{source}",
                  "replaces": replaces[name], "launches": r["launches"],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"],
                  # No single PyTorch call integrates a trajectory of
-                 # dependent substeps.
+                 # dependent substeps, nor computes a lattice's energy
+                 # gradient (kernel 2).
                  "library_ms": None}
         entry.update({k: v for k, v in r.items() if k not in entry})
         kernels.append(entry)

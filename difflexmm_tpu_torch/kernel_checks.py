@@ -336,6 +336,7 @@ def guard_terms(args: core.TrajectoryArgs):
 # atan2 29. A bond costs the same on both lattices (bond_energy).
 OPS_BOND = 36 + 112 + 389 + 94  # block kinematics, 2 corners, ligament, void check
 OPS_BOND_CONTACT = 766  # dual void angles and two barrier terms, engaged bonds only
+OPS_GATHER = 4  # the force kernel's gather: <= 4 partials summed onto zero
 OPS_DOF = 25  # position update, gather of <= 4 partials, velocity update
 OPS_TRAVEL_PER_BLOCK = 38  # guard: theta term and two neighbour differences of x, y
 OPS_GAP_PER_BOND = 75  # guard: 6 corners, 2 void angles, min
@@ -385,15 +386,7 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
         nbytes += summary["fired"] * refine * args.drive.shape[-1] * itemsize
         ops += B * n_steps * ops_travel * ncell
         ops += summary["gaps"] * OPS_GAP_PER_BOND * nbond
-    with torch.no_grad():
-        engaged = 0
-        cmin = args.fixed[cmin_leaf].flatten()
-        ccut = args.fixed[cmin_leaf + 1].flatten()
-        for b in range(B):
-            voids = void_angles_planes(outU[b], tuple(f[b] for f in args.fixed[:2]))
-            on = [(v >= cmin[b]) & (v < ccut[b]) for v in voids]
-            bond_on = torch.cat([(on[k] | on[k + 1]).flatten(1) for k in range(0, len(on), 2)], 1)
-            engaged += int(bond_on.sum()) * spec.n_substeps
+    engaged = engaged_bonds(outU, args.fixed) * spec.n_substeps
     if spec.load_map is not None:
         k_load = spec.load_map.pairs.shape[0]
         nbytes += args.loads[0].numel() * itemsize  # the substep load table
@@ -408,6 +401,82 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
     ops_ms = ops / H100_FLOPS[args.U0.dtype] * 1e3
     return dict(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def engaged_bonds(U, fixed) -> int:
+    """Bonds with a void angle in the barrier window [cmin, ccut), those
+    whose contact term the kernels evaluate on duals, summed over the B
+    designs of ``U`` (B, ..., C, n2, n1) and any further leading index
+    (states at several times)."""
+
+    cmin_leaf = 14 if _is_kagome(U) else 10
+    cmin = fixed[cmin_leaf].flatten()
+    ccut = fixed[cmin_leaf + 1].flatten()
+    engaged = 0
+    with torch.no_grad():
+        for b in range(U.shape[0]):
+            voids = void_angles_planes(U[b], tuple(f[b] for f in fixed[:2]))
+            on = [(v >= cmin[b]) & (v < ccut[b]) for v in voids]
+            engaged += sum(int((on[k] | on[k + 1]).sum()) for k in range(0, len(on), 2))
+    return engaged
+
+
+def force_bound(U_eff, fixed) -> dict:
+    """The least time an H100 could take for one quad force of B designs
+    with contact (kernel 2, ``verlet_grid.quad_force``) at ``U_eff`` (B, 3,
+    n2, n1): the larger of its bytes over the memory rate (U_eff and the 13
+    energy leaves read once, the force written once) and its operations
+    over the peak rate of its type, counted as :func:`trajectory_bound`
+    counts a substep's force: OPS_BOND a bond, OPS_BOND_CONTACT an engaged
+    bond, OPS_GATHER a state element."""
+
+    B, C, n2, n1 = U_eff.shape
+    nbond = n2 * (n1 - 1) + (n2 - 1) * n1
+    nbytes = sum(t.numel() * t.element_size() for t in (U_eff, *fixed[:13]))
+    nbytes += U_eff.numel() * U_eff.element_size()
+    ops = B * (nbond * OPS_BOND + C * n1 * n2 * OPS_GATHER)
+    ops += engaged_bonds(U_eff, fixed) * OPS_BOND_CONTACT
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FLOPS[U_eff.dtype] * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def lanes_microbench_inputs(B=128, seed=0, n1=24, n2=16, device="cuda", dtype=torch.float32):
+    """The inputs of kernel 2's microbenchmark (``make_args`` and
+    ``energy`` of ``tools/microbench_lanes_batch.py:46-59``, ``:62-67``),
+    made with numpy from ``seed``: a random state of 0.01 on the flagship's
+    plane shape, corner vectors +-5 mm with noise 0.1, centroids on a 15 mm
+    grid, reference vectors (2, 0) and (0, 2), stiffnesses (120, 1.19, 1.5)
+    on both bond families and the barrier (-0.26, -0.17, 1.5); design b is
+    scaled by ``1 + 1e-3 b`` (the tool's per-design jitter, ``:115-116``;
+    the stiffnesses and the barrier are the tool's constants).
+    Returns ``(U_eff (B, 3, n2, n1), the 13 energy leaves)``, each with the
+    design batch leading."""
+
+    rng = np.random.default_rng(seed)
+    U = 0.01 * rng.standard_normal((3, n2, n1))
+    corners = np.array([[1, 1], [-1, 1], [-1, -1], [1, -1]], dtype=float).reshape(4, 2, 1, 1)
+    cnv = 0.1 * rng.standard_normal((4, 2, n2, n1)) + 5.0 * corners
+    centroids = np.stack(np.meshgrid(15.0 * np.arange(n1), 15.0 * np.arange(n2)))
+    ref_h = np.broadcast_to(np.array([2.0, 0.0])[:, None, None], (2, n2, n1 - 1))
+    ref_v = np.broadcast_to(np.array([0.0, 2.0])[:, None, None], (2, n2 - 1, n1))
+    jitter = 1 + 1e-3 * np.arange(B)
+
+    def batch(x):
+        x = np.asarray(x, dtype=np.float64)
+        return torch.as_tensor(x[None] * jitter.reshape((B,) + (1,) * x.ndim), dtype=dtype,
+                               device=device).contiguous()
+
+    def constant(x, shape):
+        return torch.full((B,) + shape, x, dtype=dtype, device=device)
+
+    h, v = (n2, n1 - 1), (n2 - 1, n1)
+    stiffness = [constant(x, h) for x in (120.0, 1.19, 1.5)]
+    stiffness += [constant(x, v) for x in (120.0, 1.19, 1.5)]
+    barrier = [constant(x, (1, 1)) for x in (-0.26, -0.17, 1.5)]
+    return batch(U), tuple(batch(x) for x in (cnv, centroids, ref_h, ref_v)) + tuple(
+        stiffness + barrier)
 
 
 def kernel_force(args: core.TrajectoryArgs):

@@ -93,17 +93,18 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_registers(build_log: str, name: str = "verlet_quad") -> dict:
-    """``{(dtype, LIN, CONTACT, GUARD): registers}`` of the instantiations
-    of the trajectory kernel ``<name>_kernel``, from ptxas' report in a
-    build log."""
+    """``{(dtype, *flags): registers}`` of the instantiations of the kernel
+    template ``<name>_kernel<T, bool...>`` (the trajectory kernels: LIN,
+    CONTACT, GUARD; the force kernel's bond pass ``quad_bond``: LIN,
+    CONTACT), from ptxas' report in a build log."""
 
     out, current = {}, None
-    kernel = re.compile(name + r"_kernelI([fd])Lb([01])ELb([01])ELb([01])E")
+    kernel = re.compile(name + r"_kernelI([fd])((?:Lb[01]E)+)")
     for line in build_log.splitlines():
         m = kernel.search(line)
         if m and "Compiling entry function" in line:
             current = ({"f": "float32", "d": "float64"}[m.group(1)],) + tuple(
-                int(g) for g in m.group(2, 3, 4))
+                int(g) for g in re.findall(r"Lb([01])E", m.group(2)))
         r = re.search(r"Used (\d+) registers", line)
         if r and current is not None:
             out[current] = int(r.group(1))

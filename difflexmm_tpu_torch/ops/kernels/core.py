@@ -112,9 +112,14 @@ class TrajectorySpec(NamedTuple):
             per-design).
         forward: ``(U0, V0, A0, dts, drive, fixed, spec, micro) -> (outU,
             outV, outA)``, each ``(B, T-1, C, n2, n1)``, followed when
-            guarded by the per-interval flags ``(B, T-1)`` and per-substep
-            decisions ``(B, (T-1) * n_substeps)`` (bool); the kernel
-            wrapper.
+            guarded by the per-interval flags ``(B, T-1)``, the per-substep
+            decisions ``(B, (T-1) * n_substeps)`` (bool) and the decisions
+            of the micro-steps at each depth ``d`` that decides (``1 <= d <
+            levels``), ``(B, (T-1) * n_substeps * refine**d)`` each
+            (``n_deep`` tables, indexed as micro-step table ``d``'s rows;
+            False where the micro-step did not run); the kernel wrapper, or
+            the quad lattice's ``verlet_ckpt`` forward
+            (:func:`stepped_trajectory` on CUDA tensors).
         drive_slots: (s,) int64 flat ``C * n2 * n1`` plane index of each
             driven slot (one per slot: duplicates already resolved).
         drive_cols: (s,) int64 drive-table column written to that slot.
@@ -123,6 +128,10 @@ class TrajectorySpec(NamedTuple):
             guard's proximity term, or None where the family has none.
         load_map: where the external loads enter (:class:`LoadMap`), or
             None without them.
+        force_of: ``(U_eff (B, C, n2, n1), fixed) -> dE/dU_eff`` per design,
+            the lattice's force kernel wrapper (its plain version for CPU
+            tensors), which :func:`stepped_trajectory` calls once a
+            (micro-)step; None where the lattice has no force kernel.
     """
 
     n_substeps: int
@@ -133,12 +142,21 @@ class TrajectorySpec(NamedTuple):
     guard: Optional[dict] = None
     gap_of: Optional[Callable] = None
     load_map: Optional[LoadMap] = None
+    force_of: Optional[Callable] = None
 
     @property
     def n_micro(self) -> int:
         """Number of micro-step drive tables (one per guard level)."""
 
         return 0 if self.guard is None else self.guard["levels"]
+
+    @property
+    def n_deep(self) -> int:
+        """Number of micro-step decision tables a guarded forward returns
+        after the substeps' decisions: one per depth below ``levels``
+        whose micro-steps decide (0 unguarded and at one level)."""
+
+        return 0 if self.guard is None else self.guard["levels"] - 1
 
     @property
     def n_loads(self) -> int:
@@ -389,62 +407,92 @@ def force(U_free, drive_row, fixed, spec: TrajectorySpec, create_graph=False, lo
     return -grad + load_planes(load_row, spec, grad)
 
 
-def one_step(U, V, A, ddt, drive_row, fixed, spec, create_graph=False, load_row=None):
+def stepped_force(U_free, drive_row, fixed, spec: TrajectorySpec, create_graph=False,
+                 load_row=None):
+    """:func:`force` with ``dE/dU_eff`` from ``spec.force_of`` (the
+    lattice's force kernel on CUDA tensors), composed in the same order:
+    ``-(dE/dU_eff * mask)`` plus the loads. The kernel keeps no autograd
+    graph, so this force serves forward runs only; the adjoint
+    differentiates :func:`force`."""
+
+    if create_graph:
+        raise ValueError("stepped_force keeps no autograd graph: the adjoint replays force()")
+    mask = fixed[-1]
+    U_eff = U_free * mask + drive_planes(drive_row, spec, U_free)
+    grad = spec.force_of(U_eff, fixed) * mask
+    if load_row is None:
+        return -grad
+    return -grad + load_planes(load_row, spec, grad)
+
+
+def one_step(U, V, A, ddt, drive_row, fixed, spec, create_graph=False, load_row=None,
+             force_fn=force):
     """One velocity-Verlet step with exact implicit diagonal damping
-    (``make_interval_body``'s ``one_step``, same operations and order)."""
+    (``make_interval_body``'s ``one_step``, same operations and order);
+    ``force_fn`` is :func:`force` or :func:`stepped_force`."""
 
     inertia, damping, mask = fixed[-3:]
     inv_m = mask / inertia
     U1 = U + ddt * V + (0.5 * ddt * ddt) * A
-    F1 = force(U1, drive_row, fixed, spec, create_graph, load_row)
+    F1 = force_fn(U1, drive_row, fixed, spec, create_graph, load_row)
     V_hat = V + 0.5 * ddt * (A + F1 * inv_m)
     V1 = V_hat / (1.0 + 0.5 * ddt * damping / inertia) * mask
     A1 = (F1 - damping * V1) * inv_m
     return U1, V1, A1
 
 
-def interval_body(U, V, A, dt, drive_rows, fixed, spec, create_graph=False, load_rows=None):
+def interval_body(U, V, A, dt, drive_rows, fixed, spec, create_graph=False, load_rows=None,
+                  force_fn=force):
     """All ``n_substeps`` steps of one output interval; ``drive_rows`` is
     the ``(B, n_substeps, k)`` slice of the drive table, ``load_rows`` that
     of the load table (or None)."""
 
     for i in range(spec.n_substeps):
         U, V, A = one_step(U, V, A, dt, drive_rows[:, i], fixed, spec, create_graph,
-                           None if load_rows is None else load_rows[:, i])
+                           None if load_rows is None else load_rows[:, i], force_fn)
     return U, V, A
 
 
-def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, risky=None,
-                  lrows=None):
+def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, risky,
+                  decisions, replay, lrows=None, force_fn=force):
     """One (micro-)step at guard depth ``depth`` (0: a substep), as
-    ``make_guarded_stepper``'s ``stepper``: where ``risky``, the step re-runs
-    as ``refine`` micro-steps of ``dt / refine``, each a guarded step of the
-    next depth, down to ``levels``. ``rows[d]`` is the interval's slice of
-    drive table ``d`` (``lrows[d]`` of load table ``d``, or ``lrows`` None);
-    this step's row is ``idx`` and its micro-steps' rows ``idx * refine +
-    j``. ``risky`` (B,) bool, on any device, is evaluated here where None.
-    Designs of a batch decide on their own: where they disagree both
-    branches run and each design takes its own, as ``vmap(lax.cond)``
-    does."""
+    ``make_guarded_stepper``'s ``stepper``: where ``risky`` (B,) bool, on
+    any device, the step re-runs as ``refine`` micro-steps of ``dt /
+    refine``, each a guarded step of the next depth, down to ``levels``.
+    ``rows[d]`` is the interval's slice of drive table ``d`` (``lrows[d]``
+    of load table ``d``, or ``lrows`` None); this step's row is ``idx`` and
+    its micro-steps' rows ``idx * refine + j``. ``decisions[d]`` is the
+    interval's decision table of depth ``d`` (:func:`guarded_interval_body`):
+    a micro-step that decides reads its decision there where ``replay``,
+    else evaluates the predicate and writes it there. Designs of a batch
+    decide on their own: where they disagree both branches run and each
+    design takes its own, as ``vmap(lax.cond)`` does."""
 
     guard = spec.guard
     load_row = None if lrows is None else lrows[depth][:, idx]
     if depth == guard["levels"]:
-        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph, load_row)
-    if risky is None:
-        with torch.no_grad():
-            risky = risk(carry, dt)
+        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph, load_row,
+                        force_fn)
 
     def coarse():
-        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph, load_row)
+        return one_step(*carry, dt, rows[depth][:, idx], fixed, spec, create_graph, load_row,
+                        force_fn)
 
     def fine():
         refine = guard["refine"]
         ddt = dt / refine
         c = carry
         for j in range(refine):
-            c = _guarded_step(c, ddt, idx * refine + j, depth + 1, rows, fixed, spec, risk,
-                              create_graph, lrows=lrows)
+            sub, r = idx * refine + j, None
+            if depth + 1 < guard["levels"]:
+                if replay:
+                    r = decisions[depth + 1][:, sub]
+                else:
+                    with torch.no_grad():
+                        r = risk(c, ddt)
+                    decisions[depth + 1][:, sub] = r
+            c = _guarded_step(c, ddt, sub, depth + 1, rows, fixed, spec, risk, create_graph, r,
+                              decisions, replay, lrows, force_fn)
         return c
 
     if not bool(risky.any()):
@@ -456,34 +504,43 @@ def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, 
 
 
 def guarded_interval_body(U, V, A, dt, rows, fixed, spec, create_graph=False, decisions=None,
-                          trace=None, lrows=None):
+                          trace=None, lrows=None, force_fn=force):
     """All substeps of one interval under ``spec.guard``: the plain guarded
     body (``make_interval_body(guard, emit_risk=True)`` of the JAX package).
 
     ``rows``: the interval's slices of the drive table and of each
     micro-step table; ``lrows`` the same of the load tables, or None.
-    ``decisions`` (B, n_substeps) bool replays recorded
-    outer decisions instead of evaluating the predicate (the adjoint's
-    replay: the gradient is the taken branch's, and the replay cannot take
-    another branch than the forward did). ``trace``: a list that receives
-    ``(travel, gap)``, each (B,), of every substep's predicate. Returns
-    ``((U, V, A), decisions)``.
+    ``decisions``: recorded decision tables to replay instead of evaluating
+    the predicate, one per depth below ``levels``: ``decisions[d]`` (B,
+    n_substeps * refine**d) bool, the substeps' at d = 0, then those of the
+    micro-steps of depth d, indexed as micro-step table d's rows (the
+    adjoint's replay: the gradient is the taken branches', and the replay
+    cannot take another branch than the forward did at any depth).
+    ``trace``: a list that receives ``(travel, gap)``, each (B,), of every
+    substep's predicate. Returns ``((U, V, A), decisions)``, the tables
+    taken (False where a micro-step did not run).
     """
 
     risk = spec_risk(spec, fixed)
-    carry, taken = (U, V, A), []
+    replay = decisions is not None
+    if not replay:
+        n, refine = spec.n_substeps, spec.guard["refine"]
+        decisions = [torch.zeros((U.shape[0], n * refine ** d), dtype=torch.bool,
+                                 device=U.device) for d in range(spec.guard["levels"])]
+    carry = (U, V, A)
     for i in range(spec.n_substeps):
-        risky = None if decisions is None else decisions[:, i]
-        if risky is None:
+        if replay:
+            risky = decisions[0][:, i]
+        else:
             with torch.no_grad():
                 risky = risk(carry, dt)
                 if trace is not None:
                     trace.append((guard_travel(carry[1], carry[2], dt, spec.guard),
                                   spec.gap_of(carry[0], fixed)))
+            decisions[0][:, i] = risky
         carry = _guarded_step(carry, dt, i, 0, rows, fixed, spec, risk, create_graph, risky,
-                              lrows)
-        taken.append(risky)
-    return carry, torch.stack(taken, dim=1)
+                              decisions, replay, lrows, force_fn)
+    return carry, decisions
 
 
 def interval_rows(k, drive, micro, spec):
@@ -510,6 +567,27 @@ def plain_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec, micro=
     reached it."""
 
     plain_trajectory.calls += 1
+    return _trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads, trace, force)
+
+
+plain_trajectory.calls = 0
+
+
+def stepped_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec, micro=(), loads=()):
+    """The stepped forward of ``method="verlet_ckpt"`` on CUDA tensors:
+    :func:`plain_trajectory`'s loop, guarded to any depth, with the force of
+    every (micro-)step from the lattice's force kernel
+    (:func:`stepped_force`, one launch of ``spec.force_of`` a step) instead
+    of autograd. Same outputs as :func:`plain_trajectory`; at float64 the
+    two differ by the kernel's rounding only."""
+
+    return _trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads, None, stepped_force)
+
+
+def _trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads, trace, force_fn):
+    """The loop of :func:`plain_trajectory` and :func:`stepped_trajectory`,
+    with the force ``force_fn``."""
+
     fixed = tuple(f.detach() for f in fixed)
     drive = drive.detach()
     micro = tuple(m.detach() for m in micro)
@@ -522,21 +600,19 @@ def plain_trajectory(U0, V0, A0, dts, drive, fixed, spec: TrajectorySpec, micro=
             lrows = interval_rows(k, loads[0], loads[1:], spec) if loads else None
             if spec.guard is None:
                 carry = interval_body(*carry, dts[k].detach(), rows[0], fixed, spec,
-                                      load_rows=None if lrows is None else lrows[0])
+                                      load_rows=None if lrows is None else lrows[0],
+                                      force_fn=force_fn)
             else:
                 carry, taken = guarded_interval_body(*carry, dts[k].detach(), rows, fixed, spec,
-                                                     trace=trace, lrows=lrows)
-                decisions.append(taken.to(U0.device))
+                                                     trace=trace, lrows=lrows, force_fn=force_fn)
+                decisions.append(taken)
             outs.append(carry)
     stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
     if spec.guard is None:
         return stacked
-    decisions = torch.cat(decisions, dim=1)
-    flags = decisions.view(decisions.shape[0], dts.shape[0], spec.n_substeps).any(-1)
-    return stacked + (flags, decisions)
-
-
-plain_trajectory.calls = 0
+    substeps, *deep = (torch.cat(tables, dim=1) for tables in zip(*decisions))
+    flags = substeps.view(substeps.shape[0], dts.shape[0], spec.n_substeps).any(-1)
+    return stacked + (flags, substeps, *deep)
 
 
 class GraphedIntervalVJP:
@@ -600,8 +676,9 @@ class VerletTrajectory(torch.autograd.Function):
     """Whole trajectory with a stored-boundary-state adjoint.
 
     ``apply(spec, U0, V0, A0, dts, drive, *micro, *loads, *fixed) -> (outU,
-    outV, outA)``, plus ``(flags, decisions)`` when ``spec.guard`` is set
-    (``len(micro) == spec.n_micro``, ``len(loads) == spec.n_loads``). The
+    outV, outA)``, plus ``(flags, decisions)`` and the ``spec.n_deep``
+    micro-step decision tables when ``spec.guard`` is set (``len(micro) ==
+    spec.n_micro``, ``len(loads) == spec.n_loads``). The
     forward is ``spec.forward`` (the kernel for CUDA tensors, the plain
     body for CPU tensors). The interval-boundary states it returns are
     exact checkpoints, so the backward replays one interval at a time, in
@@ -613,8 +690,11 @@ class VerletTrajectory(torch.autograd.Function):
     Guarded, an interval where no design fired replays the unguarded body:
     up to the first firing substep the two coincide, so this is exact. An
     interval that fired replays the guarded body with the forward's
-    recorded per-substep decisions. The flags and decisions are read back
-    to the host once per backward. On CUDA tensors, where neither the
+    recorded decisions at every depth: a replay that evaluated a
+    micro-step's predicate again, on states that differ from the forward's
+    in the last bits (another forward than the plain body), could take
+    another branch. The flags and decisions are read back to the host once
+    per backward. On CUDA tensors, where neither the
     drive nor the substep sizes take a gradient, the unguarded replay is
     captured once per backward as a CUDA graph (:class:`GraphedIntervalVJP`,
     with the load rows as one more input) and replayed for each interval
@@ -640,13 +720,13 @@ class VerletTrajectory(torch.autograd.Function):
         n_tables = 1 + n_micro + n_loads
         U0, V0, A0, dts, *rest = ctx.saved_tensors
         tables, rest = rest[:n_tables], rest[n_tables:]
-        n_out = 3 if spec.guard is None else 5
+        n_out = 3 if spec.guard is None else 5 + spec.n_deep
         fixed, outs = rest[:-n_out], rest[-n_out:]
         outU, outV, outA = outs[:3]
         fired, decisions = [False] * dts.shape[0], None
-        if spec.guard is not None:  # one readback of the decisions
-            decisions = outs[4].cpu().view(U0.shape[0], dts.shape[0], spec.n_substeps)
-            fired = decisions.any(-1).any(0).tolist()
+        if spec.guard is not None:  # one readback of the decisions of every depth
+            decisions = [d.cpu().view(U0.shape[0], dts.shape[0], -1) for d in outs[4:]]
+            fired = decisions[0].any(-1).any(0).tolist()
         need = ctx.needs_input_grad
         need_dts, need_tables, need_fixed = need[4], need[5:5 + n_tables], need[5 + n_tables:]
         # Each table's guard level: the drive's and the loads' substep
@@ -705,7 +785,8 @@ class VerletTrajectory(torch.autograd.Function):
                     if fired[k]:
                         out, _ = guarded_interval_body(*carry, dt, drows, fixed_in, spec,
                                                        create_graph=True,
-                                                       decisions=decisions[:, k], lrows=lrows)
+                                                       decisions=[d[:, k] for d in decisions],
+                                                       lrows=lrows)
                     else:
                         out = interval_body(*carry, dt, drows[0], fixed_in, spec,
                                             create_graph=True,

@@ -78,8 +78,10 @@ def guard_params(guard, theta_channels, prefix: str):
 
     if guard["levels"] != 1:
         raise NotImplementedError(
-            f"guard levels={guard['levels']}: the CUDA kernel refines one level "
-            "(levels > 1 runs on CPU tensors or with method='verlet_ckpt'); ROADMAP B2."
+            f"guard levels={guard['levels']}: the trajectory kernel refines one level; "
+            "levels > 1 runs on the card with method='verlet_ckpt' (the stepped forward, one "
+            "launch of the force kernel, kernel 2, a (micro-)step) and on CPU tensors; "
+            "ROADMAP B2."
         )
     if tuple(guard["theta_channels"]) != tuple(theta_channels):
         raise ValueError(f"{prefix} guard: theta must be plane channels {tuple(theta_channels)}")

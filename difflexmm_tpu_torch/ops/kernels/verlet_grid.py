@@ -6,12 +6,18 @@ a stack of component planes of shape ``(n2, n1)``: state ``(B, 3, n2, n1)``
 data ``(B, ., n2, n1-1)``, vertical ``(B, ., n2-1, n1)``. The design batch B
 leads; the JAX package puts channels first and has no batch.
 
-The kernel (``csrc/verlet_quad.cu``) integrates the whole trajectory for
-CUDA tensors; :func:`quad_grid_energy_planes` is its plain PyTorch
-version, which the plain body (``core.plain_trajectory``) differentiates
-with autograd for CPU tensors and which the adjoint replays.
+The trajectory kernel (``csrc/verlet_quad.cu``) integrates the whole
+trajectory for CUDA tensors; :func:`quad_grid_energy_planes` is its plain
+PyTorch version, which the plain body (``core.plain_trajectory``)
+differentiates with autograd for CPU tensors and which the adjoint
+replays. The force kernel (``csrc/quad_force.cu``, :func:`quad_force`)
+computes one energy gradient of B designs; the stepped forward of
+``method="verlet_ckpt"`` (``core.stepped_trajectory``) launches it once a
+(micro-)step on CUDA tensors, and :func:`quad_grid_force_planes` is its
+plain version.
 """
 
+import ctypes
 import functools
 
 import torch
@@ -170,6 +176,23 @@ def quad_grid_energy_planes(
     return energy + contact
 
 
+def quad_grid_force_planes(U_eff, cnv, centroids, ref_h, ref_v, ks_h, ksh_h, kr_h, ks_v,
+                           ksh_v, kr_v, cmin, ccut, kc, linearized: bool = False,
+                           use_contact: bool = True):
+    """``dE/dU_eff`` of :func:`quad_grid_energy_planes` at ``U_eff`` (..., 3,
+    n2, n1), each design's own gradient (designs do not interact): the
+    plain PyTorch version of the force kernel (:func:`quad_force`), the
+    gradient that ``core.force`` takes, on the calling thread as there."""
+
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
+        U = U_eff.detach().requires_grad_()
+        energy = quad_grid_energy_planes(U, cnv, centroids, ref_h, ref_v, ks_h, ksh_h, kr_h,
+                                         ks_v, ksh_v, kr_v, cmin, ccut, kc,
+                                         linearized=linearized, use_contact=use_contact)
+        (grad,) = torch.autograd.grad(energy, U)
+    return grad
+
+
 def _energy_of(U_eff, fixed, linearized, use_contact):
     return quad_grid_energy_planes(
         U_eff, *fixed[:13], linearized=linearized, use_contact=use_contact
@@ -280,6 +303,84 @@ def verlet_quad_trajectory(
 launch.reset_counts(verlet_quad_trajectory)
 
 
+def _force_library():
+    lib = build.load("quad_force")
+    if not getattr(lib, "_typed", False):
+        lib.quad_force_launch.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.quad_force_launch.restype = ctypes.c_int
+        lib.quad_force_error_string.argtypes = [ctypes.c_int]
+        lib.quad_force_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def quad_force(U_eff, fixed, *, linearized, use_contact):
+    """``dE/dU_eff`` of the quad plane energy for B designs: ``U_eff`` (B,
+    3, n2, n1) and the fixed leaves, of which the first 13 (cnv ... kc,
+    :data:`N_FIXED_ARRAYS`' energy leaves) are read -> (B, 3, n2, n1).
+
+    CPU tensors go to the plain version (:func:`quad_grid_force_planes`).
+    CUDA tensors launch ``csrc/quad_force.cu`` or raise: there is no
+    fallback. Each launch adds one to ``quad_force.launches``.
+    """
+
+    fixed = tuple(fixed[:13])
+    if U_eff.device.type == "cpu":
+        return quad_grid_force_planes(U_eff, *fixed, linearized=linearized,
+                                      use_contact=use_contact)
+    if U_eff.device.type != "cuda":
+        raise ValueError(f"quad_force: unsupported device {U_eff.device}")
+    dtype = U_eff.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"quad_force: dtype {dtype} (float32/float64 only)")
+    if U_eff.dim() != 4 or U_eff.shape[1] != 3:
+        raise ValueError(f"quad_force: U_eff of shape {tuple(U_eff.shape)}, want (B, 3, n2, n1)")
+    B, _, n2, n1 = U_eff.shape
+    expected = ((B, 3, n2, n1),) + fixed_shapes(B, n1, n2)[:13]
+    if len(fixed) != 13:
+        raise ValueError(f"quad_force: {len(fixed)} fixed leaves, want at least 13")
+    for i, (t, shape) in enumerate(zip((U_eff,) + fixed, expected)):
+        if t.device != U_eff.device or t.dtype != dtype:
+            raise ValueError(f"quad_force argument {i}: {t.device}/{t.dtype}, want "
+                             f"{U_eff.device}/{dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"quad_force argument {i}: shape {tuple(t.shape)}, want "
+                             f"contiguous {shape}")
+    lib = _force_library()
+    nbond = n2 * (n1 - 1) + (n2 - 1) * n1
+    with torch.cuda.device(U_eff.device):
+        workspace = torch.empty((B, 6, nbond), dtype=dtype, device=U_eff.device)
+        out = torch.empty_like(U_eff)
+        pointers = [t.data_ptr() for t in (U_eff, *fixed, workspace, out)]
+        ptrs = (ctypes.c_void_p * len(pointers))(*pointers)
+        dims = (ctypes.c_int * 3)(B, n1, n2)
+        stream = torch.cuda.current_stream(U_eff.device).cuda_stream
+        err = lib.quad_force_launch(ptrs, dims, U_eff.element_size(), int(linearized),
+                                    int(use_contact), stream)
+    if err != 0:
+        message = lib.quad_force_error_string(err).decode()
+        raise RuntimeError(f"quad_force launch failed: {message} ({err})")
+    quad_force.launches += 1
+    return out
+
+
+quad_force.launches = 0
+
+
+def verlet_ckpt_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro=(), loads=()):
+    """The forward of ``method="verlet_ckpt"`` (the JAX solver's stepped
+    forward): on CUDA tensors ``core.stepped_trajectory``, one launch of
+    the force kernel a (micro-)step, guarded to any depth; on CPU tensors
+    the plain body (``core.plain_trajectory``)."""
+
+    if U0.device.type == "cpu":
+        return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads)
+    return core.stepped_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads)
+
+
 def plane_slots(blocks, dofs, n1: int, n2: int):
     """Flat ``(3, n2, n1)`` plane index of each (block, DOF) pair: channel
     DOF, then the block (blocks are numbered row by row, as the planes)."""
@@ -307,8 +408,10 @@ def quad_trajectory_spec(
     ``load_slots``: flat plane index of each loaded pair
     (:func:`plane_slots`), in pair order (duplicates add), or None without
     loads.
-    ``kernel=False`` makes the forward the plain body on every device (the
-    JAX package's ``verlet_ckpt``: same math and adjoint, no kernel).
+    ``kernel=False`` makes the forward the JAX package's ``verlet_ckpt``
+    (:func:`verlet_ckpt_trajectory`: step by step, the force kernel once a
+    (micro-)step on CUDA tensors, the plain body on CPU tensors; same math
+    and adjoint).
     ``guard``: a resolved guard spec (``core.resolve_guard`` with
     ``theta_channels=(2,)``) or None.
     """
@@ -323,7 +426,7 @@ def quad_trajectory_spec(
             drive_map=drive_map.view(3, n2, n1),
         )
     else:
-        forward = core.plain_trajectory
+        forward = verlet_ckpt_trajectory
     energy_of = functools.partial(_energy_of, linearized=linearized, use_contact=use_contact)
     return core.TrajectorySpec(
         n_substeps, energy_of, forward, slots, cols,
@@ -331,4 +434,5 @@ def quad_trajectory_spec(
         gap_of=functools.partial(_gap_of, use_contact=use_contact),
         load_map=None if load_slots is None else core.load_map(load_slots, (3, n2, n1),
                                                                 device),
+        force_of=functools.partial(quad_force, linearized=linearized, use_contact=use_contact),
     )

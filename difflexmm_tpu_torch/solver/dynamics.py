@@ -34,9 +34,11 @@ _EMPTY_PAIRS = np.zeros((0, 2), dtype=np.int64)
 
 #: The methods of the fast path. "verlet_pallas" and "auto" run the
 #: hand-written trajectory kernel for CUDA tensors (the plain body for CPU
-#: tensors); "verlet_ckpt" runs the plain body on every device, with the
-#: same stored-boundary-state adjoint (the JAX package's XLA-forward twin).
-#: "auto" without a grid is the dense "verlet", as in JAX.
+#: tensors); "verlet_ckpt" steps on the host, one launch of the quad force
+#: kernel a (micro-)step for CUDA tensors (kagome: the plain body) and the
+#: plain body for CPU tensors, with the same stored-boundary-state adjoint
+#: (the JAX package's XLA-forward twin). "auto" without a grid is the dense
+#: "verlet", as in JAX.
 FAST_METHODS = ("verlet_pallas", "verlet_ckpt", "auto")
 
 
@@ -66,7 +68,10 @@ def setup_dynamic_solver(
     2)`` and block centroids ``(B, n_blocks, 2)`` carry the design
     dimension (``state0`` shared or ``(B, 2, n_blocks, 3)``; every other
     parameter shared), gives ``(B, T, 2, n_blocks, 3)`` from one trajectory
-    of B designs (one kernel launch on CUDA tensors).
+    of B designs (one kernel launch on CUDA tensors). The fast path's
+    ``solve_dynamics.specs`` maps each device to the trajectory spec made at
+    its first use; setting one there (``spec._replace(forward=...)``) runs
+    another forward with the same adjoint.
 
     ``constrained_DOFs_fn(t, **constraint_params)`` takes a tensor ``t`` of
     any shape and returns values broadcastable to ``t.shape + (k,)`` for
@@ -85,8 +90,9 @@ def setup_dynamic_solver(
     translation "relative" by default; theta is plane channel 2 on quads,
     channels 2 and 5 on kagome). Substeps whose predicted travel is risky
     re-run as ``refine`` micro-steps. CUDA tensors run the guarded kernel
-    (one level); CPU tensors, or ``method="verlet_ckpt"``, the plain
-    guarded body (any depth).
+    (one level), or with ``method="verlet_ckpt"`` the stepped guarded body
+    (any depth; quads on the force kernel); CPU tensors the plain guarded
+    body (any depth).
 
     Options of the JAX solver that this port does not implement yet raise
     ``NotImplementedError`` naming the ROADMAP item; none is ignored.
@@ -338,6 +344,8 @@ def setup_dynamic_solver(
                                  dict(dtype=ys.dtype, device=ys.device))
 
     solve_dynamics.trajectory_args = trajectory_args
+    solve_dynamics.specs = specs
+    solve_dynamics.spec_for = spec_for
     return solve_dynamics
 
 

@@ -1,7 +1,9 @@
-"""The hand-written trajectory kernels against their plain PyTorch versions
-on a CUDA device: kernels 1 and 1g (quads, unguarded and guarded) and 1K
-and 1Kg (kagome, unguarded and guarded), each also with external loads
-(1L; float64 within 1e-12 there, as ``chip_smoke.py`` holds it). Marked
+"""The hand-written kernels against their plain PyTorch versions on a CUDA
+device: kernels 1 and 1g (quads, unguarded and guarded) and 1K and 1Kg
+(kagome, unguarded and guarded), each also with external loads (1L;
+float64 within 1e-12 there, as ``chip_smoke.py`` holds it), and kernel 2
+(the quad force) with the stepped forward of ``method="verlet_ckpt"``
+that launches it. Marked
 ``cuda``: skipped (with the reason) where there is no CUDA device; on a
 machine with one, run
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
@@ -22,9 +24,15 @@ import torch
 
 from difflexmm_tpu_torch import kernel_checks as kc
 from difflexmm_tpu_torch.models.flagship import build_flagship
+from difflexmm_tpu_torch.models import quads_focusing
 from difflexmm_tpu_torch.models.kagome_config import build_kagome
 from difflexmm_tpu_torch.ops.kernels import core, launch, verlet_kagome
-from difflexmm_tpu_torch.ops.kernels.verlet_grid import carry_bytes, verlet_quad_trajectory
+from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
+    carry_bytes,
+    quad_force,
+    quad_grid_force_planes,
+    verlet_quad_trajectory,
+)
 from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
 
 pytestmark = pytest.mark.cuda
@@ -445,3 +453,148 @@ def test_population_gradient_graph_replay_equals_eager_replay(device, lattice, m
     assert torch.equal(values, values_e)
     for g, e in zip(grads, grads_e):
         assert torch.isfinite(g).all() and torch.equal(g, e)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: the quad force, and the stepped forward of method="verlet_ckpt"
+# ---------------------------------------------------------------------------
+
+
+def _force_case(case, device):
+    """``(U_eff, fixed)`` of a force check: the microbenchmark's inputs
+    (``kernel_checks.lanes_microbench_inputs``) at B = 1 or 4, the contact
+    probe's engaged state, or the 96 x 64 lattice (12,128 bonds)."""
+
+    if case == "contact probe":
+        args, _ = kc.contact_probe(device=device)
+        U = args.U0 * args.fixed[-1] + core.drive_planes(args.drive[:, 0], args.spec, args.U0)
+        assert kc.engaged_bonds(U, args.fixed) > 0
+        return U, args.fixed[:13]
+    if case == "96x64":
+        return kc.lanes_microbench_inputs(B=1, n1=96, n2=64, device=device, dtype=torch.float64)
+    return kc.lanes_microbench_inputs(B=int(case[-1]), device=device, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("linearized", [False, True])
+@pytest.mark.parametrize("case", ["microbench B=1", "microbench B=4", "contact probe", "96x64"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_force_kernel_matches_plain(device, dtype, case, linearized):
+    """Kernel 2 against its plain version: float64 within 1e-12 of the
+    field's largest entry (one energy gradient's rounding); float32 held
+    against the float64 plain force, within three times the plain float32
+    force's error (floor 1e-5), as chip_smoke.py holds a force."""
+
+    U64, fixed64 = _force_case(case, device)
+
+    def both(U, fixed):
+        launches = quad_force.launches
+        k = quad_force(U, fixed, linearized=linearized, use_contact=True)
+        assert quad_force.launches == launches + 1
+        return k, quad_grid_force_planes(U, *fixed, linearized=linearized, use_contact=True)
+
+    if dtype == torch.float64:
+        k, p = both(U64, fixed64)
+        assert torch.isfinite(k).all() and kc.max_rel_err(k, p) <= 1e-12
+        return
+    ref = quad_grid_force_planes(U64.float().double(), *(f.float().double() for f in fixed64),
+                                 linearized=linearized, use_contact=True)
+    k, p = both(U64.float(), tuple(f.float() for f in fixed64))
+    bound = max(3.0 * kc.max_rel_err(p.double(), ref), 1e-5)
+    assert torch.isfinite(k).all() and kc.max_rel_err(k.double(), ref) <= bound
+
+
+def test_force_kernel_keeps_a_nan_in_its_design(device):
+    U, fixed = kc.lanes_microbench_inputs(B=4, device=device, dtype=torch.float64)
+    clean = quad_force(U, fixed, linearized=False, use_contact=True)
+    U[1, 2, 5, 7] = float("nan")
+    dirty = quad_force(U, fixed, linearized=False, use_contact=True)
+    assert not bool(torch.isfinite(dirty[1]).all())
+    for b in (0, 2, 3):
+        assert torch.equal(dirty[b], clean[b])
+
+
+# Guard levels = 2 with refine 4 on the violent 8 x 6 problem: micro-steps
+# fire at depth 1, so some run at depth 2.
+TWO_LEVELS = {"proximity_windows": 2.0, "hard_fraction": 0.1, "levels": 2, "refine": 4}
+
+
+def _two_levels(device):
+    problem = kc.small_problem(n_timepoints=3, device=device, guard=TWO_LEVELS,
+                               method="verlet_ckpt")
+    return kc.batched_args(problem, [kc.random_design(problem, np.random.default_rng(5))])
+
+
+def test_stepped_forward_at_two_levels_matches_the_plain_guarded_body(device):
+    """``verlet_ckpt`` on the card at guard levels = 2 (kernel 2 a
+    (micro-)step) against the plain guarded body on a CPU copy of the same
+    inputs: decisions of both depths identical, U, V, A within 1e-10 at
+    float64."""
+
+    args = _two_levels(device)
+    launches, calls = quad_force.launches, core.plain_trajectory.calls
+    stepped = core.trajectory_forward(args)
+    assert core.plain_trajectory.calls == calls
+    n_steps = stepped[4].numel()
+    # Every substep, every micro-step of a fired substep beyond the first,
+    # and refine - 1 more for each micro-step of depth 1 that fired.
+    fired, deep = int(stepped[4].sum()), int(stepped[5].sum())
+    assert deep > 0 and quad_force.launches - launches == n_steps + 3 * fired + 3 * deep
+    plain = kc.from_bytes(kc.plain_reference(kc.to_bytes(kc.on_cpu(args))))[0]
+    assert len(stepped) == len(plain) == 6
+    for s, p in zip(stepped[3:], plain[3:]):
+        assert torch.equal(s.cpu(), p)
+    for s, p in zip(stepped[:3], plain[:3]):
+        assert kc.max_rel_err(s.cpu(), p) <= 1e-10
+
+
+def test_stepped_gradient_at_two_levels_matches_the_plain_body(device):
+    """The card's ``verlet_ckpt`` value and gradient at guard levels = 2
+    (the stepped forward, then the adjoint's eager replay of the fired
+    intervals with the forward's decisions of both depths) against the
+    plain body's on a CPU copy of the same inputs, at float64: the
+    gradients with respect to the initial state, the centroid-node vectors
+    and the horizontal bonds' stretching stiffness within 1e-9 of their
+    scale."""
+
+    args = _two_levels(device)
+    rng = np.random.default_rng(7)
+    cots = [rng.standard_normal((1, 2) + tuple(args.U0.shape[1:])) for _ in range(3)]
+
+    def value_and_grad(a):
+        x = [a.U0.clone().requires_grad_(), a.V0.clone().requires_grad_(),
+             a.fixed[0].clone().requires_grad_(), a.fixed[4].clone().requires_grad_()]
+        fixed = (x[2],) + a.fixed[1:4] + (x[3],) + a.fixed[5:]
+        outs = core.VerletTrajectory.apply(a.spec, x[0], x[1], a.A0, a.dts, a.drive, *a.micro,
+                                           *fixed)
+        value = sum(torch.sum(o * torch.tensor(c, device=o.device))
+                    for o, c in zip(outs[:3], cots))
+        grads = torch.autograd.grad(value, x)
+        return value.item(), [g.cpu() for g in grads], [d.cpu() for d in outs[4:]]
+
+    calls = core.plain_trajectory.calls
+    card = value_and_grad(args)
+    assert core.plain_trajectory.calls == calls
+    host = value_and_grad(kc.on_cpu(args))
+    assert bool(card[2][1].any())  # micro-steps of depth 1 fired
+    for c, h in zip(card[2], host[2]):
+        assert torch.equal(c, h)
+    assert abs(card[0] - host[0]) <= 1e-9 * abs(host[0])
+    for c, h in zip(card[1], host[1]):
+        assert float(h.abs().max()) > 0 and kc.max_rel_err(c, h) <= 1e-9
+
+
+def test_verlet_ckpt_objective_runs_the_force_kernel_only(device):
+    """The card's ``verlet_ckpt`` value and gradient: one force launch a
+    substep in the forward, no plain-body forward (the adjoint replays the
+    plain body's intervals, not plain_trajectory)."""
+
+    problem = kc.small_problem(n_timepoints=4, device=device, method="verlet_ckpt")
+    optimization = quads_focusing.OptimizationProblem(problem, target_size=(2, 2))
+    optimization.setup_objective()
+    design = tuple(x.requires_grad_() for x in kc.random_design(problem, np.random.default_rng(6)))
+    launches, calls = quad_force.launches, core.plain_trajectory.calls
+    value = optimization.objective_fn(design)
+    value.backward()
+    assert quad_force.launches - launches == 3 * problem.n_substeps
+    assert core.plain_trajectory.calls == calls
+    assert torch.isfinite(value) and all(torch.isfinite(x.grad).all() for x in design)

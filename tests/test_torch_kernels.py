@@ -241,7 +241,9 @@ def test_solver_takes_a_guard(method):
     assert [m.shape for m in args.micro] == [
         (1, 2 * 2 * 16**level, args.drive.shape[-1]) for level in (1, 2)]
     outs = core.trajectory_forward(args)
-    assert len(outs) == 5 and outs[3].shape == (1, 2) and outs[4].shape == (1, 4)
+    # Flags, the substeps' decisions and the decisions of depth 1's micro-steps.
+    assert len(outs) == 5 + args.spec.n_deep == 6 and outs[3].shape == (1, 2)
+    assert outs[4].shape == (1, 4) and outs[5].shape == (1, 4 * 16)
 
 
 def test_model_guard_resolves_to_the_solver_spec():
