@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written trajectory kernels from ``difflexmm_tpu_torch/csrc``
-into ``build/kernels`` (one nvcc per source, in parallel) and holds each
-against its plain PyTorch version on the same inputs: the quad kernels
+into ``build/kernels`` (the sources in parallel, the trajectory sources
+once per type) and holds each against its plain PyTorch version on the
+same inputs: the quad kernels
 (kernel 1, unguarded, and kernel 1g, guarded, per-substep decisions
 identical at float64), the kagome kernels (1K and 1Kg, the same) and the
 fused external loads (1L) in all four of them. The plain version's runs, and
@@ -60,7 +61,6 @@ before that.
 import dataclasses
 import json
 import os
-import re
 import statistics
 import subprocess
 import sys
@@ -306,7 +306,8 @@ def smoke(pool):
             if not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"{label}: {name} is not finite")
 
-    # -- build: one nvcc per source, started together, in the background ---------
+    # -- build: every source started together (the trajectory sources one nvcc a
+    # type), in the background ---------------------------------------------------
     t0 = time.perf_counter()
     sources = ("verlet_quad", "verlet_kagome", "quad_force")
     builders = ThreadPoolExecutor(len(sources))
@@ -588,24 +589,22 @@ def smoke(pool):
         job.result()
     builders.shutdown()
     log(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
-    registers = {}
+    usage = {}
     # Kernel templates by source: the trajectory kernels' (dtype,
-    # linearized, contact, guard), the force kernel's bond pass' (dtype,
-    # linearized, contact).
+    # linearized, contact, guard, threads), the force kernel's bond pass'
+    # (dtype, linearized, contact).
     templates = {"verlet_quad": "verlet_quad", "verlet_kagome": "verlet_kagome",
                  "quad_force": "quad_bond"}
     for name in sources:
         info = build.BUILD_INFO[name]
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
-        registers[name] = build.ptxas_registers(info["log"], templates[name])
-        for key in sorted(registers[name]):
+        usage[name] = build.ptxas_usage(info["log"], templates[name])
+        for key, u in sorted(usage[name].items()):
             flags = " ".join(f"{flag}={value}" for flag, value in
-                             zip(("linearized", "contact", "guard"), key[1:]))
-            log(f"  ptxas {templates[name]} {key[0]} {flags}: {registers[name][key]} registers")
-        for line in info["log"].splitlines():
-            if "spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
-                                                 line):
-                log(f"  ptxas {name}: {line.strip()}")
+                             zip(("linearized", "contact", "guard", "threads"), key[1:]))
+            log(f"  ptxas {templates[name]} {key[0]} {flags}: {u['registers']} registers, "
+                f"{u['stack']} B stack, {u['spill_stores']} B spill stores, "
+                f"{u['spill_loads']} B spill loads")
 
     phase_done("build")
 
@@ -1311,6 +1310,21 @@ def smoke(pool):
                              drive=rep(args.drive), fixed=tuple(rep(f) for f in args.fixed),
                              micro=tuple(rep(m) for m in args.micro))
 
+    def per_step(name, args32, args64):
+        """The fired substeps of a guarded kernel's timing inputs and its time
+        per step-equivalent: ms / (substeps + fired x (refine - 1))."""
+
+        r = results[name]
+        refine = args32.spec.guard["refine"]
+        for dt, args, key in ((f32, args32, "ms"), (f64, args64, "ms_float64")):
+            decisions = core.trajectory_forward(args)[4]
+            fired, substeps = int(decisions.sum()), decisions.numel()
+            steps = substeps + fired * (refine - 1)
+            r.setdefault("fired", {})[dtype_name(dt)] = fired
+            r.setdefault("per_step_us", {})[dtype_name(dt)] = r[key] * 1e3 / steps
+            log(f"  {name} {dtype_name(dt)}: {fired} of {substeps} substeps fired, "
+                f"{steps} step-equivalents, {r[key] * 1e3 / steps:.3f} us a step")
+
     args32 = kc.cast(flagship, f32)
     g32 = kc.cast(flagship_guarded, f32)
     core.trajectory_forward(g32)  # warm up
@@ -1349,6 +1363,7 @@ def smoke(pool):
     results["verlet_quad_guarded"].update(
         ms=statistics.median([t["guarded_ms"], t["guarded_ms_2"]]),
         ms_float64=t["guarded_ms_float64"])
+    per_step("verlet_quad_guarded", g32, flagship_guarded)
 
     # Kagome: 1K and 1Kg at the configuration, alternating, then 1K on the
     # 12 x 10-cell population workload of tools/bench_kagome_multistart.py.
@@ -1383,6 +1398,7 @@ def smoke(pool):
     results["verlet_kagome_guarded"].update(
         ms=statistics.median([tk["guarded_ms"], tk["guarded_ms_2"]]),
         ms_float64=tk["guarded_ms_float64"])
+    per_step("verlet_kagome_guarded", kagome_g32, kagome_guarded)
 
     # Main path 8's populations: kernels 1 and 1K at B = POPULATION_B (CUDA
     # events, float32 and float64) with their bounds; designs per second of
@@ -1429,7 +1445,7 @@ def smoke(pool):
     problem = opt.forward_problem
     designs = stepped_designs(design, POPULATION_B, POPULATION_STEP)
 
-    def build():
+    def population_args():
         with torch.no_grad():
             return problem.solve_dynamics.trajectory_args(
                 problem.state0, problem.timepoints, problem.control_params(designs))
@@ -1438,9 +1454,9 @@ def smoke(pool):
         with torch.no_grad():
             opt.population_objective_fn(designs)
 
-    args = build()
+    args = population_args()
     share = dict(B=POPULATION_B,
-                 prepare_s=statistics.median(host_seconds(build)[1] for _ in range(3)),
+                 prepare_s=statistics.median(host_seconds(population_args)[1] for _ in range(3)),
                  kernel_s=event_ms(trajectory(args), 3) / 1e3,
                  forward_s=statistics.median(host_seconds(forward)[1] for _ in range(3)))
     share["host_share"] = 1 - share["kernel_s"] / share["forward_s"]
@@ -1765,12 +1781,26 @@ def smoke(pool):
                  # gradient (kernel 2).
                  "library_ms": None}
         entry.update({k: v for k, v in r.items() if k not in entry})
+        if name in ("verlet_quad_guarded", "verlet_kagome_guarded"):
+            # Kernels 1g and 1Kg, redesigned for the card: the block shape of
+            # the B = 1 launch, its registers and its stack and spill bytes
+            # (float32, float64), nonlinear with contact as the
+            # configurations run.
+            prefix = name[:-len("_guarded")]
+            lib = launch.type_library(build.load(prefix), prefix)
+            threads = {dtype_name(dt): launch.block_threads(lib, prefix, 1, dt, True)
+                       for dt in dtypes}
+            used = {d: usage[prefix].get((d, 0, 1, 1, t), {}) for d, t in threads.items()}
+            entry.update(redesigned="PR 9", block_threads=threads,
+                         registers={d: u.get("registers") for d, u in used.items()},
+                         spills={d: {k: v for k, v in u.items() if k != "registers"}
+                                 for d, u in used.items()})
         kernels.append(entry)
     if FAILED:
         raise SystemExit("chip_smoke: checks failed:\n  " + "\n  ".join(FAILED))
-    print(json.dumps({"kernels": kernels, "card": card_line, "registers": {
+    print(json.dumps({"kernels": kernels, "card": card_line, "ptxas": {
         f"{name} " + " ".join(map(str, k)): v
-        for name, regs in registers.items() for k, v in sorted(regs.items())}, **timings}))
+        for name, used in usage.items() for k, v in sorted(used.items())}, **timings}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -92,6 +92,7 @@ cudaError_t launch_force(const void* const* ptrs, const int* dims, int linearize
   // gridDim.y holds the batch (at most 65,535); a lattice needs a bond.
   if (p.B <= 0 || p.B > 65535 || p.n1 <= 0 || p.n2 <= 0 || Quad::nbond(p.n1, p.n2) <= 0)
     return cudaErrorInvalidValue;
+  set_divisors(p);
   const T* const* f = reinterpret_cast<const T* const*>(ptrs);
   for (int i = 0; i < Quad::kCmin + 3; ++i) p.leaf[i] = f[1 + i];
   const T* Ue = f[0];

@@ -59,7 +59,7 @@ struct Quad {
     const T *ref, *ks, *ksh, *kr;
     size_t stride;
     if (HORIZ) {
-      const int j = q / (n1 - 1), i = q % (n1 - 1);
+      const int j = p.dn1m.div(q), i = q - j * (n1 - 1);
       blk_a = j * n1 + i;
       blk_b = blk_a + 1;
       r = q;
@@ -102,7 +102,7 @@ struct Quad {
   __device__ static T gather(const Params<T, kLeaves>& p, int e, const T* sP) {
     const int n1 = p.n1, n2 = p.n2, nb = n1 * n2;
     const int nh = n2 * (n1 - 1), nbond = nh + (n2 - 1) * n1;
-    const int c = e / nb, blk = e % nb, j = blk / n1, ii = blk % n1;
+    const int c = p.dnb.div(e), blk = e - c * nb, j = p.dn1.div(blk), ii = blk - j * n1;
     T g = T(0);
     if (ii > 0) g += sP[(3 + c) * nbond + j * (n1 - 1) + ii - 1];
     if (ii < n1 - 1) g += sP[c * nbond + j * (n1 - 1) + ii];
@@ -118,14 +118,14 @@ struct Quad {
                                 T dt, T hdt2, T& th, T& tr) {
     const Guard<T>& g = p.guard;
     const int n1 = p.n1, n2 = p.n2, nb = n1 * n2;
-    const int c = e / nb;
+    const int c = p.dnb.div(e);
     if (c == 2) {
       th = max_nan(th, travel_of(sV[e], sA[e], dt, hdt2));
     } else if (g.has_length_scale) {
       if (!g.relative) {
         tr = max_nan(tr, travel_of(sV[e], sA[e], dt, hdt2));
       } else {
-        const int blk = e - c * nb, j = blk / n1, ii = blk % n1;
+        const int blk = e - c * nb, j = p.dn1.div(blk), ii = blk - j * n1;
         if (ii < n1 - 1)
           tr = max_nan(tr, travel_of(sV[e + 1] - sV[e], sA[e + 1] - sA[e], dt, hdt2));
         if (j < n2 - 1)
@@ -140,7 +140,8 @@ struct Quad {
   __device__ static T bond_gap(const Params<T, kLeaves>& p, int b, int q, const T* sU) {
     const int n1 = p.n1, n2 = p.n2, nb = n1 * n2, nh = n2 * (n1 - 1);
     const bool horiz = q < nh;
-    const int blk_a = horiz ? (q / (n1 - 1)) * n1 + q % (n1 - 1) : q - nh;
+    const int jh = p.dn1m.div(q);  // the row of a horizontal bond
+    const int blk_a = horiz ? jh * n1 + q - jh * (n1 - 1) : q - nh;
     const int blk_b = horiz ? blk_a + 1 : blk_a + n1;
     const T ua[3] = {sU[blk_a], sU[nb + blk_a], sU[2 * nb + blk_a]};
     const T ub[3] = {sU[blk_b], sU[nb + blk_b], sU[2 * nb + blk_b]};

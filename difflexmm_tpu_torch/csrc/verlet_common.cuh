@@ -35,9 +35,25 @@
 
 namespace verlet {
 
+// Threads of a block: the unguarded kernels' (kThreads), and the guarded
+// kernel's by type while the designs do not outnumber the SMs (kFew) and
+// beyond (kMany), one design per block either way (measured on the H100,
+// PERF.md §6: float32 one block of 512 threads an SM at 128 registers, or
+// two of 256; float64 one of 384). Both lattices use the same.
 constexpr int kThreads = 256;
+template <typename T>
+struct GuardThreads {
+  static constexpr int kFew = sizeof(T) == 8 ? 384 : 512;
+  static constexpr int kMany = sizeof(T) == 8 ? 384 : 256;
+};
+
+// The block of a launch of B designs on a device of n_sm SMs.
+template <typename T>
+inline int block_threads(bool guarded, int B, int n_sm) {
+  if (!guarded) return kThreads;
+  return B <= n_sm ? GuardThreads<T>::kFew : GuardThreads<T>::kMany;
+}
 constexpr int kSeeds = 6;
-constexpr int kWarps = kThreads / 32;
 
 template <typename T>
 struct Dual {
@@ -395,22 +411,54 @@ __device__ __forceinline__ T bond_gap_of(const T (&ua)[3], const Corners<T, NC>&
   return min_nan(angle(p2x, p2y, n1x, n1y), angle(p1x, p1y, n2x, n2y));
 }
 
-// Block-wide max (MIN = false) or min of every thread's v, NaN when any v
-// is NaN. Every thread returns the same value. red holds kWarps values; the
-// caller puts a barrier between two uses of the same red.
+// Max (MIN = false) or min of v over the 32 lanes of a warp, NaN when any
+// v is NaN; max_nan and min_nan give the same value in any order.
 template <typename T, bool MIN>
-__device__ __forceinline__ T block_reduce(T v, T* red) {
+__device__ __forceinline__ T warp_reduce(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const T w = __shfl_xor_sync(0xffffffffu, v, o);
     v = MIN ? min_nan(v, w) : max_nan(v, w);
   }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  return v;
+}
+
+// The block-wide maxima of th and tr and minimum of gap behind one
+// barrier: each warp reduces its lanes into red, and after the barrier
+// every thread reads the NT / 32 warps' values (up to 8) or every warp
+// reduces them on its lanes. red holds 3 * 32 values; the caller puts a
+// barrier between two uses of one red.
+template <typename T, int NT>
+__device__ __forceinline__ void block_reduce3(T& th, T& tr, T& gap, T* red) {
+  constexpr int kW = NT / 32;
+  static_assert(NT % 32 == 0 && kW <= 32, "block of whole warps, at most 32");
+  th = warp_reduce<T, false>(th);
+  tr = warp_reduce<T, false>(tr);
+  gap = warp_reduce<T, true>(gap);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[warp] = th;
+    red[32 + warp] = tr;
+    red[64 + warp] = gap;
+  }
   __syncthreads();
-  T r = red[0];
+  if constexpr (kW <= 8) {
+    th = red[0];
+    tr = red[32];
+    gap = red[64];
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = MIN ? min_nan(r, red[w]) : max_nan(r, red[w]);
-  return r;
+    for (int w = 1; w < kW; ++w) {
+      th = max_nan(th, red[w]);
+      tr = max_nan(tr, red[32 + w]);
+      gap = min_nan(gap, red[64 + w]);
+    }
+  } else {
+    // 0 is the identity of the travel maxima (travel is >= 0 or NaN), +inf
+    // of the gap's minimum.
+    th = warp_reduce<T, false>(lane < kW ? red[lane] : T(0));
+    tr = warp_reduce<T, false>(lane < kW ? red[32 + lane] : T(0));
+    gap = warp_reduce<T, true>(lane < kW ? red[64 + lane] : T(INFINITY));
+  }
 }
 
 // |v| dt + dt^2/2 |a| (guard_travel's travel, same order).
@@ -418,6 +466,28 @@ template <typename T>
 __device__ __forceinline__ T travel_of(T v, T a, T dt, T hdt2) {
   return abs_(v) * dt + hdt2 * abs_(a);
 }
+
+// Division by a divisor d >= 1 fixed for a launch, in place of the long
+// sequence of a division by a run-time int: n / d = (umulhi(n, m) + n) >> s
+// with s = ceil(log2 d) and m = floor(2^32 (2^s - d) / d) + 1, exact for
+// 0 <= n < 2^31 (the round-up method of Granlund and Montgomery). The quad
+// policy's index arithmetic uses it; the kagome policy keeps `/`, with
+// which its unguarded float64 kernel ran 5.5% faster at B = 528 (PERF.md
+// §6).
+struct FastDiv {
+  unsigned m;
+  int s;
+  static FastDiv of(int d) {
+    if (d < 1) d = 1;  // a divisor no index uses (a lattice one block wide)
+    int s = 0;
+    while ((1ll << s) < d) ++s;
+    const unsigned long long m = ((1ull << 32) * ((1ull << s) - d)) / d + 1;
+    return FastDiv{(unsigned)m, s};
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return (int)((__umulhi((unsigned)n, m) + (unsigned)n) >> s);
+  }
+};
 
 // The resolved guard (core.resolve_guard), thresholds in the working type
 // as torch compares them.
@@ -437,6 +507,7 @@ struct Guard {
 template <typename T, int N>
 struct Params {
   int B, n1, n2, n_int, n_sub, k_drive, k_load;
+  FastDiv dn1, dn1m, dnb;  // by n1, n1 - 1 and n1 * n2 (set_divisors; quad only)
   const T* U0;
   const T* V0;
   const T* A0;
@@ -464,6 +535,14 @@ struct Params {
   const T* load_micro;
   const int* load_map;
 };
+
+// The divisors of a launch's index arithmetic, from its n1 and n2.
+template <typename P>
+inline void set_divisors(P& p) {
+  p.dn1 = FastDiv::of(p.n1);
+  p.dn1m = FastDiv::of(p.n1 - 1);
+  p.dnb = FastDiv::of(p.n1 * p.n2);
+}
 
 // Carry of one design: U, V, A, U_eff planes and the bond partials.
 template <typename L>
@@ -529,47 +608,71 @@ __device__ __forceinline__ void verlet_step(const Params<T, L::kLeaves>& p, int 
   // own elements and sUe, which no thread reads any more.
 }
 
+// The smallest void angle of this thread's bonds at U (+inf for none).
+template <typename L, typename T, int NT>
+__device__ __forceinline__ T bond_gaps(const Params<T, L::kLeaves>& p, int b, const T* sU) {
+  const int nbond = L::nbond(p.n1, p.n2);
+  T m = T(INFINITY);
+  for (int q = threadIdx.x; q < nbond; q += NT) m = min_nan(m, L::bond_gap(p, b, q, sU));
+  return m;
+}
+
 // The guard's risk predicate on the carry for a substep of dt
 // (make_risk_predicate):
 //     risky = (!(travel <= threshold) && gap < proximity) || !(travel <= hard)
-// Uniform across the block. red: 3 * kWarps values.
-template <typename L, typename T, bool CONTACT>
+// Uniform across the block; called after a barrier. One pass over the
+// thread's elements takes their travel terms and, when `with_gap` (the
+// previous substep needed the gap), the gap of its bonds; one reduction
+// behind one barrier takes all three. Where the gap is needed and was not
+// taken, a second pass and reduction take it (red2). `with_gap` becomes
+// whether this substep needed the gap. The maxima and the minimum are the
+// same in any order, so the decision is the plain guarded body's.
+template <typename L, typename T, bool CONTACT, int NT>
 __device__ __forceinline__ bool guard_risky(const Params<T, L::kLeaves>& p, int b, T dt, T hdt2,
-                                            const T* S, T* red) {
+                                            const T* S, T* red, T* red2, bool& with_gap) {
   const Guard<T>& g = p.guard;
   const int ne = L::kC * p.n1 * p.n2;
   const T* sU = S;
   const T* sV = S + ne;
   const T* sA = S + 2 * ne;
+  // Only a lattice with contact and a barrier has a gap (+inf otherwise).
+  const bool has_gap = CONTACT && g.has_proximity && p.leaf[L::kCmin + 2][b] > T(0);
+  const bool speculate = has_gap && with_gap;
   // Travel is >= 0 or NaN, so 0 is the identity of both maxima (and the
   // translational term of a lattice with nothing to move against, as in
   // guard_travel).
-  T th = T(0), tr = T(0);
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) L::travel(p, e, sV, sA, dt, hdt2, th, tr);
-  th = block_reduce<T, false>(th, red);
+  T th = T(0), tr = T(0), m = T(INFINITY);
+  for (int e = threadIdx.x; e < ne; e += NT) L::travel(p, e, sV, sA, dt, hdt2, th, tr);
+  if (speculate) m = bond_gaps<L, T, NT>(p, b, sU);
+  block_reduce3<T, NT>(th, tr, m, red);
   T travel = th;
-  if (g.has_length_scale) travel = travel + block_reduce<T, false>(tr, red + kWarps) / g.length_scale;
+  if (g.has_length_scale) travel = travel + tr / g.length_scale;
   const bool fast = !(travel <= g.threshold);
   const bool hard = g.has_hard && !(travel <= g.hard);
-  if (!g.has_proximity || hard || !fast) return fast || hard;
+  with_gap = g.has_proximity && !hard && fast;
+  if (!with_gap) return fast || hard;
   // Only here can the gap change the answer.
   T gap = T(INFINITY);
-  if (CONTACT && p.leaf[L::kCmin + 2][b] > T(0)) {
-    const int nbond = L::nbond(p.n1, p.n2);
-    T m = T(INFINITY);
-    for (int q = threadIdx.x; q < nbond; q += blockDim.x) m = min_nan(m, L::bond_gap(p, b, q, sU));
-    gap = block_reduce<T, true>(m, red + 2 * kWarps) - p.leaf[L::kCmin + 1][b];
+  if (has_gap) {
+    if (!speculate) {
+      m = bond_gaps<L, T, NT>(p, b, sU);
+      T th2 = T(0), tr2 = T(0);
+      block_reduce3<T, NT>(th2, tr2, m, red2);
+    }
+    gap = m - p.leaf[L::kCmin + 1][b];
   }
   return gap < g.proximity;
 }
 
-// The guarded trajectory of design b on the carry S (levels = 1).
-template <typename L, typename T, bool LIN, bool CONTACT>
+// The guarded trajectory of design b on the carry S (levels = 1) in a
+// block of NT threads.
+template <typename L, typename T, bool LIN, bool CONTACT, int NT>
 __device__ __forceinline__ void guarded_trajectory(const Params<T, L::kLeaves>& p, int b, T* S) {
-  __shared__ T red[3 * kWarps];
+  __shared__ T red[2][3 * 32];
   const int ne = L::kC * p.n1 * p.n2;
   const int n_steps = p.n_int * p.n_sub;
   const int refine = p.guard.refine;
+  bool with_gap = false;
   for (int k = 0; k < p.n_int; ++k) {
     const T dt = p.dts[k];
     const T hdt = T(0.5) * dt;
@@ -583,7 +686,8 @@ __device__ __forceinline__ void guarded_trajectory(const Params<T, L::kLeaves>& 
       const size_t step = (size_t)b * n_steps + (size_t)k * p.n_sub + i;
       const bool last = i == p.n_sub - 1;
       __syncthreads();  // the predicate reads other threads' carry
-      const bool risky = guard_risky<L, T, CONTACT>(p, b, dt, hdt2, S, red);
+      const bool risky =
+          guard_risky<L, T, CONTACT, NT>(p, b, dt, hdt2, S, red[0], red[1], with_gap);
       if (!risky) {
         verlet_step<L, T, LIN, CONTACT>(p, b, dt, hdt, hdt2, p.drive + step * p.k_drive,
                                         p.load + step * p.k_load, S, last, obase);
@@ -602,9 +706,9 @@ __device__ __forceinline__ void guarded_trajectory(const Params<T, L::kLeaves>& 
   }
 }
 
-// The whole trajectory of design blockIdx.x: the body of each lattice's
-// __global__ kernel.
-template <typename L, typename T, bool LIN, bool CONTACT, bool GUARD>
+// The whole trajectory of design blockIdx.x in a block of NT threads: the
+// body of each lattice's __global__ kernel.
+template <typename L, typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
 __device__ __forceinline__ void run_trajectory(const Params<T, L::kLeaves>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
@@ -619,7 +723,7 @@ __device__ __forceinline__ void run_trajectory(const Params<T, L::kLeaves>& p) {
   }
 
   if constexpr (GUARD) {
-    guarded_trajectory<L, T, LIN, CONTACT>(p, b, S);
+    guarded_trajectory<L, T, LIN, CONTACT, NT>(p, b, S);
   } else {
     const int n_steps = p.n_int * p.n_sub;
     for (int k = 0; k < p.n_int; ++k) {
@@ -643,11 +747,12 @@ __device__ __forceinline__ void run_trajectory(const Params<T, L::kLeaves>& p) {
 template <typename T, int N>
 using KernelFn = void (*)(const Params<T, N>);
 
-// Launch one instantiation with its carry in dynamic shared memory (or on
-// the workspace when the caller gave one).
+// Launch one instantiation in blocks of `threads` with its carry in dynamic
+// shared memory (or on the workspace when the caller gave one).
 template <typename L, typename T>
-cudaError_t launch_kernel(KernelFn<T, L::kLeaves> kernel, const Params<T, L::kLeaves>& p,
-                          cudaStream_t stream) {
+cudaError_t launch_kernel(KernelFn<T, L::kLeaves> kernel, int threads,
+                          const Params<T, L::kLeaves>& p, cudaStream_t stream) {
+  if (!kernel) return cudaErrorInvalidValue;
   size_t smem = 0;
   if (!p.workspace) {
     smem = scratch_elems<L>(p.n1, p.n2) * sizeof(T);
@@ -655,12 +760,22 @@ cudaError_t launch_kernel(KernelFn<T, L::kLeaves> kernel, const Params<T, L::kLe
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<p.B, kThreads, smem, stream>>>(p);
+  kernel<<<p.B, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Number of SMs of the current device, or -1 on error.
+inline int device_sms() {
+  int dev = 0, n_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  return n_sm;
+}
+
 // Unpack the C interface's arguments and launch the instantiation that
-// pick(linearized, contact, guarded) returns.
+// pick(linearized, contact, guarded, threads) returns (NULL: none) in
+// blocks of block_threads<T>.
 //   ptrs: U0, V0, A0, dts, drive, drive_map, the N fixed leaves, outU, outV,
 //         outA, workspace (NULL: carry in shared memory), micro, decisions,
 //         flags (guarded; else NULL), load, load_micro (guarded; else NULL),
@@ -671,7 +786,7 @@ cudaError_t launch_kernel(KernelFn<T, L::kLeaves> kernel, const Params<T, L::kLe
 template <typename L, typename T>
 cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int use_contact,
                    const double* guard, cudaStream_t stream,
-                   KernelFn<T, L::kLeaves> (*pick)(bool, bool, bool)) {
+                   KernelFn<T, L::kLeaves> (*pick)(bool, bool, bool, int)) {
   constexpr int N = L::kLeaves;
   Params<T, N> p;
   p.B = dims[0];
@@ -681,6 +796,7 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
   p.n_sub = dims[4];
   p.k_drive = dims[5];
   p.k_load = dims[6];
+  set_divisors(p);
   const T* const* f = reinterpret_cast<const T* const*>(ptrs);
   p.U0 = f[0];
   p.V0 = f[1];
@@ -726,26 +842,43 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
     g.relative = guard[8] != 0.0;
     if (!p.micro || !p.decisions || !p.flags || g.refine < 2) return cudaErrorInvalidValue;
   }
-  return launch_kernel<L, T>(pick(linearized != 0, use_contact != 0, guard != nullptr), p, stream);
+  const int n_sm = device_sms();
+  if (n_sm < 1) return cudaErrorInvalidDevice;
+  const int threads = block_threads<T>(guard != nullptr, p.B, n_sm);
+  return launch_kernel<L, T>(pick(linearized != 0, use_contact != 0, guard != nullptr, threads),
+                            threads, p, stream);
 }
 
 // Largest dynamic shared memory one block of the current device may use
-// beside the guarded kernel's static reduction buffer, or -1 on error.
+// beside the guarded kernel's static reduction buffers, or -1 on error.
 inline long long max_dynamic_smem() {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return -1;
   if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
       cudaSuccess)
     return -1;
-  return bytes - 3 * kWarps * (long long)sizeof(double);
+  return bytes - 2 * 3 * 32 * (long long)sizeof(double);
 }
 
 }  // namespace verlet
 
 // The C interface of a lattice's library: PREFIX_scratch_bytes,
-// PREFIX_max_smem, PREFIX_launch and PREFIX_error_string. PICK is the
-// lattice's template `pick<T>(linearized, contact, guarded)`.
-#define VERLET_C_INTERFACE(PREFIX, LATTICE, PICK)                                            \
+// PREFIX_max_smem, PREFIX_block_threads, PREFIX_launch and
+// PREFIX_error_string. PICK is the lattice's template `pick<T>(linearized,
+// contact, guarded, threads)`. PREFIX_launch calls PREFIX_launch_f32 or
+// PREFIX_launch_f64 by type. Built with -DVERLET_TYPE=4 a source holds
+// the float32 kernels and the common functions, with -DVERLET_TYPE=8 the
+// float64 kernels, so that the two types compile in parallel and link into
+// one library (ops/kernels/build.py); without it, everything.
+#define VERLET_C_TYPED(PREFIX, LATTICE, PICK, T, SUFFIX)                                     \
+  extern "C" int PREFIX##_launch_##SUFFIX(const void* const* ptrs, const int* dims,          \
+                                          int linearized, int use_contact,                   \
+                                          const double* guard, void* stream) {               \
+    return (int)verlet::launch<LATTICE, T>(ptrs, dims, linearized, use_contact, guard,       \
+                                           reinterpret_cast<cudaStream_t>(stream), PICK<T>); \
+  }
+
+#define VERLET_C_COMMON(PREFIX, LATTICE)                                                     \
   extern "C" {                                                                               \
   /* Bytes of carry one design needs (shared memory, or workspace when it */                 \
   /* does not fit). */                                                                       \
@@ -753,19 +886,39 @@ inline long long max_dynamic_smem() {
     return (long long)(verlet::scratch_elems<LATTICE>(n1, n2) * (size_t)dtype_bytes);        \
   }                                                                                          \
   long long PREFIX##_max_smem(void) { return verlet::max_dynamic_smem(); }                   \
+  /* Threads of a block of a launch of B designs on the current device, */                   \
+  /* -1 on error. */                                                                         \
+  int PREFIX##_block_threads(int B, int dtype_bytes, int guarded) {                          \
+    const int n_sm = verlet::device_sms();                                                   \
+    if (n_sm < 1 || (dtype_bytes != 4 && dtype_bytes != 8)) return -1;                      \
+    return dtype_bytes == 4 ? verlet::block_threads<float>(guarded != 0, B, n_sm)            \
+                            : verlet::block_threads<double>(guarded != 0, B, n_sm);          \
+  }                                                                                          \
+  int PREFIX##_launch_f32(const void* const*, const int*, int, int, const double*, void*);   \
+  int PREFIX##_launch_f64(const void* const*, const int*, int, int, const double*, void*);   \
   /* Returns the launch's cudaError_t (0 on success). */                                     \
   int PREFIX##_launch(const void* const* ptrs, const int* dims, int dtype_bytes,             \
                       int linearized, int use_contact, const double* guard, void* stream) {  \
-    cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);                                 \
     if (dtype_bytes == 4)                                                                    \
-      return (int)verlet::launch<LATTICE, float>(ptrs, dims, linearized, use_contact, guard, \
-                                                 s, PICK<float>);                            \
+      return PREFIX##_launch_f32(ptrs, dims, linearized, use_contact, guard, stream);        \
     if (dtype_bytes == 8)                                                                    \
-      return (int)verlet::launch<LATTICE, double>(ptrs, dims, linearized, use_contact,       \
-                                                  guard, s, PICK<double>);                   \
+      return PREFIX##_launch_f64(ptrs, dims, linearized, use_contact, guard, stream);        \
     return (int)cudaErrorInvalidValue;                                                       \
   }                                                                                          \
   const char* PREFIX##_error_string(int err) {                                               \
     return cudaGetErrorString((cudaError_t)err);                                             \
   }                                                                                          \
   }
+
+#if !defined(VERLET_TYPE)
+#define VERLET_C_INTERFACE(PREFIX, LATTICE, PICK) \
+  VERLET_C_COMMON(PREFIX, LATTICE)                \
+  VERLET_C_TYPED(PREFIX, LATTICE, PICK, float, f32) VERLET_C_TYPED(PREFIX, LATTICE, PICK, double, f64)
+#elif VERLET_TYPE == 4
+#define VERLET_C_INTERFACE(PREFIX, LATTICE, PICK) \
+  VERLET_C_COMMON(PREFIX, LATTICE) VERLET_C_TYPED(PREFIX, LATTICE, PICK, float, f32)
+#elif VERLET_TYPE == 8
+#define VERLET_C_INTERFACE(PREFIX, LATTICE, PICK) VERLET_C_TYPED(PREFIX, LATTICE, PICK, double, f64)
+#else
+#error "VERLET_TYPE must be 4 (float32) or 8 (float64)"
+#endif

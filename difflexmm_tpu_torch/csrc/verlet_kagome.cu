@@ -36,6 +36,9 @@
 // <= 3 bonds, one per corner, in a fixed order, without atomics. The
 // barrier's duals run only where a void angle lies in [min_angle, cutoff).
 //
+// The guarded kernel's predicate and its larger block are as for the quad
+// kernel.
+//
 // The guard's travel is the max over channels 2 and 5; with length_scale,
 // plus the max over neighbour differences of channels 0, 1, 3 and 4 along
 // n1 and n2 and over the within-cell pairs (0, 3) and (1, 4), divided by
@@ -214,26 +217,30 @@ struct Kagome {
   }
 };
 
-template <typename T, bool LIN, bool CONTACT, bool GUARD>
-__global__ void __launch_bounds__(kThreads)
-    verlet_kagome_kernel(const Params<T, Kagome::kLeaves> p) {
-  run_trajectory<Kagome, T, LIN, CONTACT, GUARD>(p);
+template <typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
+__global__ void __launch_bounds__(NT) verlet_kagome_kernel(const Params<T, Kagome::kLeaves> p) {
+  run_trajectory<Kagome, T, LIN, CONTACT, GUARD, NT>(p);
 }
 
+template <typename T, bool GUARD, int NT>
+KernelFn<T, Kagome::kLeaves> pick_flags(bool linearized, bool contact) {
+  if (linearized)
+    return contact ? verlet_kagome_kernel<T, true, true, GUARD, NT>
+                   : verlet_kagome_kernel<T, true, false, GUARD, NT>;
+  return contact ? verlet_kagome_kernel<T, false, true, GUARD, NT>
+                 : verlet_kagome_kernel<T, false, false, GUARD, NT>;
+}
+
+// Unguarded in blocks of kThreads, guarded of GuardThreads<T>::kFew or
+// ::kMany; NULL for any other block.
 template <typename T>
-KernelFn<T, Kagome::kLeaves> pick(bool linearized, bool contact, bool guard) {
-  if (linearized) {
-    if (contact)
-      return guard ? verlet_kagome_kernel<T, true, true, true>
-                   : verlet_kagome_kernel<T, true, true, false>;
-    return guard ? verlet_kagome_kernel<T, true, false, true>
-                 : verlet_kagome_kernel<T, true, false, false>;
-  }
-  if (contact)
-    return guard ? verlet_kagome_kernel<T, false, true, true>
-                 : verlet_kagome_kernel<T, false, true, false>;
-  return guard ? verlet_kagome_kernel<T, false, false, true>
-               : verlet_kagome_kernel<T, false, false, false>;
+KernelFn<T, Kagome::kLeaves> pick(bool linearized, bool contact, bool guard, int threads) {
+  using G = GuardThreads<T>;
+  if (!guard)
+    return threads == kThreads ? pick_flags<T, false, kThreads>(linearized, contact) : nullptr;
+  if (threads == G::kFew) return pick_flags<T, true, G::kFew>(linearized, contact);
+  if (threads == G::kMany) return pick_flags<T, true, G::kMany>(linearized, contact);
+  return nullptr;
 }
 
 }  // namespace

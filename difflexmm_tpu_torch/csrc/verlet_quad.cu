@@ -57,13 +57,18 @@
 //     risky  = (!(travel <= threshold) && gap < proximity)
 //              || !(travel <= hard)
 // The maxima and the minimum are block-wide reductions that propagate NaN
-// as jnp.max does, and the gap is reduced only where it can change the
-// answer. The decision is uniform across the block, so every thread takes
-// the same branch and the barriers stay legal: a risky substep runs
-// `refine` micro-steps of dt / refine with drive rows from the micro-step
-// table. Each substep's decision and each interval's "any fired" flag are
-// written as bytes. The guard costs two reductions a substep (three near
-// the barrier) and, where it fires, refine - 1 extra steps.
+// as jnp.max does, taken together behind one barrier; the gap counts only
+// where it can change the answer, and is evaluated in the travel pass
+// where the substep before needed it too (in a pass of its own elsewhere).
+// The decision is uniform across the block, so every thread takes the same
+// branch and the barriers stay legal: a risky substep runs `refine`
+// micro-steps of dt / refine with drive rows from the micro-step table.
+// Each substep's decision and each interval's "any fired" flag are written
+// as bytes. The guard costs a pass and a reduction a substep and, where it
+// fires, refine - 1 extra steps. Its block is larger than the unguarded
+// kernels' while the designs do not outnumber the SMs (float32: 512
+// threads, float64: 384 at any batch; GuardThreads in verlet_common.cuh),
+// so that more warps hide the latency of a step.
 //
 // What does not depend on the lattice (duals, the ligament and barrier
 // energies, the substep, the guard's loop, the launch) is in
@@ -77,21 +82,30 @@ namespace {
 
 using namespace verlet;
 
-template <typename T, bool LIN, bool CONTACT, bool GUARD>
-__global__ void __launch_bounds__(kThreads) verlet_quad_kernel(const Params<T, Quad::kLeaves> p) {
-  run_trajectory<Quad, T, LIN, CONTACT, GUARD>(p);
+template <typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
+__global__ void __launch_bounds__(NT) verlet_quad_kernel(const Params<T, Quad::kLeaves> p) {
+  run_trajectory<Quad, T, LIN, CONTACT, GUARD, NT>(p);
 }
 
+template <typename T, bool GUARD, int NT>
+KernelFn<T, Quad::kLeaves> pick_flags(bool linearized, bool contact) {
+  if (linearized)
+    return contact ? verlet_quad_kernel<T, true, true, GUARD, NT>
+                   : verlet_quad_kernel<T, true, false, GUARD, NT>;
+  return contact ? verlet_quad_kernel<T, false, true, GUARD, NT>
+                 : verlet_quad_kernel<T, false, false, GUARD, NT>;
+}
+
+// Unguarded in blocks of kThreads, guarded of GuardThreads<T>::kFew or
+// ::kMany; NULL for any other block.
 template <typename T>
-KernelFn<T, Quad::kLeaves> pick(bool linearized, bool contact, bool guard) {
-  if (linearized) {
-    if (contact)
-      return guard ? verlet_quad_kernel<T, true, true, true> : verlet_quad_kernel<T, true, true, false>;
-    return guard ? verlet_quad_kernel<T, true, false, true> : verlet_quad_kernel<T, true, false, false>;
-  }
-  if (contact)
-    return guard ? verlet_quad_kernel<T, false, true, true> : verlet_quad_kernel<T, false, true, false>;
-  return guard ? verlet_quad_kernel<T, false, false, true> : verlet_quad_kernel<T, false, false, false>;
+KernelFn<T, Quad::kLeaves> pick(bool linearized, bool contact, bool guard, int threads) {
+  using G = GuardThreads<T>;
+  if (!guard)
+    return threads == kThreads ? pick_flags<T, false, kThreads>(linearized, contact) : nullptr;
+  if (threads == G::kFew) return pick_flags<T, true, G::kFew>(linearized, contact);
+  if (threads == G::kMany) return pick_flags<T, true, G::kMany>(linearized, contact);
+  return nullptr;
 }
 
 }  // namespace

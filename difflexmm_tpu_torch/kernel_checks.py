@@ -347,6 +347,7 @@ OPS_DOF_KAGOME = 24
 OPS_TRAVEL_PER_CELL_KAGOME = 2 * 6 + 10 * 8
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA H100 SXM data sheet
 H100_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}  # outside the tensor cores
+H100_SMS = 132  # SMs of the H100 SXM, whose peak rates these are
 
 
 def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
@@ -359,7 +360,12 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
     (the kernel's U output, times the substeps of an interval) and,
     guarded (``summary``: :func:`guard_terms`' for these inputs), guard gaps
     only where the predicate needs them and micro-steps and their drive
-    rows only where the guard fired."""
+    rows only where the guard fired.
+
+    ``sm_floor_ms`` is the least time with one design in one SM's share of
+    the peak rate (the kernels keep a design in one thread block): the
+    larger of the bound and a design's operations over the peak divided by
+    the SMs of ``args``' device (:data:`H100_SMS` for CPU tensors)."""
 
     spec = args.spec
     B, C, n2, n1 = args.U0.shape
@@ -399,8 +405,12 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
     ops += steps * B * (nbond * OPS_BOND + C * ncell * ops_dof) + engaged * OPS_BOND_CONTACT
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FLOPS[args.U0.dtype] * 1e3
-    return dict(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    n_sm = (torch.cuda.get_device_properties(args.U0.device).multi_processor_count
+            if args.U0.is_cuda else H100_SMS)
+    bound_ms = max(bytes_ms, ops_ms)
+    return dict(bytes=nbytes, ops=ops, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                sm_floor_ms=max(bound_ms, ops_ms * n_sm / B))
 
 
 def engaged_bonds(U, fixed) -> int:

@@ -2,10 +2,11 @@
 
 Each lattice's kernel (``csrc/verlet_quad.cu``, ``csrc/verlet_kagome.cu``)
 exports the same C interface, ``<prefix>_launch``,
-``<prefix>_scratch_bytes``, ``<prefix>_max_smem`` and
-``<prefix>_error_string`` (``csrc/verlet_common.cuh``). This module checks
-a launch's arguments, allocates its outputs and calls it; the lattice's
-wrapper (``verlet_grid.verlet_quad_trajectory``,
+``<prefix>_scratch_bytes``, ``<prefix>_max_smem``,
+``<prefix>_block_threads`` and ``<prefix>_error_string``
+(``csrc/verlet_common.cuh``). This module checks a launch's arguments,
+allocates its outputs and calls it; the lattice's wrapper
+(``verlet_grid.verlet_quad_trajectory``,
 ``verlet_kagome.verlet_kagome_trajectory``) routes CPU tensors to the plain
 body; :func:`run` counts its launches on the wrapper.
 """
@@ -51,6 +52,21 @@ def carry_bytes(lib, prefix: str, n1: int, n2: int, dtype) -> tuple:
     if available < 0:
         raise RuntimeError(f"{prefix}: cannot query the device's shared memory")
     return getattr(lib, f"{prefix}_scratch_bytes")(n1, n2, itemsize), available
+
+
+def block_threads(lib, prefix: str, B: int, dtype, guarded: bool) -> int:
+    """Threads of a block of the launch of ``B`` designs of ``dtype`` on the
+    current CUDA device, as the kernel's launch picks them
+    (``block_threads`` in ``csrc/verlet_common.cuh``; one design a block)."""
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    query = getattr(lib, f"{prefix}_block_threads")
+    query.argtypes = [ctypes.c_int] * 3
+    query.restype = ctypes.c_int
+    threads = query(B, itemsize, int(guarded))
+    if threads < 0:
+        raise RuntimeError(f"{prefix}: cannot query the device's SMs")
+    return threads
 
 
 #: A wrapper's launch counters, by (guarded, loaded).

@@ -15,7 +15,10 @@ same inputs, and the kernel's error may be at most three times the plain
 body's (floor 1e-5). Where the guard fires nowhere, the guarded kernel
 matches the unguarded one within 1e-12 at float64. A population's launch
 equals its designs' single launches bit for bit, and its design gradients
-through the adjoint's graph replay equal an eager replay's.
+through the adjoint's graph replay equal an eager replay's. The guarded
+kernels take another block by the batch (``launch.block_threads``): a
+design's outputs, decisions and flags are the same bit for bit in a launch
+of 1, 132 or 528 designs, and a NaN stays in its design.
 """
 
 import numpy as np
@@ -26,7 +29,7 @@ from difflexmm_tpu_torch import kernel_checks as kc
 from difflexmm_tpu_torch.models.flagship import build_flagship
 from difflexmm_tpu_torch.models import quads_focusing
 from difflexmm_tpu_torch.models.kagome_config import build_kagome
-from difflexmm_tpu_torch.ops.kernels import core, launch, verlet_kagome
+from difflexmm_tpu_torch.ops.kernels import build, core, launch, verlet_kagome
 from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
     carry_bytes,
     quad_force,
@@ -598,3 +601,134 @@ def test_verlet_ckpt_objective_runs_the_force_kernel_only(device):
     assert quad_force.launches - launches == 3 * problem.n_substeps
     assert core.plain_trajectory.calls == calls
     assert torch.isfinite(value) and all(torch.isfinite(x.grad).all() for x in design)
+
+
+# ---------------------------------------------------------------------------
+# The guarded kernels' block shapes (1g, 1Kg): one design per block whatever
+# the shape launch.block_threads picks by the batch
+# ---------------------------------------------------------------------------
+
+
+def _tiled(args, B):
+    """A launch of B designs, design b being design b % B0 of ``args``."""
+
+    def tile(x):
+        return x.repeat(B // x.shape[0] + 1, *(1,) * (x.dim() - 1))[:B].contiguous()
+
+    return args._replace(U0=tile(args.U0), V0=tile(args.V0), A0=tile(args.A0),
+                         drive=tile(args.drive), fixed=tuple(tile(f) for f in args.fixed),
+                         micro=tuple(tile(m) for m in args.micro))
+
+
+def _guarded_cases(lattice, device, dtype):
+    """Four violent small designs, and the configuration's guarded design."""
+
+    rng = np.random.default_rng(13)
+    if lattice == "quad":
+        small = kc.small_problem(device=device, dtype=dtype, guard="auto")
+        designs = [kc.random_design(small, rng) for _ in range(4)]
+        config = build_flagship(device=device, dtype=dtype, guard="auto")
+    else:
+        small = kc.small_kagome(device=device, dtype=dtype, guard="auto")
+        designs = [kc.random_kagome_design(small, rng) for _ in range(4)]
+        config = build_kagome(device=device, dtype=dtype, guard="auto")
+    return (kc.batched_args(small, designs),
+            kc.batched_args(config[0].forward_problem, [config[1]]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_guarded_population_of_any_shape_equals_single_launches(device, lattice, dtype):
+    """1g and 1Kg: each design of a launch of 132 or 528 designs gives its
+    B = 1 launch's outputs, decisions and flags bit for bit, though the
+    launches run in blocks of other shapes."""
+
+    prefix = "verlet_quad" if lattice == "quad" else "verlet_kagome"
+    lib = launch.type_library(build.load(prefix), prefix)
+    shapes = {launch.block_threads(lib, prefix, B, dtype, True) for B in (1, 132, 528)}
+    if dtype == torch.float32:
+        assert len(shapes) == 2  # the rule changes the block between them
+    for args in _guarded_cases(lattice, device, dtype):
+        B0 = args.U0.shape[0]
+        single = []
+        for b in range(B0):
+            def one(x, b=b):
+                return x[b:b + 1].contiguous()
+
+            single.append(_kernel(args._replace(
+                U0=one(args.U0), V0=one(args.V0), A0=one(args.A0), drive=one(args.drive),
+                fixed=tuple(one(f) for f in args.fixed),
+                micro=tuple(one(m) for m in args.micro))))
+        for B in (132, 528):
+            batch = _kernel(_tiled(args, B))
+            for b in range(B):
+                for x, y in zip(batch, single[b % B0]):
+                    assert torch.equal(x[b], y[0])
+        if B0 > 1:
+            assert any(bool(s[4].any()) for s in single)  # the guard fired
+
+
+def _gap_needed(args):
+    """Per substep of the plain guarded body on ``args``: whether its
+    predicate needed the gap (travel past the threshold, within the hard
+    limit, a gap to read)."""
+
+    trace, guard = [], args.spec.guard
+    core.plain_trajectory(*args[1:7], args.spec, args.micro, args.loads, trace=trace)
+    travel = torch.stack([t for t, _ in trace], dim=1)[0]
+    gap = torch.stack([g for _, g in trace], dim=1)[0]
+    return ~(travel <= guard["threshold"]) & (travel <= guard["hard"]) & (gap != float("inf"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_guarded_contact_probe_takes_the_gap_both_ways(device, lattice, dtype):
+    """The probes need the gap on runs of substeps: the kernel takes it in
+    the travel pass where the substep before needed it too, and in a pass
+    of its own where it did not; decisions equal the plain guarded body's
+    and U, V, A are within the file's tolerances."""
+
+    probe = kc.contact_probe if lattice == "quad" else kc.kagome_contact_probe
+    args, _ = probe(device=device, guard="auto")
+    needed = _gap_needed(kc.cast(args, dtype)).cpu()
+    assert bool((needed[1:] & needed[:-1]).any())  # taken in the travel pass
+    assert bool((needed[1:] & ~needed[:-1]).any()) or bool(needed[0])  # in its own pass
+    _assert_matches(args, dtype)
+
+
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_guarded_lattice_beyond_shared_memory(device, lattice):
+    """1g and 1Kg with the carry on the global workspace (the sizes of the
+    unguarded tests above) against the plain guarded body."""
+
+    rng = np.random.default_rng(1)
+    if lattice == "quad":
+        need, have = carry_bytes(56, 48, torch.float64)
+        problem = kc.small_problem(n1=56, n2=48, n_timepoints=3, device=device,
+                                   simulation_time=2.7e-4, guard="auto")
+        designs = [kc.random_design(problem, rng)] * 2
+    else:
+        need, have = verlet_kagome.carry_bytes(30, 28, torch.float64)
+        problem = kc.small_kagome(n1=30, n2=28, n_timepoints=3, device=device,
+                                  simulation_time=0.5, guard="auto")
+        designs = [kc.random_kagome_design(problem, rng)] * 2
+    assert need > have  # the carry lives in the global workspace
+    for dtype in (torch.float64, torch.float32):
+        _assert_matches(kc.batched_args(problem, designs), dtype)
+
+
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_guarded_nan_stays_in_its_design(device, lattice):
+    """A NaN in one design's initial velocity fires its guard's hard term on
+    every substep and leaves the other designs' outputs, decisions and
+    flags unchanged."""
+
+    args = _guarded_cases(lattice, device, torch.float64)[0]
+    clean = _kernel(args)
+    V0 = args.V0.clone()
+    V0[1, 2, 0, 0] = float("nan")
+    dirty = _kernel(args._replace(V0=V0))
+    assert bool(dirty[4][1].all())  # NaN travel is past the hard limit
+    for x, y in zip(clean, dirty):
+        for b in (0, 2, 3):
+            assert torch.equal(x[b], y[b])

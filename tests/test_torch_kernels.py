@@ -269,3 +269,85 @@ def test_entry_points_default_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             kc.small_problem(n_timepoints=3, n_substeps=2)
+
+
+@pytest.mark.parametrize("name, by_type", [
+    ("verlet_quad", True), ("verlet_kagome", True), ("quad_force", False),
+])
+def test_build_commands(name, by_type):
+    # The trajectory sources compile once per type, at the same time, into
+    # objects linked into one library; the force kernel in one nvcc.
+    from pathlib import Path
+
+    from difflexmm_tpu_torch.ops.kernels import build
+
+    assert (name in build.BY_TYPE) == by_type
+    source, target = build.CSRC_DIR / f"{name}.cu", Path("/out/lib.tmp")
+    compiles, link = build.nvcc_commands("nvcc", source, target, by_type)
+    for cmd in compiles:
+        assert cmd[0] == "nvcc" and cmd[-1] == str(source)
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-O3" in cmd
+        assert cmd[cmd.index("-I") + 1] == str(build.CSRC_DIR)
+    if not by_type:
+        assert link is None and len(compiles) == 1
+        assert "-shared" in compiles[0] and compiles[0][compiles[0].index("-o") + 1] == str(target)
+        return
+    types = [next(a for a in cmd if a.startswith("-DVERLET_TYPE=")) for cmd in compiles]
+    assert types == ["-DVERLET_TYPE=4", "-DVERLET_TYPE=8"]
+    objects = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert all("-c" in cmd and "-shared" not in cmd for cmd in compiles)
+    assert len(set(objects)) == 2 and link == ["nvcc", "-shared", "-o", str(target), *objects]
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118verlet_quad_kernelIfLb0ELb1ELb1ELi512EEEvN6verlet6ParamsIT_Li16EEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118verlet_quad_kernelIfLb0ELb1ELb1ELi512EEEvN6verlet6ParamsIT_Li16EEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 1096 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118verlet_quad_kernelIdLb0ELb1ELb1ELi384EEEvN6verlet6ParamsIT_Li16EEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118verlet_quad_kernelIdLb0ELb1ELb1ELi384EEEvN6verlet6ParamsIT_Li16EEE
+    360 bytes stack frame, 542 bytes spill stores, 912 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1096 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118verlet_quad_kernelIdLb1ELb0ELb0ELi256EEEvN6verlet6ParamsIT_Li16EEE' for 'sm_90a'
+ptxas info    : Used 96 registers, used 1 barriers, 1096 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115quad_bond_kernelIdLb0ELb1EEEvN6verlet6ParamsIT_Li16EEEPKS2_PS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115quad_bond_kernelIdLb0ELb1EEEvN6verlet6ParamsIT_Li16EEEPKS2_PS2_
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 170 registers, used 0 barriers, 1096 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("name, key, usage", [
+    ("verlet_quad", ("float32", 0, 1, 1, 512), (128, 0, 0, 0)),
+    ("verlet_quad", ("float64", 0, 1, 1, 384), (168, 360, 542, 912)),
+    ("verlet_quad", ("float64", 1, 0, 0, 256), (96, 0, 0, 0)),
+    ("quad_bond", ("float64", 0, 1), (170, 8, 4, 4)),
+])
+def test_ptxas_usage(name, key, usage):
+    # Registers, stack frame and spill bytes of each instantiation, read
+    # from ptxas' report of the kernel template named; a kernel with no
+    # "Function properties" line has no frame.
+    from difflexmm_tpu_torch.ops.kernels import build
+
+    used = build.ptxas_usage(_PTXAS_LOG, name)
+    assert len(used) == (3 if name == "verlet_quad" else 1)
+    assert used[key] == dict(zip(("registers", "stack", "spill_stores", "spill_loads"), usage))
+
+
+def test_trajectory_bound_has_the_one_sm_floor():
+    # One design stays on one SM: its floor is its operations over one SM's
+    # share of the peak, 132 times the card's bound at B = 1 (CPU tensors
+    # count the H100's 132 SMs), the same for a few designs, and the
+    # card's bound once the designs outnumber the SMs.
+    problem = kc.small_problem(n_timepoints=3, device="cpu")
+    design = kc.random_design(problem, np.random.default_rng(0))
+    args = kc.batched_args(problem, [design])
+    outU = core.trajectory_forward(args)[0]
+    one = kc.trajectory_bound(args, outU)
+    assert one["bound_by"] == "operations"
+    assert one["sm_floor_ms"] == pytest.approx(kc.H100_SMS * one["bound_ms"], rel=1e-12)
+    for B, floor in ((4, one["sm_floor_ms"]), (2 * kc.H100_SMS, 2 * one["sm_floor_ms"])):
+        many = kc.trajectory_bound(kc.batched_args(problem, [design] * B),
+                                   outU.expand(B, *outU.shape[1:]))
+        assert many["sm_floor_ms"] == pytest.approx(floor, rel=1e-12)
+        assert many["sm_floor_ms"] >= many["bound_ms"]
