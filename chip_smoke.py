@@ -176,8 +176,10 @@ MULTISTART_B, MULTISTART_ITERATIONS, MULTISTART_FINALISTS = 8, 2, 4
 # until the time limit needed their minute).
 CURVE_BATCHES = (1, 32, 128, 528)
 # Main path 9: kernel 2 at the microbenchmark's B, each time the median of
-# KERNEL2_REPS runs after a warm-up.
-KERNEL2_B, KERNEL2_REPS = 128, 30
+# KERNEL2_REPS runs after a warm-up; its device time a call from a CUDA
+# graph of KERNEL2_CALLS calls (one replay of a graph of one call also
+# times the host's submission of the graph, about 15 us on an H100's host).
+KERNEL2_B, KERNEL2_REPS, KERNEL2_CALLS = 128, 30, 20
 # The flagship's guard ("auto": proximity 2 windows, hard 0.1 window)
 # refined to depth 2.
 TWO_LEVELS = {"proximity_windows": 2.0, "hard_fraction": 0.1, "levels": 2}
@@ -280,6 +282,7 @@ def smoke(pool):
     from difflexmm_tpu_torch.ops.kernels import build, core, launch
     from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
         carry_bytes,
+        force_tile,
         quad_force,
         quad_grid_force_planes,
         quad_grid_energy_planes,
@@ -591,17 +594,18 @@ def smoke(pool):
     log(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
     usage = {}
     # Kernel templates by source: the trajectory kernels' (dtype,
-    # linearized, contact, guard, threads), the force kernel's bond pass'
-    # (dtype, linearized, contact).
+    # linearized, contact, guard, threads), the force kernel's (dtype,
+    # linearized, contact, tile along n1, along n2, threads).
     templates = {"verlet_quad": "verlet_quad", "verlet_kagome": "verlet_kagome",
-                 "quad_force": "quad_bond"}
+                 "quad_force": "quad_force"}
+    parameters = {"quad_force": ("linearized", "contact", "tile_n1", "tile_n2", "threads")}
     for name in sources:
         info = build.BUILD_INFO[name]
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         usage[name] = build.ptxas_usage(info["log"], templates[name])
         for key, u in sorted(usage[name].items()):
-            flags = " ".join(f"{flag}={value}" for flag, value in
-                             zip(("linearized", "contact", "guard", "threads"), key[1:]))
+            names = parameters.get(name, ("linearized", "contact", "guard", "threads"))
+            flags = " ".join(f"{flag}={value}" for flag, value in zip(names, key[1:]))
             log(f"  ptxas {templates[name]} {key[0]} {flags}: {u['registers']} registers, "
                 f"{u['stack']} B stack, {u['spill_stores']} B spill stores, "
                 f"{u['spill_loads']} B spill loads")
@@ -1402,10 +1406,11 @@ def smoke(pool):
 
     # Main path 8's populations: kernels 1 and 1K at B = POPULATION_B (CUDA
     # events, float32 and float64) with their bounds; designs per second of
-    # the flagship's population objective (host clock, one run each, no
-    # warm-up: the adjoint captures its graph anew in every backward; value
-    # and gradient at B = 1 from main path 1, at B = POPULATION_B from main
-    # path 8) with the peak memory of each value and gradient; the host's
+    # the flagship's population objective (host clock; the forward the
+    # median of 3 after a warm-up; value and gradient one run each, no
+    # warm-up: the adjoint captures its graph anew in every backward; at
+    # B = 1 from main path 1, at B = POPULATION_B from main path 8) with the
+    # peak memory of each value and gradient; the host's
     # share of a population's forward; the graph replay's capture at
     # B = POPULATION_B (float64).
     for lattice, name in (("quad", "verlet_quad_population"),
@@ -1425,7 +1430,10 @@ def smoke(pool):
         for B in CURVE_BATCHES:
             designs = stepped_designs(design, B, POPULATION_STEP)
             with torch.no_grad():
-                _, fwd_s = host_seconds(lambda: opt.population_objective_fn(designs))
+                opt.population_objective_fn(designs)  # warm up
+                fwd_s = statistics.median(
+                    host_seconds(lambda: opt.population_objective_fn(designs))[1]
+                    for _ in range(3))
             if B == 1:
                 fwd_grad_s, peak = main[dt][2], None
             elif B == POPULATION_B:
@@ -1534,10 +1542,10 @@ def smoke(pool):
         return event_ms(fn, KERNEL2_REPS)
 
     def graphed_ms(fn):
-        """The time of one replay of ``fn`` captured as a CUDA graph: the
-        device's time without the host's work in the wrapper (an eager call
-        of kernel 2 waits on the host; ``timed_ms`` of the call measures
-        that)."""
+        """The device's time of one call of ``fn``: a replay of a CUDA graph
+        of KERNEL2_CALLS calls over KERNEL2_CALLS, without the host's work
+        in the wrapper (an eager call of kernel 2 waits on the host;
+        ``timed_ms`` of the call measures that)."""
 
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -1546,8 +1554,9 @@ def smoke(pool):
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            fn()
-        return timed_ms(graph.replay)
+            for _ in range(KERNEL2_CALLS):
+                fn()
+        return timed_ms(graph.replay) / KERNEL2_CALLS
 
     # (a) Kernel 2 against its plain version at the microbenchmark's inputs,
     # (3, 16, 24) x KERNEL2_B (no bond engaged there), and at the contact
@@ -1578,7 +1587,7 @@ def smoke(pool):
                       kc.max_rel_err(quad_force(U32, fixed32, **opts).double(), ref),
                       max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
     # Times at the flagship's variant (nonlinear ligaments, contact): ms is
-    # the kernel's two launches replayed from a CUDA graph, call_ms one
+    # the kernel's one launch a call replayed from a CUDA graph, call_ms one
     # eager call of the wrapper. No single PyTorch call computes this
     # gradient, so there is no library time; vmap_ms is the counterpart of
     # the microbenchmark's form a), torch.func.vmap of the gradient of one
@@ -1781,18 +1790,34 @@ def smoke(pool):
                  # gradient (kernel 2).
                  "library_ms": None}
         entry.update({k: v for k, v in r.items() if k not in entry})
-        if name in ("verlet_quad_guarded", "verlet_kagome_guarded"):
-            # Kernels 1g and 1Kg, redesigned for the card: the block shape of
-            # the B = 1 launch, its registers and its stack and spill bytes
-            # (float32, float64), nonlinear with contact as the
-            # configurations run.
-            prefix = name[:-len("_guarded")]
+        # The kernels redesigned for the card: the block shape of the
+        # main path's launch (1g and 1Kg at B = 1; the unguarded quad
+        # kernel at B = 1 and at the population's B) or kernel 2's tile at
+        # the microbenchmark's B, its registers and its stack and spill
+        # bytes (float32, float64), nonlinear with contact as the
+        # configurations run.
+        if name in ("verlet_quad_guarded", "verlet_kagome_guarded", "verlet_quad",
+                    "verlet_quad_loaded", "verlet_quad_population"):
+            prefix = "verlet_kagome" if "kagome" in name else "verlet_quad"
+            guarded = name.endswith("_guarded")
+            B = POPULATION_B if name.endswith("_population") else 1
             lib = launch.type_library(build.load(prefix), prefix)
-            threads = {dtype_name(dt): launch.block_threads(lib, prefix, 1, dt, True)
+            threads = {dtype_name(dt): launch.block_threads(lib, prefix, B, dt, guarded)
                        for dt in dtypes}
-            used = {d: usage[prefix].get((d, 0, 1, 1, t), {}) for d, t in threads.items()}
-            entry.update(redesigned="PR 9", block_threads=threads,
-                         registers={d: u.get("registers") for d, u in used.items()},
+            used = {d: usage[prefix].get((d, 0, 1, int(guarded), t), {})
+                    for d, t in threads.items()}
+            entry.update(redesigned="PR 9" if guarded else "PR 10", block_threads=threads)
+        elif name == "quad_force":
+            tile = force_tile(24, 16, KERNEL2_B)
+            used = {dtype_name(dt): usage[name].get((dtype_name(dt), 0, 1) + tile, {})
+                    for dt in dtypes}
+            entry.update(redesigned="PR 10", tile={"n1": tile[0], "n2": tile[1],
+                                                   "threads": tile[2]},
+                         tile_flagship_B1=force_tile(24, 16, 1))
+        else:
+            used = None
+        if used is not None:
+            entry.update(registers={d: u.get("registers") for d, u in used.items()},
                          spills={d: {k: v for k, v in u.items() if k != "registers"}
                                  for d, u in used.items()})
         kernels.append(entry)

@@ -5,6 +5,24 @@
 // 1g, 1L) and the force kernel (quad_force.cu: kernel 2), so that both
 // evaluate the same per-bond arithmetic and sum each DOF's bonds in the
 // same order.
+//
+// A bond's six partials are taken in closed form. Its energy reaches the
+// six DOFs of its two blocks a (seeds 0-2) and b (3-5) through four
+// quantities: the relative displacement (dUx, dUy) of the two corners it
+// joins and the rotations th1 = th_a, th2 = th_b. A corner's displacement
+// is u + (R(th) - I) c, whose th-derivative is e = R'(th) c = (-sin th cx
+// - cos th cy, cos th cx - sin th cy). With (gx, gy, g1, g2) = dE/d(dUx,
+// dUy, th1, th2) (ligament_grad), the partials are
+//     a: (-gx, -gy, g1 - (gx exa + gy eya))
+//     b: ( gx,  gy, g2 + (gx exb + gy eyb)).
+// Each void angle lies between an edge of block a and an edge of block b;
+// an edge moves with its block, so a void angle is its rest value plus or
+// minus (th_a - th_b), which is also how it is evaluated: void 1 (b's
+// previous edge to a's next edge) is rest + th_a - th_b, with partials +1
+// on th_a and -1 on th_b, void 2 (a's previous edge to b's next edge) rest
+// - th_a + th_b. An engaged void adds the barrier's slope (barrier_slope)
+// with those signs. That is a plain-value forward pass and a scalar
+// reverse sweep, in place of seven-wide forward-mode duals.
 
 #pragma once
 
@@ -26,6 +44,17 @@ struct Quad {
   static constexpr int kC = 3;
   static constexpr int kLeaves = 16;
   static constexpr int kCmin = 10;
+  // The unguarded block (measured on the H100, PERF.md §6): while each
+  // design has an SM of its own, a thread per bond of the flagship at
+  // float32 (768 threads, a cap of 80 registers) and 512 at float64 (a cap
+  // of 128; it spills at 768); beyond, two blocks an SM (float32 of 512,
+  // float64 of 384).
+  template <typename T>
+  struct Unguarded {
+    static constexpr int kFew = sizeof(T) == 8 ? 512 : 768;
+    static constexpr int kMany = sizeof(T) == 8 ? 384 : 512;
+    static constexpr int kManyBlocks = 2;
+  };
   enum { kCnv = 0, kCen, kRefH, kRefV, kKsH, kKshH, kKrH, kKsV, kKshV, kKrV };
 
   __host__ __device__ static int nbond(int n1, int n2) { return n2 * (n1 - 1) + (n2 - 1) * n1; }
@@ -46,55 +75,82 @@ struct Quad {
     return g;
   }
 
-  // Energy term of bond q -> its six partials in sP (SoA: sP[r * nbond + q]).
-  // HORIZ is a template argument so that the corner indices are constants
-  // and the corner arrays stay in registers.
+  // The six partials of the bond joining corner c1 of block blk_a to corner
+  // c2 of block blk_b (bond r of its family: HORIZ, horizontal bonds
+  // (j,i)-(j,i+1) with corners 0 and 2; else vertical bonds (j,i)-(j+1,i)
+  // with corners 1 and 3) at the driven state sUe, into out[s * stride].
+  // HORIZ is a template argument so that the corner indices are constants.
   template <typename T, bool LIN, bool CONTACT, bool HORIZ>
-  __device__ static void bond_dir(const Params<T, kLeaves>& p, int b, int q, const T* sUe, T* sP) {
+  __device__ static void bond_term(const Params<T, kLeaves>& p, int b, int blk_a, int r,
+                                   const T* sUe, T* out, int stride) {
     const int n1 = p.n1, n2 = p.n2, nb = n1 * n2;
-    const int nh = n2 * (n1 - 1), nv = (n2 - 1) * n1, nbond = nh + nv;
     constexpr int c1 = HORIZ ? 0 : 1;  // corner of block a at the bond
     constexpr int c2 = HORIZ ? 2 : 3;  // corner of block b
-    int blk_a, blk_b, r;
-    const T *ref, *ks, *ksh, *kr;
-    size_t stride;
-    if (HORIZ) {
-      const int j = p.dn1m.div(q), i = q - j * (n1 - 1);
-      blk_a = j * n1 + i;
-      blk_b = blk_a + 1;
-      r = q;
-      stride = nh;
-      ref = p.leaf[kRefH] + (size_t)b * 2 * nh;
-      ks = p.leaf[kKsH] + (size_t)b * nh;
-      ksh = p.leaf[kKshH] + (size_t)b * nh;
-      kr = p.leaf[kKrH] + (size_t)b * nh;
-    } else {
-      r = q - nh;
-      blk_a = r;  // (j, i) with r = j * n1 + i
-      blk_b = r + n1;
-      stride = nv;
-      ref = p.leaf[kRefV] + (size_t)b * 2 * nv;
-      ks = p.leaf[kKsV] + (size_t)b * nv;
-      ksh = p.leaf[kKshV] + (size_t)b * nv;
-      kr = p.leaf[kKrV] + (size_t)b * nv;
+    const int blk_b = HORIZ ? blk_a + 1 : blk_a + n1;
+    const size_t nf = HORIZ ? (size_t)n2 * (n1 - 1) : (size_t)(n2 - 1) * n1;
+    const size_t base = (size_t)b * nf + r;
+    const T* ref = p.leaf[HORIZ ? kRefH : kRefV] + (size_t)b * 2 * nf + r;
+    const T* cnv = p.leaf[kCnv] + (size_t)b * 8 * nb;
+    const T uxa = sUe[blk_a], uya = sUe[nb + blk_a], tha = sUe[2 * nb + blk_a];
+    const T uxb = sUe[blk_b], uyb = sUe[nb + blk_b], thb = sUe[2 * nb + blk_b];
+    const T cxa = cnv[2 * c1 * nb + blk_a], cya = cnv[(2 * c1 + 1) * nb + blk_a];
+    const T cxb = cnv[2 * c2 * nb + blk_b], cyb = cnv[(2 * c2 + 1) * nb + blk_b];
+    const T sa = sin_(tha), ca = cos_(tha), sb = sin_(thb), cb = cos_(thb);
+    const T dxa = uxa + (ca - T(1)) * cxa - sa * cya;
+    const T dya = uya + sa * cxa + (ca - T(1)) * cya;
+    const T dxb = uxb + (cb - T(1)) * cxb - sb * cyb;
+    const T dyb = uyb + sb * cxb + (cb - T(1)) * cyb;
+    T gx, gy, ta, tb;
+    ligament_grad<T, LIN>(dxb - dxa, dyb - dya, tha, thb, ref[0], ref[nf],
+                          p.leaf[HORIZ ? kKsH : kKsV][base], p.leaf[HORIZ ? kKshH : kKshV][base],
+                          p.leaf[HORIZ ? kKrH : kKrV][base], gx, gy, ta, tb);
+    ta -= gx * (-sa * cxa - ca * cya) + gy * (ca * cxa - sa * cya);
+    tb += gx * (-sb * cxb - cb * cyb) + gy * (cb * cxb - sb * cyb);
+    if (CONTACT) {
+      // The void angles: each the angle between the two edges at rest plus
+      // (th_a - th_b) or (th_b - th_a), taken into atan2's range
+      // (wrap_angle). The barrier acts only on a void angle in [cmin, ccut).
+      constexpr int n1c = (c1 + 1) % 4, p1c = (c1 + 3) % 4;  // a's next, previous corner
+      constexpr int n2c = (c2 + 1) % 4, p2c = (c2 + 3) % 4;  // b's
+      const T* ga = cnv + blk_a;
+      const T* gb = cnv + blk_b;
+      const T v1 = wrap_angle(angle(gb[2 * p2c * nb] - cxb, gb[(2 * p2c + 1) * nb] - cyb,
+                                    ga[2 * n1c * nb] - cxa, ga[(2 * n1c + 1) * nb] - cya) +
+                              (tha - thb));
+      const T v2 = wrap_angle(angle(ga[2 * p1c * nb] - cxa, ga[(2 * p1c + 1) * nb] - cya,
+                                    gb[2 * n2c * nb] - cxb, gb[(2 * n2c + 1) * nb] - cyb) +
+                              (thb - tha));
+      const T cmin = p.leaf[kCmin][b], ccut = p.leaf[kCmin + 1][b];
+      if (v1 >= cmin && v1 < ccut) {
+        const T d = barrier_slope(v1, cmin, ccut, p.leaf[kCmin + 2][b]);
+        ta += d;
+        tb -= d;
+      }
+      if (v2 >= cmin && v2 < ccut) {
+        const T d = barrier_slope(v2, cmin, ccut, p.leaf[kCmin + 2][b]);
+        ta -= d;
+        tb += d;
+      }
     }
-    const T ua[3] = {sUe[blk_a], sUe[nb + blk_a], sUe[2 * nb + blk_a]};
-    const T ub[3] = {sUe[blk_b], sUe[nb + blk_b], sUe[2 * nb + blk_b]};
-    const Dual<T> energy = bond_energy<T, LIN, CONTACT>(
-        ua, load_corners(p, b, blk_a), c1, ub, load_corners(p, b, blk_b), c2, ref[r],
-        ref[stride + r], ks[r], ksh[r], kr[r], CONTACT ? p.leaf[kCmin][b] : T(0),
-        CONTACT ? p.leaf[kCmin + 1][b] : T(0), CONTACT ? p.leaf[kCmin + 2][b] : T(0));
-#pragma unroll
-    for (int s = 0; s < kSeeds; ++s) sP[s * nbond + q] = energy.d[s];
+    out[0] = -gx;
+    out[stride] = -gy;
+    out[2 * stride] = ta;
+    out[3 * stride] = gx;
+    out[4 * stride] = gy;
+    out[5 * stride] = tb;
   }
 
+  // Bond q's six partials in sP (SoA: sP[s * nbond + q]).
   template <typename T, bool LIN, bool CONTACT>
   __device__ static void bond_partials(const Params<T, kLeaves>& p, int b, int q, const T* sUe,
                                        T* sP) {
-    if (q < p.n2 * (p.n1 - 1))
-      bond_dir<T, LIN, CONTACT, true>(p, b, q, sUe, sP);
-    else
-      bond_dir<T, LIN, CONTACT, false>(p, b, q, sUe, sP);
+    const int n1 = p.n1, nh = p.n2 * (n1 - 1), nbond = nh + (p.n2 - 1) * n1;
+    if (q < nh) {
+      const int j = p.dn1m.div(q);
+      bond_term<T, LIN, CONTACT, true>(p, b, q + j, q, sUe, sP + q, nbond);  // blk_a = j n1 + i
+    } else {
+      bond_term<T, LIN, CONTACT, false>(p, b, q - nh, q - nh, sUe, sP + q, nbond);
+    }
   }
 
   // Each DOF's <= 4 bonds: left, right, below, above.
@@ -135,7 +191,7 @@ struct Quad {
   }
 
   // The smaller of bond q's two void angles at the carry's U (corners and
-  // bond order as in bond_dir; quad_min_void_gap_planes).
+  // bond order as in bond_partials; quad_min_void_gap_planes).
   template <typename T>
   __device__ static T bond_gap(const Params<T, kLeaves>& p, int b, int q, const T* sU) {
     const int n1 = p.n1, n2 = p.n2, nb = n1 * n2, nh = n2 * (n1 - 1);

@@ -1,19 +1,23 @@
 // Lattice-independent parts of the hand-written Verlet trajectory kernels
 // (csrc/verlet_quad.cu, csrc/verlet_kagome.cu): forward-mode duals and the
 // elementary functions on them, the ligament and contact-barrier energies,
-// the NaN-propagating block reductions, the velocity-Verlet substep with
-// its external loads, the substep guard's predicate and the guarded loop,
-// and the launch.
+// the closed-form gradients of both, the NaN-propagating block reductions,
+// the velocity-Verlet substep with its external loads, the substep guard's
+// predicate and the guarded loop, and the launch.
 //
 // A lattice plugs in with a policy struct L that provides:
 //   kC                 channels of the state planes (C, n2, n1)
 //   kLeaves            number of per-design fixed leaves; the last three are
 //                      the inertia, damping and mask planes (C, n2, n1)
 //   kCmin              leaf index of the contact scalars (cmin, ccut, kc)
+//   Unguarded<T>       the unguarded kernel's block (block_threads): kFew
+//                      threads while the designs do not outnumber the SMs,
+//                      kMany beyond, with kManyBlocks blocks an SM
+//                      (min_blocks)
 //   nbond(n1, n2)      number of bonds
 //   bond_partials<T, LIN, CONTACT>(p, b, q, sUe, sP)
-//                      bond q's energy term, differentiated by forward-mode
-//                      duals seeded on the six DOFs of its two blocks, into
+//                      the six partials of bond q's energy term with
+//                      respect to the DOFs of its two blocks, into
 //                      sP[s * nbond + q] (seeds 0-2: first block, 3-5:
 //                      second)
 //   gather(p, e, sP)   dE/dU_eff of state element e: the sum, in a fixed
@@ -35,23 +39,32 @@
 
 namespace verlet {
 
-// Threads of a block: the unguarded kernels' (kThreads), and the guarded
-// kernel's by type while the designs do not outnumber the SMs (kFew) and
-// beyond (kMany), one design per block either way (measured on the H100,
-// PERF.md §6: float32 one block of 512 threads an SM at 128 registers, or
-// two of 256; float64 one of 384). Both lattices use the same.
-constexpr int kThreads = 256;
+// Threads of a block, one design per block either way (measured on the
+// H100, PERF.md §6): the guarded kernel's by type while the designs do not
+// outnumber the SMs (kFew) and beyond (kMany) (float32 one block of 512
+// threads an SM at 128 registers, or two of 256; float64 one of 384; both
+// lattices); the unguarded kernel's from the lattice's policy
+// (L::Unguarded<T>).
 template <typename T>
 struct GuardThreads {
   static constexpr int kFew = sizeof(T) == 8 ? 384 : 512;
   static constexpr int kMany = sizeof(T) == 8 ? 384 : 256;
 };
 
-// The block of a launch of B designs on a device of n_sm SMs.
-template <typename T>
+// The least number of blocks an SM must hold, for __launch_bounds__: the
+// unguarded kernel in its block for many designs, else 1.
+template <typename L, typename T, bool GUARD, int NT>
+constexpr int min_blocks() {
+  using U = typename L::template Unguarded<T>;
+  return (!GUARD && NT == U::kMany) ? U::kManyBlocks : 1;
+}
+
+// The block of a launch of B designs of lattice L on a device of n_sm SMs.
+template <typename L, typename T>
 inline int block_threads(bool guarded, int B, int n_sm) {
-  if (!guarded) return kThreads;
-  return B <= n_sm ? GuardThreads<T>::kFew : GuardThreads<T>::kMany;
+  using U = typename L::template Unguarded<T>;
+  if (guarded) return B <= n_sm ? GuardThreads<T>::kFew : GuardThreads<T>::kMany;
+  return B <= n_sm ? U::kFew : U::kMany;
 }
 constexpr int kSeeds = 6;
 
@@ -366,6 +379,73 @@ __device__ __forceinline__ Dual<T> bond_energy(const T (&ua)[3], const Corners<T
     }
   }
   return energy;
+}
+
+// ---------------------------------------------------------------------------
+// Closed-form bond gradients
+// ---------------------------------------------------------------------------
+
+// The gradient (gx, gy, g1, g2) = dE/d(dUx, dUy, th1, th2) of ligament<T,
+// LIN>, by a reverse sweep of its plain-value forward pass:
+//   linearized  gx = ks axial refx - ksh shear refy,
+//               gy = ks axial refy + ksh shear refx;
+//   nonlinear   r = (dUx + refx, dUy + refy),
+//               gx = ks axial rx / (axial + 1) - ksh shear l0^2 ry / |r|^2,
+//               gy = ks axial ry / (axial + 1) + ksh shear l0^2 rx / |r|^2;
+//   both        g1 = -ksh shear l0^2 / 2 - kr dRot,
+//               g2 = -ksh shear l0^2 / 2 + kr dRot.
+template <typename T, bool LIN>
+__device__ __forceinline__ void ligament_grad(T dUx, T dUy, T th1, T th2, T refx, T refy, T ks,
+                                              T ksh, T kr, T& gx, T& gy, T& g1, T& g2) {
+  const T l0sq = refx * refx + refy * refy;
+  T shear;
+  if (LIN) {
+    const T axial = (dUx * refx + dUy * refy) / l0sq;
+    shear = (refx * dUy - refy * dUx) / l0sq - (th1 + th2) / T(2);
+    gx = ks * axial * refx - ksh * shear * refy;
+    gy = ks * axial * refy + ksh * shear * refx;
+  } else {
+    const T rx = dUx + refx;
+    const T ry = dUy + refy;
+    const T rr = rx * rx + ry * ry;
+    const T stretch = sqrt_(rr / l0sq);  // axial + 1
+    const T mean = (th1 + th2) / T(2);
+    const T c = cos_(mean), s = sin_(mean);
+    const T px = c * refx - s * refy;
+    const T py = s * refx + c * refy;
+    shear = atan2_(px * ry - py * rx, px * rx + py * ry);
+    const T ka = ks * (stretch - T(1)) / stretch;
+    const T kt = ksh * shear * l0sq / rr;
+    gx = ka * rx - kt * ry;
+    gy = ka * ry + kt * rx;
+  }
+  const T hs = T(0.5) * ksh * shear * l0sq;
+  const T rot = kr * (th2 - th1);
+  g1 = -hs - rot;
+  g2 = -hs + rot;
+}
+
+// An angle taken into [-pi, pi] (atan2's range, but for its end -pi): an
+// angle within it is returned unchanged, bit for bit.
+__device__ __forceinline__ float wrap_angle(float a) {
+  return a - 6.28318530717958647692f * rintf(a * 0.159154943091895335769f);
+}
+__device__ __forceinline__ double wrap_angle(double a) {
+  return a - 6.28318530717958647692 * rint(a * 0.159154943091895335769);
+}
+
+// The slope dB/dphi of the contact barrier (contact_term) at a void angle
+// phi already known to lie in [cmin, ccut): with x = (phi - ccut) / span,
+// scale (1/(x - 1)^2 - 1/(x + 1)^2) / span = kc span x / ((x - 1)(x + 1))^2,
+// and 0 where the clamp of x binds.
+template <typename T>
+__device__ __forceinline__ T barrier_slope(T phi, T cmin, T ccut, T kc) {
+  const T span = ccut - cmin;
+  const T x = (phi - ccut) / span;
+  const T lo = T(-1) + T(64) * eps_of(T(0));
+  if (!(x > lo && x < T(0))) return T(0);
+  const T d = (x - T(1)) * (x + T(1));
+  return kc * span * x / (d * d);
 }
 
 // Corner c of a block at the carry's U, as the gap functions write it:
@@ -775,7 +855,7 @@ inline int device_sms() {
 
 // Unpack the C interface's arguments and launch the instantiation that
 // pick(linearized, contact, guarded, threads) returns (NULL: none) in
-// blocks of block_threads<T>.
+// blocks of block_threads<L, T>.
 //   ptrs: U0, V0, A0, dts, drive, drive_map, the N fixed leaves, outU, outV,
 //         outA, workspace (NULL: carry in shared memory), micro, decisions,
 //         flags (guarded; else NULL), load, load_micro (guarded; else NULL),
@@ -844,7 +924,7 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
   }
   const int n_sm = device_sms();
   if (n_sm < 1) return cudaErrorInvalidDevice;
-  const int threads = block_threads<T>(guard != nullptr, p.B, n_sm);
+  const int threads = block_threads<L, T>(guard != nullptr, p.B, n_sm);
   return launch_kernel<L, T>(pick(linearized != 0, use_contact != 0, guard != nullptr, threads),
                             threads, p, stream);
 }
@@ -891,8 +971,8 @@ inline long long max_dynamic_smem() {
   int PREFIX##_block_threads(int B, int dtype_bytes, int guarded) {                          \
     const int n_sm = verlet::device_sms();                                                   \
     if (n_sm < 1 || (dtype_bytes != 4 && dtype_bytes != 8)) return -1;                      \
-    return dtype_bytes == 4 ? verlet::block_threads<float>(guarded != 0, B, n_sm)            \
-                            : verlet::block_threads<double>(guarded != 0, B, n_sm);          \
+    return dtype_bytes == 4 ? verlet::block_threads<LATTICE, float>(guarded != 0, B, n_sm)   \
+                            : verlet::block_threads<LATTICE, double>(guarded != 0, B, n_sm); \
   }                                                                                          \
   int PREFIX##_launch_f32(const void* const*, const int*, int, int, const double*, void*);   \
   int PREFIX##_launch_f64(const void* const*, const int*, int, int, const double*, void*);   \

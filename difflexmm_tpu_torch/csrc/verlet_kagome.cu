@@ -64,6 +64,13 @@ struct Kagome {
   static constexpr int kC = 6;
   static constexpr int kLeaves = 20;
   static constexpr int kCmin = 14;
+  // The unguarded block: 256 threads at any batch and type.
+  template <typename T>
+  struct Unguarded {
+    static constexpr int kFew = 256;
+    static constexpr int kMany = 256;
+    static constexpr int kManyBlocks = 1;
+  };
   enum { kCnv = 0, kCen, kRefI, kRefB1, kRefB2, kKsI };
 
   __host__ __device__ static int nbond(int n1, int n2) {
@@ -231,13 +238,14 @@ KernelFn<T, Kagome::kLeaves> pick_flags(bool linearized, bool contact) {
                  : verlet_kagome_kernel<T, false, false, GUARD, NT>;
 }
 
-// Unguarded in blocks of kThreads, guarded of GuardThreads<T>::kFew or
-// ::kMany; NULL for any other block.
+// Unguarded in blocks of Kagome::Unguarded<T>::kFew, guarded of
+// GuardThreads<T>::kFew or ::kMany; NULL for any other block.
 template <typename T>
 KernelFn<T, Kagome::kLeaves> pick(bool linearized, bool contact, bool guard, int threads) {
   using G = GuardThreads<T>;
+  using U = Kagome::Unguarded<T>;
   if (!guard)
-    return threads == kThreads ? pick_flags<T, false, kThreads>(linearized, contact) : nullptr;
+    return threads == U::kFew ? pick_flags<T, false, U::kFew>(linearized, contact) : nullptr;
   if (threads == G::kFew) return pick_flags<T, true, G::kFew>(linearized, contact);
   if (threads == G::kMany) return pick_flags<T, true, G::kMany>(linearized, contact);
   return nullptr;

@@ -32,17 +32,26 @@
 // The force is written by hand (CUDA has no jax.grad). Each horizontal
 // bond (j,i)-(j,i+1) and vertical bond (j,i)-(j+1,i) owns its energy term:
 // the ligament term plus the contact barrier on its two void angles. That
-// term depends on exactly the six DOFs of its two blocks, so it is
-// evaluated once on forward-mode dual numbers seeded on those six, and its
-// six partials go to a per-bond buffer. After a barrier each (DOF, block)
-// thread sums its own <= 4 bonds in a fixed order: no atomics, so runs are
-// deterministic. External loads enter as the drive does: the wrapper sums
-// the pairs that name one slot into one load-table column per slot, and
-// each (DOF, block) thread adds its slot's column, read through load_map,
-// behind a branch on k_load that is uniform across the launch. The
-// contact term is evaluated on duals only when one of the bond's void
-// angles lies in [min_angle, cutoff): elsewhere it and its derivative are
-// zero.
+// term depends on exactly the six DOFs of its two blocks, and its six
+// partials are taken in closed form (quad_policy.cuh: a plain-value pass
+// and a scalar reverse sweep, about a quarter of the operations of the
+// forward-mode duals the kernel used before, and a few live scalars in
+// place of seven-wide duals) into a per-bond buffer. After a barrier each
+// (DOF, block) thread sums its own <= 4 bonds in a fixed order: no
+// atomics, so runs are deterministic. External loads enter as the drive
+// does: the wrapper sums the pairs that name one slot into one load-table
+// column per slot, and each (DOF, block) thread adds its slot's column,
+// read through load_map, behind a branch on k_load that is uniform across
+// the launch. The contact barrier's slope is evaluated only where one of
+// the bond's void angles lies in [min_angle, cutoff): elsewhere it is zero.
+//
+// The unguarded block is sized to the bonds while the designs do not
+// outnumber the SMs (Quad::Unguarded<T>::kFew in quad_policy.cuh: at float32
+// 768 threads, a thread per bond of the flagship's 728, the element passes
+// spread over the same threads; 512 at float64, whose registers do not fit
+// 768), and beyond that to the batch's throughput (::kMany, two blocks an
+// SM). One design per block either way, no atomics and a fixed summation
+// order: a design's outputs do not depend on the block or the batch.
 //
 // The guarded variant (GUARD = true) replaces the same call with a substep
 // guard (difflexmm_tpu/ops/pallas/core.py:330-625: make_interval_body with
@@ -65,16 +74,17 @@
 // micro-steps of dt / refine with drive rows from the micro-step table.
 // Each substep's decision and each interval's "any fired" flag are written
 // as bytes. The guard costs a pass and a reduction a substep and, where it
-// fires, refine - 1 extra steps. Its block is larger than the unguarded
-// kernels' while the designs do not outnumber the SMs (float32: 512
-// threads, float64: 384 at any batch; GuardThreads in verlet_common.cuh),
-// so that more warps hide the latency of a step.
+// fires, refine - 1 extra steps. Its block while the designs do not
+// outnumber the SMs is 512 threads at float32 (256 beyond) and 384 at
+// float64 at any batch (GuardThreads in verlet_common.cuh), so that more
+// warps hide the latency of a step.
 //
 // What does not depend on the lattice (duals, the ligament and barrier
-// energies, the substep, the guard's loop, the launch) is in
-// verlet_common.cuh, shared with the kagome kernel; the quad lattice's
-// policy (bond indexing, gather, travel and gap) is in quad_policy.cuh,
-// shared with the force kernel of quad_force.cu.
+// energies and their closed-form gradients, the substep, the guard's loop,
+// the launch) is in verlet_common.cuh, shared with the kagome kernel; the
+// quad lattice's policy (bond indexing, the bond partials, gather, travel
+// and gap) is in quad_policy.cuh, shared with the force kernel of
+// quad_force.cu.
 
 #include "quad_policy.cuh"
 
@@ -83,7 +93,8 @@ namespace {
 using namespace verlet;
 
 template <typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
-__global__ void __launch_bounds__(NT) verlet_quad_kernel(const Params<T, Quad::kLeaves> p) {
+__global__ void __launch_bounds__(NT, (min_blocks<Quad, T, GUARD, NT>()))
+    verlet_quad_kernel(const Params<T, Quad::kLeaves> p) {
   run_trajectory<Quad, T, LIN, CONTACT, GUARD, NT>(p);
 }
 
@@ -96,13 +107,17 @@ KernelFn<T, Quad::kLeaves> pick_flags(bool linearized, bool contact) {
                  : verlet_quad_kernel<T, false, false, GUARD, NT>;
 }
 
-// Unguarded in blocks of kThreads, guarded of GuardThreads<T>::kFew or
-// ::kMany; NULL for any other block.
+// Unguarded in blocks of Quad::Unguarded<T>::kFew or ::kMany, guarded of
+// GuardThreads<T>::kFew or ::kMany; NULL for any other block.
 template <typename T>
 KernelFn<T, Quad::kLeaves> pick(bool linearized, bool contact, bool guard, int threads) {
   using G = GuardThreads<T>;
-  if (!guard)
-    return threads == kThreads ? pick_flags<T, false, kThreads>(linearized, contact) : nullptr;
+  using U = Quad::Unguarded<T>;
+  if (!guard) {
+    if (threads == U::kFew) return pick_flags<T, false, U::kFew>(linearized, contact);
+    if (threads == U::kMany) return pick_flags<T, false, U::kMany>(linearized, contact);
+    return nullptr;
+  }
   if (threads == G::kFew) return pick_flags<T, true, G::kFew>(linearized, contact);
   if (threads == G::kMany) return pick_flags<T, true, G::kMany>(linearized, contact);
   return nullptr;

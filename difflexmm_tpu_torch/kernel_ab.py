@@ -1,17 +1,20 @@
-"""Compare another commit's trajectory kernels with the repository's on one
-CUDA device: registers and spills, outputs and times.
+"""Compare another commit's hand-written quad and kagome kernels with the
+repository's on one CUDA device: registers and spills, outputs and times.
 
     python3 -m difflexmm_tpu_torch.kernel_ab DIR
 
 ``DIR`` is the other commit's package directory, unpacked whole so that
 its headers sit beside its sources, for instance ``git archive REV
 difflexmm_tpu_torch | tar -x -C OUT`` and ``DIR = OUT/difflexmm_tpu_torch``.
-Both ``csrc/verlet_quad.cu`` and ``csrc/verlet_kagome.cu`` are built from
-each side afresh with the same nvcc flags, at the same time (by type where
-the side's ``verlet_common.cuh`` splits by ``VERLET_TYPE``). The other
-sources must export the same C interface or an older form of it (the
-launch's extra arguments, such as the load pointers, come after the ones
-an older source reads).
+The trajectory sources ``csrc/verlet_quad.cu`` and ``csrc/verlet_kagome.cu``
+and the force source ``csrc/quad_force.cu`` are built from each side
+afresh with the same nvcc flags, at the same time (the trajectory sources
+by type where the side's ``verlet_common.cuh`` splits by
+``VERLET_TYPE``). The other sources must export the same C interface or
+an older form of it (the launch's extra arguments, such as the load
+pointers, come after the ones an older source reads; a force library
+without ``quad_force_tile`` takes a ``(B, 6, nbond)`` workspace before
+its output).
 
 Each version then runs, through the repository's wrappers: the flagship
 and the kagome configuration (``models/kagome_config.build_kagome``),
@@ -19,11 +22,17 @@ unguarded and guarded (``guard="auto"``); the quad and the kagome contact
 probes, unguarded and guarded; the force pulse (kernel 1L); each at
 float64 and float32, at B = 1. The largest |other - repo| of U, V and A is
 printed, and for the guarded kernels whether decisions and flags are
-identical. Last, kernels 1g, 1Kg, 1 and 1K are timed with CUDA events at
-B = 1, one design per SM and four per SM, float32 and float64, the
-versions alternating (other, repo, repo, other, other, repo), each turn
-the median of 3 runs. The last line of standard output is a JSON object
-of the results.
+identical. Kernel 2 runs on the microbenchmark's inputs ((3, 16, 24) x
+128, ``kernel_checks.lanes_microbench_inputs``), on the flagship's state
+mid-pulse at B = 1 and on the contact probe's state, and its largest
+|other - repo| is printed. Last, kernels 1g, 1Kg, 1 and 1K are timed
+with CUDA events at B = 1, one design per SM and four per SM, 1L at the
+pulse at B = 1, and kernel 2 at the microbenchmark's inputs and at the
+flagship's B = 1, each as the replay of a CUDA graph of 20 calls (over
+20: the device's time of a call) and as one eager call;
+float32 and float64, the versions alternating (other, repo, repo, other,
+other, repo), each turn the median of 3 runs (kernel 2: of 30). The last
+line of standard output is a JSON object of the results.
 """
 
 import ctypes
@@ -42,7 +51,13 @@ from difflexmm_tpu_torch.models import kagome_config as kg
 from difflexmm_tpu_torch.models import loaded_configs as lc
 from difflexmm_tpu_torch.ops.kernels import build, core, launch
 
-SOURCES = ("verlet_quad", "verlet_kagome")
+#: The sources built on both sides; each one's kernel template is
+#: ``<source>_kernel`` (in an older force library also its bond pass,
+#: ``quad_bond_kernel``).
+SOURCES = ("verlet_quad", "verlet_kagome", "quad_force")
+FORCE_REPS = 30
+#: Calls of kernel 2 in the CUDA graph that times one call's device time.
+FORCE_CALLS = 20
 
 
 def _event_ms(fn, reps=3):
@@ -64,6 +79,42 @@ def _repeated(args, B):
     return args._replace(U0=rep(args.U0), V0=rep(args.V0), A0=rep(args.A0),
                          drive=rep(args.drive), fixed=tuple(rep(f) for f in args.fixed),
                          micro=tuple(rep(m) for m in args.micro))
+
+
+def _graphed(fn):
+    """A CUDA graph of :data:`FORCE_CALLS` calls of ``fn``, captured after a
+    warm-up on a side stream; returns its replay."""
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(FORCE_CALLS):
+            fn()
+    return graph.replay
+
+
+def _force(lib, U, fixed):
+    """Kernel 2 of ``lib`` (nonlinear, with contact) at ``U`` (B, 3, n2, n1)
+    and the 13 energy leaves: the repository's interface, or the older one
+    with a ``(B, 6, nbond)`` workspace before the output."""
+
+    B, _, n2, n1 = U.shape
+    out = torch.empty_like(U)
+    tensors = [U, *fixed[:13]]
+    if not hasattr(lib, "quad_force_tile"):
+        nbond = n2 * (n1 - 1) + (n2 - 1) * n1
+        tensors.append(torch.empty((B, 6, nbond), dtype=U.dtype, device=U.device))
+    pointers = [t.data_ptr() for t in tensors + [out]]
+    err = lib.quad_force_launch((ctypes.c_void_p * len(pointers))(*pointers),
+                                (ctypes.c_int * 3)(B, n1, n2), U.element_size(), 0, 1,
+                                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"quad_force launch failed ({err})")
+    return out
 
 
 def _unguarded(args):
@@ -109,26 +160,34 @@ def main(other: str):
 
     dirs = {"other": Path(other) / "csrc", "repo": build.CSRC_DIR}
     jobs, targets = {}, {}
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         for side, csrc in dirs.items():
             by_type = "VERLET_TYPE" in (csrc / "verlet_common.cuh").read_text()
             for src in SOURCES:
                 targets[side, src] = build.BUILD_DIR / "ab" / side / f"lib{src}.so"
                 jobs[side, src] = pool.submit(build.compile_source, csrc / f"{src}.cu",
-                                              targets[side, src], by_type)
+                                              targets[side, src],
+                                              by_type and src in build.BY_TYPE)
         logs = {key: job.result()["log"] for key, job in jobs.items()}
     usage = {key: build.ptxas_usage(log, key[1]) for key, log in logs.items()}
+    usage["other", "quad_force"].update(build.ptxas_usage(logs["other", "quad_force"],
+                                                          "quad_bond"))
     print("registers, stack, spill stores and loads (dtype, linearized, contact, guard[, "
-          "threads]): other / repo")
+          "threads]; kernel 2: dtype, linearized, contact[, tile, threads]): other / repo")
     for src in SOURCES:
         for key in sorted(set(usage["other", src]) | set(usage["repo", src])):
             print(f"  {src} {key}: " + " / ".join(
                 str(tuple(u[key].values())) if key in u else "-"
                 for u in (usage["other", src], usage["repo", src])))
-    libs = {key: launch.type_library(ctypes.CDLL(str(t)), key[1]) for key, t in targets.items()}
+    libs = {key: ctypes.CDLL(str(t)) for key, t in targets.items()}
+    for key, lib in libs.items():
+        if key[1] in build.BY_TYPE:
+            launch.type_library(lib, key[1])
+        else:
+            lib.quad_force_launch.restype = ctypes.c_int
 
     def use(side):
-        for src in SOURCES:
+        for src in build.BY_TYPE:
             build._LIBS[src] = libs[side, src]
 
     device = torch.device("cuda")
@@ -153,26 +212,72 @@ def main(other: str):
                      f"({decisions[label]['fired']} substeps fired)")
         print(line, flush=True)
 
+    flagship = inputs["flagship float64"][1]
+    use("repo")
+    U = core.trajectory_forward(flagship)[0][:, 20]
+    probe = inputs["contact probe float64"][1]
+    forces = {
+        "microbench B=128": kc.lanes_microbench_inputs(B=128, device=device,
+                                                       dtype=torch.float64),
+        "flagship B=1": (U * flagship.fixed[-1] + core.drive_planes(
+            flagship.drive[:, 200], flagship.spec, U), flagship.fixed[:13]),
+        "contact probe": (probe.U0 * probe.fixed[-1] + core.drive_planes(
+            probe.drive[:, 0], probe.spec, probe.U0), probe.fixed[:13]),
+    }
+    for label, (U64, fixed64) in forces.items():
+        for dt in (torch.float64, torch.float32):
+            U, fixed = U64.to(dt), tuple(f.to(dt) for f in fixed64)
+            a, b = (_force(libs[side, "quad_force"], U, fixed) for side in ("other", "repo"))
+            key = f"kernel 2 {label} {str(dt)[6:]}"
+            differences[key] = float((a.double() - b.double()).abs().max())
+            print(f"{key}: largest |other - repo| {differences[key]!r} (field scale "
+                  f"{float(b.abs().max())!r})", flush=True)
+
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     times = {}
+
+    def turns(key, run):
+        """Time ``run(side)`` (ms) in alternating turns and print the medians."""
+
+        for side in ("other", "repo", "repo", "other", "other", "repo"):
+            times.setdefault(key, {}).setdefault(side, []).append(run(side))
+        by_side = times[key]
+        ratio = statistics.median(by_side["repo"]) / statistics.median(by_side["other"])
+        print(f"{key}: " + ", ".join(
+            f"{side} {statistics.median(ms):.4f} ms {[round(x, 4) for x in ms]}"
+            for side, ms in by_side.items()) + f", repo/other {ratio:.4f}", flush=True)
+
+    def trajectory(args):
+        """``run(side)`` for :func:`turns`: one warm-up, then the trajectory
+        timed."""
+
+        def run(side):
+            use(side)
+            core.trajectory_forward(args)  # warm up
+            return _event_ms(lambda: core.trajectory_forward(args))
+
+        return run
+
     for label in ("flagship guarded", "kagome guarded", "flagship", "kagome"):
         for dt in ("float32", "float64"):
             src, args1 = inputs[f"{label} {dt}"]
             for B in (1, n_sm, 4 * n_sm):
                 args = _repeated(args1, B)
-                key = f"{label} {dt} B={B}"
-                for side in ("other", "repo", "repo", "other", "other", "repo"):
-                    use(side)
-                    core.trajectory_forward(args)  # warm up
-                    times.setdefault(key, {}).setdefault(side, []).append(
-                        _event_ms(lambda: core.trajectory_forward(args)))
-                by_side = times[key]
-                print(f"{key}: " + ", ".join(
-                    f"{side} {statistics.median(ms):.3f} ms {[round(x, 3) for x in ms]}"
-                    for side, ms in by_side.items())
-                    + f", repo/other {statistics.median(by_side['repo']) / statistics.median(by_side['other']):.4f}",
-                    flush=True)
+                turns(f"{label} {dt} B={B}", trajectory(args))
                 del args
+    for dt in ("float32", "float64"):
+        turns(f"1L pulse {dt} B=1", trajectory(inputs[f"pulse {dt}"][1]))
+    for label in ("microbench B=128", "flagship B=1"):
+        for dt in (torch.float32, torch.float64):
+            U, fixed = forces[label][0].to(dt), tuple(f.to(dt) for f in forces[label][1])
+            replay = {side: _graphed(lambda side=side: _force(libs[side, "quad_force"], U, fixed))
+                      for side in ("other", "repo")}
+            key = f"kernel 2 {label} {str(dt)[6:]}"
+            turns(f"{key} graph replay", lambda side: _event_ms(replay[side], FORCE_REPS)
+                  / FORCE_CALLS)
+            turns(f"{key} eager", lambda side: _event_ms(
+                lambda: _force(libs[side, "quad_force"], U, fixed), FORCE_REPS))
+            del replay
     use("repo")
     print(json.dumps({
         "card": card,

@@ -331,9 +331,20 @@ def guard_terms(args: core.TrajectoryArgs):
 
 # Operations of one trajectory kernel, counted from csrc/verlet_common.cuh
 # and the lattice's file: adds, multiplies and divides, and each sqrt, sin,
-# cos and atan2 as one. A dual number carries 6 partials, so a dual add
-# costs 7, a dual product or quotient 19, a dual sin or cos 8-9 and a dual
-# atan2 29. A bond costs the same on both lattices (bond_energy).
+# cos and atan2 as one.
+# The quad lattice (csrc/quad_policy.cuh, Quad::bond_term) takes a bond's
+# six partials in closed form: the sines and cosines of the two rotations
+# (4), the two corners' displacements (18), the nonlinear ligament's
+# gradient (2 + 47) and the chain to the rotations (18 + 2 negations), 91
+# operations, and the void check (32: four edges at rest, two angles, the
+# rotations and the wrap); an engaged void angle adds the barrier's slope
+# and its two signed terms (12).
+OPS_BOND_QUAD = 4 + 18 + 2 + 47 + 20 + 32
+OPS_VOID_CONTACT_QUAD = 12
+# The kagome lattice evaluates a bond on forward-mode duals carrying 6
+# partials: a dual add costs 7, a dual product or quotient 19, a dual sin
+# or cos 8-9 and a dual atan2 29 (the quad lattice did the same before its
+# closed form, at the same counts).
 OPS_BOND = 36 + 112 + 389 + 94  # block kinematics, 2 corners, ligament, void check
 OPS_BOND_CONTACT = 766  # dual void angles and two barrier terms, engaged bonds only
 OPS_GATHER = 4  # the force kernel's gather: <= 4 partials summed onto zero
@@ -356,8 +367,9 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
     operations over the peak rate of its type. Each input is read once and
     each output (U, V, A at every interval boundary; guarded, the decisions
     and flags) written once. The data-dependent work counts what this run
-    needs: contact bonds engaged at the interval boundaries of ``outU``
-    (the kernel's U output, times the substeps of an interval) and,
+    needs: contact terms engaged at the interval boundaries of ``outU``
+    (the kernel's U output, times the substeps of an interval;
+    :func:`bond_ops`) and,
     guarded (``summary``: :func:`guard_terms`' for these inputs), guard gaps
     only where the predicate needs them and micro-steps and their drive
     rows only where the guard fired.
@@ -373,10 +385,10 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
     ncell = n1 * n2
     if _is_kagome(args.U0):
         nbond = ncell + (n2 - 1) * n1 + n2 * (n1 - 1)
-        ops_dof, ops_travel, cmin_leaf = OPS_DOF_KAGOME, OPS_TRAVEL_PER_CELL_KAGOME, 14
+        ops_dof, ops_travel = OPS_DOF_KAGOME, OPS_TRAVEL_PER_CELL_KAGOME
     else:
         nbond = n2 * (n1 - 1) + (n2 - 1) * n1
-        ops_dof, ops_travel, cmin_leaf = OPS_DOF, OPS_TRAVEL_PER_BLOCK, 10
+        ops_dof, ops_travel = OPS_DOF, OPS_TRAVEL_PER_BLOCK
     n_int = args.dts.shape[0]
     n_steps = n_int * spec.n_substeps
     steps = n_steps
@@ -392,7 +404,8 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
         nbytes += summary["fired"] * refine * args.drive.shape[-1] * itemsize
         ops += B * n_steps * ops_travel * ncell
         ops += summary["gaps"] * OPS_GAP_PER_BOND * nbond
-    engaged = engaged_bonds(outU, args.fixed) * spec.n_substeps
+    ops_bond, contact = bond_ops(outU, args.fixed)
+    contact *= spec.n_substeps
     if spec.load_map is not None:
         k_load = spec.load_map.pairs.shape[0]
         nbytes += args.loads[0].numel() * itemsize  # the substep load table
@@ -402,7 +415,7 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
         # Each loaded pair's value added to its slot, and each loaded slot's
         # sum to the force.
         ops += steps * B * (k_load + spec.load_map.slots.shape[0])
-    ops += steps * B * (nbond * OPS_BOND + C * ncell * ops_dof) + engaged * OPS_BOND_CONTACT
+    ops += steps * B * (nbond * ops_bond + C * ncell * ops_dof) + contact
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FLOPS[args.U0.dtype] * 1e3
     n_sm = (torch.cuda.get_device_properties(args.U0.device).multi_processor_count
@@ -413,22 +426,44 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
                 sm_floor_ms=max(bound_ms, ops_ms * n_sm / B))
 
 
-def engaged_bonds(U, fixed) -> int:
-    """Bonds with a void angle in the barrier window [cmin, ccut), those
-    whose contact term the kernels evaluate on duals, summed over the B
-    designs of ``U`` (B, ..., C, n2, n1) and any further leading index
-    (states at several times)."""
+def engaged_voids(U, fixed) -> tuple:
+    """``(bonds, voids)``: the bonds with a void angle in the barrier window
+    [cmin, ccut) and the void angles in it, summed over the B designs of
+    ``U`` (B, ..., C, n2, n1) and any further leading index (states at
+    several times)."""
 
     cmin_leaf = 14 if _is_kagome(U) else 10
     cmin = fixed[cmin_leaf].flatten()
     ccut = fixed[cmin_leaf + 1].flatten()
-    engaged = 0
+    bonds = voids = 0
     with torch.no_grad():
         for b in range(U.shape[0]):
-            voids = void_angles_planes(U[b], tuple(f[b] for f in fixed[:2]))
-            on = [(v >= cmin[b]) & (v < ccut[b]) for v in voids]
-            engaged += sum(int((on[k] | on[k + 1]).sum()) for k in range(0, len(on), 2))
-    return engaged
+            angles = void_angles_planes(U[b], tuple(f[b] for f in fixed[:2]))
+            on = [(v >= cmin[b]) & (v < ccut[b]) for v in angles]
+            bonds += sum(int((on[k] | on[k + 1]).sum()) for k in range(0, len(on), 2))
+            voids += sum(int(o.sum()) for o in on)
+    return bonds, voids
+
+
+def engaged_bonds(U, fixed) -> int:
+    """Bonds with a void angle in the barrier window [cmin, ccut), those
+    whose contact term the kernels evaluate, summed over the B designs of
+    ``U`` and any further leading index (:func:`engaged_voids`)."""
+
+    return engaged_voids(U, fixed)[0]
+
+
+def bond_ops(U, fixed) -> tuple:
+    """``(operations of one bond, operations of the contact terms at U)``
+    as the lattice's kernels count them: the quad lattice's closed form
+    (:data:`OPS_BOND_QUAD`, :data:`OPS_VOID_CONTACT_QUAD` an engaged void
+    angle), the kagome lattice's duals (:data:`OPS_BOND`,
+    :data:`OPS_BOND_CONTACT` an engaged bond)."""
+
+    bonds, voids = engaged_voids(U, fixed)
+    if _is_kagome(U):
+        return OPS_BOND, bonds * OPS_BOND_CONTACT
+    return OPS_BOND_QUAD, voids * OPS_VOID_CONTACT_QUAD
 
 
 def force_bound(U_eff, fixed) -> dict:
@@ -437,19 +472,121 @@ def force_bound(U_eff, fixed) -> dict:
     n2, n1): the larger of its bytes over the memory rate (U_eff and the 13
     energy leaves read once, the force written once) and its operations
     over the peak rate of its type, counted as :func:`trajectory_bound`
-    counts a substep's force: OPS_BOND a bond, OPS_BOND_CONTACT an engaged
-    bond, OPS_GATHER a state element."""
+    counts a substep's force: OPS_BOND_QUAD a bond, OPS_VOID_CONTACT_QUAD an
+    engaged void angle, OPS_GATHER a state element."""
 
     B, C, n2, n1 = U_eff.shape
     nbond = n2 * (n1 - 1) + (n2 - 1) * n1
     nbytes = sum(t.numel() * t.element_size() for t in (U_eff, *fixed[:13]))
     nbytes += U_eff.numel() * U_eff.element_size()
-    ops = B * (nbond * OPS_BOND + C * n1 * n2 * OPS_GATHER)
-    ops += engaged_bonds(U_eff, fixed) * OPS_BOND_CONTACT
+    ops_bond, contact = bond_ops(U_eff, fixed)
+    ops = B * (nbond * ops_bond + C * n1 * n2 * OPS_GATHER) + contact
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FLOPS[U_eff.dtype] * 1e3
     return dict(bytes=nbytes, ops=ops, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def closed_form_partials(U_eff, fixed, linearized=False, use_contact=True):
+    """The six partials of every quad bond at ``U_eff`` (B, 3, n2, n1), as
+    the kernels take them in closed form (``Quad::bond_term`` of
+    ``csrc/quad_policy.cuh``, line for line): ``(B, 6, nbond)``, horizontal
+    bonds then vertical, seeds (ux, uy, theta) of the first block, then of
+    the second. A test helper: no path of the program runs it."""
+
+    cnv, _, ref_h, ref_v, ks_h, ksh_h, kr_h, ks_v, ksh_v, kr_v, cmin, ccut, kc = fixed[:13]
+    B = U_eff.shape[0]
+    every = slice(None)
+    families = (
+        ((every, slice(None, -1)), (every, slice(1, None)), 0, 2, ref_h, ks_h, ksh_h, kr_h),
+        ((slice(None, -1), every), (slice(1, None), every), 1, 3, ref_v, ks_v, ksh_v, kr_v),
+    )
+    partials = []
+    for at_a, at_b, c1, c2, ref, ks, ksh, kr in families:
+        def block(at):
+            """(ux, uy, th, corner vectors (4, 2)) of the blocks at ``at``."""
+
+            ux, uy, th = (U_eff[:, k][(every,) + at] for k in range(3))
+            return ux, uy, th, [[cnv[:, c, d][(every,) + at] for d in range(2)] for c in range(4)]
+
+        uxa, uya, tha, ga = block(at_a)
+        uxb, uyb, thb, gb = block(at_b)
+        (cxa, cya), (cxb, cyb) = ga[c1], gb[c2]
+        sa, ca, sb, cb = torch.sin(tha), torch.cos(tha), torch.sin(thb), torch.cos(thb)
+        dxa = uxa + (ca - 1) * cxa - sa * cya
+        dya = uya + sa * cxa + (ca - 1) * cya
+        dxb = uxb + (cb - 1) * cxb - sb * cyb
+        dyb = uyb + sb * cxb + (cb - 1) * cyb
+        # ligament_grad
+        dUx, dUy, refx, refy = dxb - dxa, dyb - dya, ref[:, 0], ref[:, 1]
+        l0sq = refx * refx + refy * refy
+        if linearized:
+            axial = (dUx * refx + dUy * refy) / l0sq
+            shear = (refx * dUy - refy * dUx) / l0sq - (tha + thb) / 2
+            gx = ks * axial * refx - ksh * shear * refy
+            gy = ks * axial * refy + ksh * shear * refx
+        else:
+            rx, ry = dUx + refx, dUy + refy
+            rr = rx * rx + ry * ry
+            stretch = torch.sqrt(rr / l0sq)
+            mean = (tha + thb) / 2
+            c, s = torch.cos(mean), torch.sin(mean)
+            px, py = c * refx - s * refy, s * refx + c * refy
+            shear = torch.atan2(px * ry - py * rx, px * rx + py * ry)
+            ka = ks * (stretch - 1) / stretch
+            kt = ksh * shear * l0sq / rr
+            gx, gy = ka * rx - kt * ry, ka * ry + kt * rx
+        hs = 0.5 * ksh * shear * l0sq
+        rot = kr * (thb - tha)
+        ta = (-hs - rot) - (gx * (-sa * cxa - ca * cya) + gy * (ca * cxa - sa * cya))
+        tb = (-hs + rot) + (gx * (-sb * cxb - cb * cyb) + gy * (cb * cxb - sb * cyb))
+        if use_contact:
+            # Each void angle: the angle between the two edges at rest plus
+            # (tha - thb) or (thb - tha), taken into [-pi, pi] (wrap_angle).
+            def edge(g, c, c0):
+                return g[c % 4][0] - g[c0][0], g[c % 4][1] - g[c0][1]
+
+            (n1x, n1y), (p1x, p1y) = edge(ga, c1 + 1, c1), edge(ga, c1 + 3, c1)
+            (n2x, n2y), (p2x, p2y) = edge(gb, c2 + 1, c2), edge(gb, c2 + 3, c2)
+            turn = 2 * math.pi
+            voids = []
+            for rest, rotation in ((torch.atan2(p2x * n1y - p2y * n1x, p2x * n1x + p2y * n1y),
+                                    tha - thb),
+                                   (torch.atan2(p1x * n2y - p1y * n2x, p1x * n2x + p1y * n2y),
+                                    thb - tha)):
+                v = rest + rotation
+                voids.append(v - turn * torch.round(v * (1 / turn)))
+            # barrier_slope where the void angle lies in [cmin, ccut)
+            span = ccut - cmin
+            lo = -1 + 64 * torch.finfo(U_eff.dtype).eps
+            slopes = []
+            for v in voids:
+                x = (v - ccut) / span
+                d = (x - 1) * (x + 1)
+                on = (v >= cmin) & (v < ccut) & (x > lo) & (x < 0)
+                slopes.append(torch.where(on, kc * span * x / (d * d), torch.zeros_like(x)))
+            ta = ta + slopes[0] - slopes[1]
+            tb = tb - slopes[0] + slopes[1]
+        partials.append(torch.stack([-gx, -gy, ta, gx, gy, tb], 1).reshape(B, 6, -1))
+    return torch.cat(partials, -1)
+
+
+def closed_form_force(U_eff, fixed, linearized=False, use_contact=True):
+    """dE/dU_eff (B, 3, n2, n1) from :func:`closed_form_partials`, each
+    state element summing its <= 4 bonds in ``Quad::gather``'s order: the
+    bond to its left, to its right, below, above."""
+
+    B, _, n2, n1 = U_eff.shape
+    P = closed_form_partials(U_eff, fixed, linearized, use_contact)
+    nh = n2 * (n1 - 1)
+    h = P[..., :nh].reshape(B, 6, n2, n1 - 1)
+    v = P[..., nh:].reshape(B, 6, n2 - 1, n1)
+    g = torch.zeros_like(U_eff)
+    g[..., :, 1:] += h[:, 3:]
+    g[..., :, :-1] += h[:, :3]
+    g[..., 1:, :] += v[:, 3:]
+    g[..., :-1, :] += v[:, :3]
+    return g
 
 
 def lanes_microbench_inputs(B=128, seed=0, n1=24, n2=16, device="cuda", dtype=torch.float32):

@@ -313,8 +313,22 @@ def _force_library():
         lib.quad_force_launch.restype = ctypes.c_int
         lib.quad_force_error_string.argtypes = [ctypes.c_int]
         lib.quad_force_error_string.restype = ctypes.c_char_p
+        lib.quad_force_tile.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.quad_force_tile.restype = ctypes.c_int
         lib._typed = True
     return lib
+
+
+def force_tile(n1: int, n2: int, B: int) -> tuple:
+    """``(blocks along n1, along n2, threads)`` of the lattice tile that a
+    launch of :func:`quad_force` on ``B`` designs of ``n1 x n2`` blocks
+    takes on the current CUDA device, as the kernel's launch picks it
+    (``pick_tile`` in ``csrc/quad_force.cu``)."""
+
+    shape = (ctypes.c_int * 3)()
+    if _force_library().quad_force_tile(n1, n2, B, shape) != 0:
+        raise RuntimeError("quad_force: cannot query the device's SMs")
+    return tuple(shape)
 
 
 def quad_force(U_eff, fixed, *, linearized, use_contact):
@@ -323,8 +337,9 @@ def quad_force(U_eff, fixed, *, linearized, use_contact):
     :data:`N_FIXED_ARRAYS`' energy leaves) are read -> (B, 3, n2, n1).
 
     CPU tensors go to the plain version (:func:`quad_grid_force_planes`).
-    CUDA tensors launch ``csrc/quad_force.cu`` or raise: there is no
-    fallback. Each launch adds one to ``quad_force.launches``.
+    CUDA tensors launch ``csrc/quad_force.cu`` (one kernel over lattice
+    tiles and designs, :func:`force_tile`) or raise: there is no fallback.
+    Each launch adds one to ``quad_force.launches``.
     """
 
     fixed = tuple(fixed[:13])
@@ -350,11 +365,9 @@ def quad_force(U_eff, fixed, *, linearized, use_contact):
             raise ValueError(f"quad_force argument {i}: shape {tuple(t.shape)}, want "
                              f"contiguous {shape}")
     lib = _force_library()
-    nbond = n2 * (n1 - 1) + (n2 - 1) * n1
     with torch.cuda.device(U_eff.device):
-        workspace = torch.empty((B, 6, nbond), dtype=dtype, device=U_eff.device)
         out = torch.empty_like(U_eff)
-        pointers = [t.data_ptr() for t in (U_eff, *fixed, workspace, out)]
+        pointers = [t.data_ptr() for t in (U_eff, *fixed, out)]
         ptrs = (ctypes.c_void_p * len(pointers))(*pointers)
         dims = (ctypes.c_int * 3)(B, n1, n2)
         stream = torch.cuda.current_stream(U_eff.device).cuda_stream

@@ -18,8 +18,14 @@ equals its designs' single launches bit for bit, and its design gradients
 through the adjoint's graph replay equal an eager replay's. The guarded
 kernels take another block by the batch (``launch.block_threads``): a
 design's outputs, decisions and flags are the same bit for bit in a launch
-of 1, 132 or 528 designs, and a NaN stays in its design.
+of 1, 132 or 528 designs, and a NaN stays in its design. So does the
+unguarded quad kernel's block (a thread per bond while the designs do not
+outnumber the SMs), at B = 1, 128, 132 and 528. Kernel 2 is one launch
+over lattice tiles and designs: it matches its plain version on ragged
+tiles and keeps a NaN in its design at every tile shape.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -32,6 +38,7 @@ from difflexmm_tpu_torch.models.kagome_config import build_kagome
 from difflexmm_tpu_torch.ops.kernels import build, core, launch, verlet_kagome
 from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
     carry_bytes,
+    force_tile,
     quad_force,
     quad_grid_force_planes,
     verlet_quad_trajectory,
@@ -506,6 +513,95 @@ def test_force_kernel_matches_plain(device, dtype, case, linearized):
     assert torch.isfinite(k).all() and kc.max_rel_err(k.double(), ref) <= bound
 
 
+@pytest.mark.parametrize("case", ["25x17 B=3", "96x64 B=1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_force_kernel_on_ragged_tiles_matches_plain(device, dtype, case):
+    """Kernel 2 where the lattice is no whole number of tiles (25 x 17 at
+    B = 3) and on the 96 x 64 lattice at B = 1, which must spread over many
+    blocks, against its plain version with the tolerances above."""
+
+    n1, n2, B = {"25x17 B=3": (25, 17, 3), "96x64 B=1": (96, 64, 1)}[case]
+    tx, ty, _ = force_tile(n1, n2, B)
+    if case.startswith("25"):
+        assert n1 % tx and n2 % ty  # ragged both ways
+    else:
+        assert -(-n1 // tx) * -(-n2 // ty) >= 32  # the design spreads over the card
+    U64, fixed64 = kc.lanes_microbench_inputs(B=B, n1=n1, n2=n2, seed=2, device=device,
+                                              dtype=torch.float64)
+    if dtype == torch.float64:
+        k = quad_force(U64, fixed64, linearized=False, use_contact=True)
+        p = quad_grid_force_planes(U64, *fixed64)
+        assert torch.isfinite(k).all() and kc.max_rel_err(k, p) <= 1e-12
+        return
+    U, fixed = U64.float(), tuple(f.float() for f in fixed64)
+    ref = quad_grid_force_planes(U.double(), *(f.double() for f in fixed))
+    bound = max(3.0 * kc.max_rel_err(quad_grid_force_planes(U, *fixed).double(), ref), 1e-5)
+    k = quad_force(U, fixed, linearized=False, use_contact=True)
+    assert torch.isfinite(k).all() and kc.max_rel_err(k.double(), ref) <= bound
+
+
+@pytest.mark.parametrize("n1, n2, B", [(25, 17, 3), (24, 16, 300)])
+def test_force_kernel_keeps_a_nan_in_its_design_at_every_tile(device, n1, n2, B):
+    """A NaN in design 1 reaches only design 1's force, at the small tile
+    (few designs, ragged) and at the large one (a batch that fills the
+    card): the other designs' forces stay exact."""
+
+    U, fixed = kc.lanes_microbench_inputs(B=B, n1=n1, n2=n2, device=device,
+                                          dtype=torch.float64)
+    clean = quad_force(U, fixed, linearized=False, use_contact=True)
+    U[1, 0, n2 - 1, n1 - 1] = float("nan")
+    dirty = quad_force(U, fixed, linearized=False, use_contact=True)
+    assert not bool(torch.isfinite(dirty[1]).all())
+    others = [b for b in range(B) if b != 1]
+    assert torch.equal(dirty[others], clean[others])
+
+
+def _captured_node_types(fn):
+    """The node types (``CUgraphNodeType``; 0 a kernel) of the CUDA graph
+    that ``libcuda`` captures from one call of ``fn`` on a side stream."""
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    handle, graph = ctypes.c_void_p(stream.cuda_stream), ctypes.c_void_p()
+    with torch.cuda.stream(stream):
+        assert libcuda.cuStreamBeginCapture_v2(handle, 2) == 0  # relaxed capture mode
+        try:
+            fn()
+        finally:
+            ended = libcuda.cuStreamEndCapture(handle, ctypes.byref(graph))
+    assert ended == 0
+    count = ctypes.c_size_t(0)
+    assert libcuda.cuGraphGetNodes(graph, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert libcuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)) == 0
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        assert libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    libcuda.cuGraphDestroy(graph)
+    return types
+
+
+@pytest.mark.parametrize("B", [1, 128])
+def test_force_kernel_is_one_launch(device, B):
+    """One call of kernel 2, at either tile, is one kernel launch (the
+    graph captured from it holds one kernel node and nothing else: no
+    second pass, no workspace) and one count on the wrapper."""
+
+    U, fixed = kc.lanes_microbench_inputs(B=B, device=device, dtype=torch.float64)
+
+    def call():
+        return quad_force(U, fixed, linearized=False, use_contact=True)
+
+    call()  # build, warm up, and leave the output's block in the allocator's cache
+    torch.cuda.synchronize()
+    launches = quad_force.launches
+    assert _captured_node_types(call) == [0]
+    assert quad_force.launches == launches + 1
+
+
 def test_force_kernel_keeps_a_nan_in_its_design(device):
     U, fixed = kc.lanes_microbench_inputs(B=4, device=device, dtype=torch.float64)
     clean = quad_force(U, fixed, linearized=False, use_contact=True)
@@ -732,3 +828,42 @@ def test_guarded_nan_stays_in_its_design(device, lattice):
     for x, y in zip(clean, dirty):
         for b in (0, 2, 3):
             assert torch.equal(x[b], y[b])
+
+
+# ---------------------------------------------------------------------------
+# The unguarded quad kernel's block (kernel 1 and its population 1T): one
+# design per block whatever the shape launch.block_threads picks by the batch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_population_of_any_block_equals_single_launches(device, dtype):
+    """Kernel 1: each design of a launch of 1, 128, 132 or 528 designs gives
+    its B = 1 launch's outputs bit for bit, though the launches beyond the
+    SMs run in blocks of another shape (four random 8 x 6 designs with the
+    contact barrier, and the flagship's design)."""
+
+    lib = launch.type_library(build.load("verlet_quad"), "verlet_quad")
+    shapes = {B: launch.block_threads(lib, "verlet_quad", B, dtype, False)
+              for B in (1, 128, 132, 528)}
+    assert shapes[1] == shapes[128] == shapes[132] != shapes[528]
+    rng = np.random.default_rng(17)
+    small = kc.small_problem(device=device, dtype=dtype, amplitude_scale=0.01)
+    opt, design = build_flagship(device=device, dtype=dtype)
+    cases = (kc.batched_args(small, [kc.random_design(small, rng) for _ in range(4)]),
+             kc.batched_args(opt.forward_problem, [design]))
+    for args in cases:
+        B0 = args.U0.shape[0]
+        single = []
+        for b in range(B0):
+            def one(x, b=b):
+                return x[b:b + 1].contiguous()
+
+            single.append(_kernel(args._replace(
+                U0=one(args.U0), V0=one(args.V0), A0=one(args.A0), drive=one(args.drive),
+                fixed=tuple(one(f) for f in args.fixed))))
+        for B in (1, 128, 132, 528):
+            batch = _kernel(_tiled(args, B))
+            for b in range(B):
+                for x, y in zip(batch, single[b % B0]):
+                    assert torch.equal(x[b], y[0])

@@ -1,7 +1,9 @@
 """Kernel 2's counterpart in the PyTorch port, on the CPU at float64: the
 plain quad force (``verlet_grid.quad_grid_force_planes``, which the force
 wrapper ``quad_force`` runs for CPU tensors) against the JAX package's
-energy gradient, and the stepped forward of ``method="verlet_ckpt"``
+energy gradient, the closed-form bond partials of the quad kernels
+(``kernel_checks.closed_form_force``, their CPU mirror) against the plain
+force, and the stepped forward of ``method="verlet_ckpt"``
 (``core.stepped_trajectory``) against the plain body.
 
 Inputs are made with numpy from a seed (``kernel_checks.lanes_microbench_
@@ -14,7 +16,10 @@ only.
 Tolerances: the force of the two packages within 1e-12 of the field's
 largest entry, with the contact barrier engaged too (the same operations
 in the same order; only the last bits of sin, cos, atan2, sqrt and of the
-summation differ). The stepped forward driven by the plain force runs the
+summation differ). The closed form against autograd of the plain energy
+within 1e-12 too: the same gradient by another sequence of operations
+(the void angles' rotation partials exactly +-1, the barrier's slope in
+one quotient). The stepped forward driven by the plain force runs the
 plain body's very operations: bit-identical.
 """
 
@@ -34,7 +39,11 @@ from difflexmm_tpu_torch import kernel_checks as kc
 from difflexmm_tpu_torch.models.flagship import paper_config
 from difflexmm_tpu_torch.models.quads_focusing import ForwardProblem
 from difflexmm_tpu_torch.ops.kernels import core
-from difflexmm_tpu_torch.ops.kernels.verlet_grid import quad_force, quad_grid_force_planes
+from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
+    quad_force,
+    quad_grid_force_planes,
+    quad_void_angles_planes,
+)
 
 torch.set_num_threads(1)
 
@@ -106,6 +115,69 @@ def test_plain_force_matches_jax_with_contact_engaged(linearized):
     ref = jax.vmap(jax.grad(energy))(*(jnp.asarray(x) for x in _numpy((U,) + fixed)))
     got = quad_force(U, fixed, linearized=linearized, use_contact=True)
     assert rel(got, ref) <= TIGHT
+
+
+def _closed_form_case(case, seed=5):
+    """``(U_eff, fixed, use_contact)`` of a closed-form check on an 8 x 6
+    lattice of two designs (``lanes_microbench_inputs``' structure, made
+    from ``seed``): the contact barrier off; its window [cmin, ccut) set
+    around the smallest void angle of each design (one void engaged), or
+    up to the smaller of the bond's two voids at the bond where that is
+    smallest (both voids of a bond engaged); cmin exactly at the smallest
+    void angle (the clamp of x = -1 binds there); rotations near +-pi/2 of
+    alternating sign; rotations near 3.3 rad, where the nonlinear shear's
+    atan2 wraps."""
+
+    U, fixed = kc.lanes_microbench_inputs(B=2, n1=8, n2=6, seed=seed, device="cpu",
+                                          dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    theta = U[:, 2]
+    if case == "near pi/2":
+        sign = torch.tensor([[(-1.0) ** (i + j) for i in range(8)] for j in range(6)],
+                            dtype=torch.float64)
+        theta.copy_(sign * (np.pi / 2) + 0.01 * torch.as_tensor(rng.standard_normal((2, 6, 8))))
+    elif case == "past the wrap":
+        theta.copy_(3.3 + 0.02 * torch.as_tensor(rng.standard_normal((2, 6, 8))))
+    if case == "contact off":
+        return U, fixed, False
+    if case in ("one void", "both voids", "clamp binds"):
+        voids = quad_void_angles_planes(U, fixed[0], fixed[1])
+        pairs = torch.cat([torch.stack(voids[:2], 1).flatten(2), torch.stack(voids[2:], 1)
+                           .flatten(2)], 2)  # (B, 2, nbond)
+        ordered = pairs.flatten(1).sort(1).values
+        if case == "one void":
+            cmin, ccut = ordered[:, 0] - 0.1, (ordered[:, 0] + ordered[:, 1]) / 2
+        elif case == "both voids":
+            upper = pairs.max(1).values.min(1).values
+            above = torch.where(ordered > upper[:, None], ordered, float("inf")).min(1).values
+            cmin, ccut = ordered[:, 0] - 0.1, (upper + above) / 2
+        else:
+            cmin, ccut = ordered[:, 0], ordered[:, 0] + 0.3
+        fixed = fixed[:10] + (cmin.reshape(2, 1, 1), ccut.reshape(2, 1, 1)) + fixed[12:]
+    return U, fixed, True
+
+
+@pytest.mark.parametrize("case", ["contact off", "one void", "both voids", "clamp binds",
+                                  "near pi/2", "past the wrap"])
+@pytest.mark.parametrize("linearized", [False, True])
+def test_closed_form_partials_match_autograd(linearized, case):
+    """The kernels' closed-form bond partials (their CPU mirror, gathered
+    in ``Quad::gather``'s order) against ``quad_grid_force_planes``
+    (autograd of the plain energy) at float64 on an 8 x 6 lattice."""
+
+    U, fixed, use_contact = _closed_form_case(case)
+    bonds, voids = kc.engaged_voids(U, fixed)
+    if case == "one void":
+        assert (bonds, voids) == (2, 2)
+    elif case == "both voids":
+        assert voids > bonds >= 2
+    elif case == "clamp binds":
+        assert voids >= 2  # the smallest void of each design sits at cmin
+    partials = kc.closed_form_partials(U, fixed, linearized, use_contact)
+    assert partials.shape == (2, 6, 6 * 7 + 5 * 8)
+    got = kc.closed_form_force(U, fixed, linearized, use_contact)
+    ref = quad_grid_force_planes(U, *fixed, linearized=linearized, use_contact=use_contact)
+    assert torch.isfinite(got).all() and rel(got, ref) <= TIGHT
 
 
 def _small(guard=None, loads=False, seed=0):
@@ -254,5 +326,5 @@ def test_force_bound_counts_inputs_output_and_bonds():
     per_design = (2 * 3 + 8 + 2) * 16 * 24 + 5 * 16 * 23 + 5 * 15 * 24 + 3
     assert bound["bytes"] == 128 * per_design * 4
     assert kc.engaged_bonds(U, fixed) == 0
-    assert bound["ops"] == 128 * (728 * kc.OPS_BOND + 3 * 16 * 24 * kc.OPS_GATHER)
+    assert bound["ops"] == 128 * (728 * kc.OPS_BOND_QUAD + 3 * 16 * 24 * kc.OPS_GATHER)
     assert bound["bound_by"] == "bytes"

@@ -338,8 +338,10 @@ def test_trajectory_bound_has_the_one_sm_floor():
     # One design stays on one SM: its floor is its operations over one SM's
     # share of the peak, 132 times the card's bound at B = 1 (CPU tensors
     # count the H100's 132 SMs), the same for a few designs, and the
-    # card's bound once the designs outnumber the SMs.
-    problem = kc.small_problem(n_timepoints=3, device="cpu")
+    # card's bound once the designs outnumber the SMs. Sixteen substeps an
+    # interval keep this small problem bound by its operations (the quad
+    # bond's closed form counts fewer than the duals did).
+    problem = kc.small_problem(n_timepoints=3, n_substeps=16, device="cpu")
     design = kc.random_design(problem, np.random.default_rng(0))
     args = kc.batched_args(problem, [design])
     outU = core.trajectory_forward(args)[0]
