@@ -1791,13 +1791,14 @@ def smoke(pool):
                  "library_ms": None}
         entry.update({k: v for k, v in r.items() if k not in entry})
         # The kernels redesigned for the card: the block shape of the
-        # main path's launch (1g and 1Kg at B = 1; the unguarded quad
-        # kernel at B = 1 and at the population's B) or kernel 2's tile at
+        # main path's launch (1g and 1Kg at B = 1; the unguarded quad and
+        # kagome kernels at B = 1 and at the population's B) or kernel 2's tile at
         # the microbenchmark's B, its registers and its stack and spill
         # bytes (float32, float64), nonlinear with contact as the
         # configurations run.
         if name in ("verlet_quad_guarded", "verlet_kagome_guarded", "verlet_quad",
-                    "verlet_quad_loaded", "verlet_quad_population"):
+                    "verlet_quad_loaded", "verlet_quad_population", "verlet_kagome",
+                    "verlet_kagome_population"):
             prefix = "verlet_kagome" if "kagome" in name else "verlet_quad"
             guarded = name.endswith("_guarded")
             B = POPULATION_B if name.endswith("_population") else 1
@@ -1806,7 +1807,8 @@ def smoke(pool):
                        for dt in dtypes}
             used = {d: usage[prefix].get((d, 0, 1, int(guarded), t), {})
                     for d, t in threads.items()}
-            entry.update(redesigned="PR 9" if guarded else "PR 10", block_threads=threads)
+            entry.update(redesigned="PR 9" if guarded else "PR 11" if "kagome" in name
+                         else "PR 10", block_threads=threads)
         elif name == "quad_force":
             tile = force_tile(24, 16, KERNEL2_B)
             used = {dtype_name(dt): usage[name].get((dtype_name(dt), 0, 1) + tile, {})

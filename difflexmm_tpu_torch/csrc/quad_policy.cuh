@@ -44,6 +44,7 @@ struct Quad {
   static constexpr int kC = 3;
   static constexpr int kLeaves = 16;
   static constexpr int kCmin = 10;
+  static constexpr int kRest = 0;  // the void angles at rest are taken each substep
   // The unguarded block (measured on the H100, PERF.md §6): while each
   // design has an SM of its own, a thread per bond of the flagship at
   // float32 (768 threads, a cap of 80 registers) and 512 at float64 (a cap

@@ -1,9 +1,10 @@
 // Lattice-independent parts of the hand-written Verlet trajectory kernels
-// (csrc/verlet_quad.cu, csrc/verlet_kagome.cu): forward-mode duals and the
-// elementary functions on them, the ligament and contact-barrier energies,
-// the closed-form gradients of both, the NaN-propagating block reductions,
-// the velocity-Verlet substep with its external loads, the substep guard's
-// predicate and the guarded loop, and the launch.
+// (csrc/verlet_quad.cu, csrc/verlet_kagome.cu): the elementary functions,
+// the closed-form gradients of the ligament and contact-barrier energies
+// (each lattice's bond_partials chains them to its blocks' DOFs), the
+// NaN-propagating block reductions, the velocity-Verlet substep with its
+// external loads, the substep guard's predicate and the guarded loop, and
+// the launch.
 //
 // A lattice plugs in with a policy struct L that provides:
 //   kC                 channels of the state planes (C, n2, n1)
@@ -14,12 +15,18 @@
 //                      threads while the designs do not outnumber the SMs,
 //                      kMany beyond, with kManyBlocks blocks an SM
 //                      (min_blocks)
+//   kRest              values a bond keeps from the start of a launch (its
+//                      void angles at rest), after the partials: 0 or more
 //   nbond(n1, n2)      number of bonds
+//   rest_angles<T>(p, b, q, sR)
+//                      (kRest > 0) bond q's kRest values into
+//                      sR[k * nbond + q], once a launch
 //   bond_partials<T, LIN, CONTACT>(p, b, q, sUe, sP)
 //                      the six partials of bond q's energy term with
 //                      respect to the DOFs of its two blocks, into
 //                      sP[s * nbond + q] (seeds 0-2: first block, 3-5:
-//                      second)
+//                      second); it may read its kRest values at
+//                      sP[(kSeeds + k) * nbond + q]
 //   gather(p, e, sP)   dE/dU_eff of state element e: the sum, in a fixed
 //                      order, of the partials of the bonds that touch it
 //   travel(p, e, sV, sA, dt, hdt2, th, tr)
@@ -66,121 +73,11 @@ inline int block_threads(bool guarded, int B, int n_sm) {
   if (guarded) return B <= n_sm ? GuardThreads<T>::kFew : GuardThreads<T>::kMany;
   return B <= n_sm ? U::kFew : U::kMany;
 }
+
+// Partials of a bond's energy term: the three DOFs of each of its blocks.
 constexpr int kSeeds = 6;
 
-template <typename T>
-struct Dual {
-  T v;
-  T d[kSeeds];
-};
-
-template <typename T>
-__device__ __forceinline__ Dual<T> dconst(T x) {
-  Dual<T> r;
-  r.v = x;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = T(0);
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> seeded(T x, int seed) {
-  Dual<T> r = dconst(x);
-  r.d[seed] = T(1);
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator+(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = a.d[q] + b.d[q];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator-(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = a.d[q] - b.d[q];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = a.d[q] * b.v + a.v * b.d[q];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator/(const Dual<T>& a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a.v / b.v;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = (a.d[q] - r.v * b.d[q]) / b.v;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator+(const Dual<T>& a, T b) {
-  Dual<T> r = a;
-  r.v = a.v + b;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator+(T a, const Dual<T>& b) {
-  Dual<T> r = b;
-  r.v = a + b.v;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator-(const Dual<T>& a, T b) {
-  Dual<T> r = a;
-  r.v = a.v - b;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(const Dual<T>& a, T b) {
-  Dual<T> r;
-  r.v = a.v * b;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = a.d[q] * b;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator*(T a, const Dual<T>& b) {
-  Dual<T> r;
-  r.v = a * b.v;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = a * b.d[q];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator/(const Dual<T>& a, T b) {
-  Dual<T> r;
-  r.v = a.v / b;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = a.d[q] / b;
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> operator/(T a, const Dual<T>& b) {
-  return dconst(a) / b;
-}
-
-// Elementary functions, overloaded for plain values and duals so that the
-// physics is written once for both.
+// Elementary functions, overloaded by type.
 __device__ __forceinline__ float cos_(float x) { return cosf(x); }
 __device__ __forceinline__ double cos_(double x) { return cos(x); }
 __device__ __forceinline__ float sin_(float x) { return sinf(x); }
@@ -196,73 +93,12 @@ __device__ __forceinline__ double abs_(double x) { return fabs(x); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-template <typename T>
-__device__ __forceinline__ Dual<T> cos_(const Dual<T>& a) {
-  Dual<T> r;
-  r.v = cos_(a.v);
-  const T ds = -sin_(a.v);
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = ds * a.d[q];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> sin_(const Dual<T>& a) {
-  Dual<T> r;
-  r.v = sin_(a.v);
-  const T dc = cos_(a.v);
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = dc * a.d[q];
-  return r;
-}
-
-template <typename T>
-__device__ __forceinline__ Dual<T> sqrt_(const Dual<T>& a) {
-  Dual<T> r;
-  r.v = sqrt_(a.v);
-  const T h = T(0.5) / r.v;
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = h * a.d[q];
-  return r;
-}
-
-// d atan2(y, x) = (x dy - y dx) / (x^2 + y^2)
-template <typename T>
-__device__ __forceinline__ Dual<T> atan2_(const Dual<T>& y, const Dual<T>& x) {
-  Dual<T> r;
-  r.v = atan2_(y.v, x.v);
-  const T inv = T(1) / (x.v * x.v + y.v * y.v);
-#pragma unroll
-  for (int q = 0; q < kSeeds; ++q) r.d[q] = (x.v * y.d[q] - y.v * x.d[q]) * inv;
-  return r;
-}
-
 __device__ __forceinline__ float eps_of(float) { return FLT_EPSILON; }
 __device__ __forceinline__ double eps_of(double) { return DBL_EPSILON; }
 
 // ---------------------------------------------------------------------------
-// Rigid-block kinematics and the bond energy
+// Block geometry
 // ---------------------------------------------------------------------------
-
-// Rigid-block kinematics of one block: translation and (cos th - 1, sin th).
-template <typename N>
-struct Block {
-  N ux, uy, th, cm1, s;
-};
-
-// Block kinematics on duals seeded on its three DOFs (seeds s0, s0+1, s0+2).
-template <typename T>
-__device__ __forceinline__ Block<Dual<T>> make_block(T ux, T uy, T th, int s0) {
-  const Dual<T> t = seeded(th, s0 + 2);
-  return Block<Dual<T>>{seeded(ux, s0), seeded(uy, s0 + 1), t, cos_(t) - T(1), sin_(t)};
-}
-
-// Corner displacement: u + (R(th) - I) r, as the plane energies write it.
-template <typename N, typename T>
-__device__ __forceinline__ void corner_disp(const Block<N>& k, T cx, T cy, N& dx, N& dy) {
-  dx = k.ux + k.cm1 * cx - k.s * cy;
-  dy = k.uy + k.s * cx + k.cm1 * cy;
-}
 
 // Constant geometry of one NC-gon block: corner vectors and centroid.
 template <typename T, int NC>
@@ -270,123 +106,20 @@ struct Corners {
   T cx[NC], cy[NC], px, py;
 };
 
-// Absolute position of corner c.
-template <typename N, typename T, int NC>
-__device__ __forceinline__ void corner_pos(const Block<N>& k, const Corners<T, NC>& g, int c,
-                                           N& x, N& y) {
-  N dx, dy;
-  corner_disp(k, g.cx[c], g.cy[c], dx, dy);
-  x = (g.px + g.cx[c]) + dx;
-  y = (g.py + g.cy[c]) + dy;
-}
-
 // Signed angle from a to b (verlet_grid._angle).
-template <typename N>
-__device__ __forceinline__ N angle(const N& ax, const N& ay, const N& bx, const N& by) {
-  return atan2_(ax * by - ay * bx, ax * bx + ay * by);
-}
-
-// The two void angles at a bond joining corner c1 of block a to corner c2
-// of block b: (angle from b's previous edge to a's next edge, angle from
-// a's previous edge to b's next edge), as the plane energies' `voids`.
-template <typename N, typename T, int NC>
-__device__ __forceinline__ void void_angles(const Block<N>& ka, const Corners<T, NC>& ga, int c1,
-                                            const Block<N>& kb, const Corners<T, NC>& gb, int c2,
-                                            N& void1, N& void2) {
-  N a0x, a0y, anx, any, apx, apy, b0x, b0y, bnx, bny, bpx, bpy;
-  corner_pos(ka, ga, c1, a0x, a0y);
-  corner_pos(ka, ga, (c1 + 1) % NC, anx, any);
-  corner_pos(ka, ga, (c1 + NC - 1) % NC, apx, apy);
-  corner_pos(kb, gb, c2, b0x, b0y);
-  corner_pos(kb, gb, (c2 + 1) % NC, bnx, bny);
-  corner_pos(kb, gb, (c2 + NC - 1) % NC, bpx, bpy);
-  const N n1x = anx - a0x, n1y = any - a0y;
-  const N p1x = apx - a0x, p1y = apy - a0y;
-  const N n2x = bnx - b0x, n2y = bny - b0y;
-  const N p2x = bpx - b0x, p2y = bpy - b0y;
-  void1 = angle(p2x, p2y, n1x, n1y);
-  void2 = angle(p1x, p1y, n2x, n2y);
-}
-
-// Contact barrier (ops/contact.contact_energy) on one void angle already
-// known to lie in [min_angle, cutoff). x is clamped to [-1 + 64 eps, 0]
-// before the reciprocals; where the clamp binds, the derivative is zero.
 template <typename T>
-__device__ __forceinline__ Dual<T> contact_term(const Dual<T>& phi, T cmin, T ccut, T kc) {
-  const T span = ccut - cmin;
-  const Dual<T> x = (phi - ccut) / span;
-  const T lo = T(-1) + T(64) * eps_of(T(0));
-  Dual<T> xs = x;
-  if (!(x.v > lo && x.v < T(0))) xs = dconst(x.v < lo ? lo : (x.v > T(0) ? T(0) : x.v));
-  const T scale = kc / T(4) * (span * span);
-  return scale * ((T(1) / (xs + T(1)) - T(1) / (xs - T(1))) - T(2));
-}
-
-// Ligament energy of one bond (verlet_grid._ligament_planes).
-template <typename T, bool LIN>
-__device__ __forceinline__ Dual<T> ligament(const Dual<T>& dUx, const Dual<T>& dUy,
-                                            const Dual<T>& th1, const Dual<T>& th2, T refx,
-                                            T refy, T ks, T ksh, T kr) {
-  const T l0sq = refx * refx + refy * refy;
-  const Dual<T> dRot = th2 - th1;
-  Dual<T> axial, shear;
-  if (LIN) {
-    axial = (dUx * refx + dUy * refy) / l0sq;
-    shear = (refx * dUy - refy * dUx) / l0sq - (th1 + th2) / T(2);
-  } else {
-    const Dual<T> rx = dUx + refx;
-    const Dual<T> ry = dUy + refy;
-    axial = sqrt_((rx * rx + ry * ry) / l0sq) - T(1);
-    const Dual<T> mean = (th1 + th2) / T(2);
-    const Dual<T> c = cos_(mean), s = sin_(mean);
-    const Dual<T> px = c * refx - s * refy;
-    const Dual<T> py = s * refx + c * refy;
-    shear = atan2_(px * ry - py * rx, px * rx + py * ry);
-  }
-  return (ks * (axial * axial) * l0sq + ksh * (shear * shear) * l0sq + kr * (dRot * dRot)) /
-         T(2);
-}
-
-// The energy term of one bond joining corner ca of block a (DOF seeds 0-2)
-// to corner cb of block b (seeds 3-5): the ligament on the corners'
-// relative displacement (b - a, th1 = th_a, th2 = th_b) plus, with
-// CONTACT, the barrier on each of its two void angles that lies in
-// [cmin, ccut). The barrier's duals run only there. ua/ub: the blocks'
-// (ux, uy, th).
-template <typename T, bool LIN, bool CONTACT, int NC>
-__device__ __forceinline__ Dual<T> bond_energy(const T (&ua)[3], const Corners<T, NC>& ga, int ca,
-                                               const T (&ub)[3], const Corners<T, NC>& gb, int cb,
-                                               T refx, T refy, T ks, T ksh, T kr, T cmin, T ccut,
-                                               T kc) {
-  const Block<Dual<T>> ka = make_block(ua[0], ua[1], ua[2], 0);
-  const Block<Dual<T>> kb = make_block(ub[0], ub[1], ub[2], 3);
-  Dual<T> dxa, dya, dxb, dyb;
-  corner_disp(ka, ga.cx[ca], ga.cy[ca], dxa, dya);
-  corner_disp(kb, gb.cx[cb], gb.cy[cb], dxb, dyb);
-  Dual<T> energy = ligament<T, LIN>(dxb - dxa, dyb - dya, ka.th, kb.th, refx, refy, ks, ksh, kr);
-  if (CONTACT) {
-    const Block<T> pa{ka.ux.v, ka.uy.v, ka.th.v, ka.cm1.v, ka.s.v};
-    const Block<T> pb{kb.ux.v, kb.uy.v, kb.th.v, kb.cm1.v, kb.s.v};
-    T v1, v2;
-    void_angles(pa, ga, ca, pb, gb, cb, v1, v2);
-    const bool on1 = v1 >= cmin && v1 < ccut;
-    const bool on2 = v2 >= cmin && v2 < ccut;
-    if (on1 || on2) {
-      Dual<T> d1, d2;
-      void_angles(ka, ga, ca, kb, gb, cb, d1, d2);
-      if (on1) energy = energy + contact_term(d1, cmin, ccut, kc);
-      if (on2) energy = energy + contact_term(d2, cmin, ccut, kc);
-    }
-  }
-  return energy;
+__device__ __forceinline__ T angle(T ax, T ay, T bx, T by) {
+  return atan2_(ax * by - ay * bx, ax * bx + ay * by);
 }
 
 // ---------------------------------------------------------------------------
 // Closed-form bond gradients
 // ---------------------------------------------------------------------------
 
-// The gradient (gx, gy, g1, g2) = dE/d(dUx, dUy, th1, th2) of ligament<T,
-// LIN>, by a reverse sweep of its plain-value forward pass:
+// The gradient (gx, gy, g1, g2) = dE/d(dUx, dUy, th1, th2) of one bond's
+// ligament energy (verlet_grid._ligament_planes)
+//     E = (ks axial^2 l0^2 + ksh shear^2 l0^2 + kr (th2 - th1)^2) / 2,
+// by a reverse sweep of its plain-value forward pass:
 //   linearized  gx = ks axial refx - ksh shear refy,
 //               gy = ks axial refy + ksh shear refx;
 //   nonlinear   r = (dUx + refx, dUy + refy),
@@ -434,10 +167,13 @@ __device__ __forceinline__ double wrap_angle(double a) {
   return a - 6.28318530717958647692 * rint(a * 0.159154943091895335769);
 }
 
-// The slope dB/dphi of the contact barrier (contact_term) at a void angle
-// phi already known to lie in [cmin, ccut): with x = (phi - ccut) / span,
-// scale (1/(x - 1)^2 - 1/(x + 1)^2) / span = kc span x / ((x - 1)(x + 1))^2,
-// and 0 where the clamp of x binds.
+// The slope dB/dphi of the contact barrier (ops/contact.contact_energy)
+//     B = scale (1/(x + 1) - 1/(x - 1) - 2),  x = (phi - ccut) / span,
+//     scale = kc span^2 / 4,  span = ccut - cmin,
+// at a void angle phi already known to lie in [cmin, ccut):
+// scale (1/(x - 1)^2 - 1/(x + 1)^2) / span = kc span x / ((x - 1)(x + 1))^2.
+// x is clamped to [-1 + 64 eps, 0] before the reciprocals; where the clamp
+// binds, the slope is 0.
 template <typename T>
 __device__ __forceinline__ T barrier_slope(T phi, T cmin, T ccut, T kc) {
   const T span = ccut - cmin;
@@ -624,10 +360,11 @@ inline void set_divisors(P& p) {
   p.dnb = FastDiv::of(p.n1 * p.n2);
 }
 
-// Carry of one design: U, V, A, U_eff planes and the bond partials.
+// Carry of one design: U, V, A, U_eff planes, the bond partials and the
+// bonds' values kept from the start of the launch.
 template <typename L>
 __host__ __device__ inline size_t scratch_elems(int n1, int n2) {
-  return 4 * (size_t)L::kC * n1 * n2 + kSeeds * (size_t)L::nbond(n1, n2);
+  return 4 * (size_t)L::kC * n1 * n2 + (kSeeds + L::kRest) * (size_t)L::nbond(n1, n2);
 }
 
 // One velocity-Verlet (micro-)step of size dt (hdt = dt / 2, hdt2 = dt^2 / 2)
@@ -800,6 +537,12 @@ __device__ __forceinline__ void run_trajectory(const Params<T, L::kLeaves>& p) {
     S[e] = p.U0[off + e];
     S[ne + e] = p.V0[off + e];
     S[2 * ne + e] = p.A0[off + e];
+  }
+  if constexpr (L::kRest > 0) {
+    // Read after the first substep's first barrier.
+    const int nbond = L::nbond(p.n1, p.n2);
+    T* sR = S + 4 * ne + (size_t)kSeeds * nbond;
+    for (int q = threadIdx.x; q < nbond; q += blockDim.x) L::rest_angles(p, b, q, sR);
   }
 
   if constexpr (GUARD) {

@@ -27,14 +27,19 @@
 //
 // What it computes and what bounds it are as for the quad kernel
 // (csrc/verlet_quad.cu): all (T-1) * n_sub dependent substeps of one design
-// in one thread block, the carry (U, V, A, U_eff and 6 partials per bond;
-// 43 KB at float32 and 85 KB at float64 for 16 x 16 cells) in shared
-// memory, a global workspace beyond. It is latency-bound: two block-wide
-// barriers a substep separate a few hundred operations per thread. The
-// force: each bond's energy term is evaluated once on duals seeded on the
-// six DOFs of its two triangles; each (DOF, triangle) thread then sums its
-// <= 3 bonds, one per corner, in a fixed order, without atomics. The
-// barrier's duals run only where a void angle lies in [min_angle, cutoff).
+// in one thread block, the carry (U, V, A, U_eff, 6 partials and the 2
+// void angles at rest per bond; 48 KB at float32 and 96 KB at float64 for
+// 16 x 16 cells) in shared memory, a global workspace beyond. It is
+// latency-bound: two block-wide barriers a substep separate a few hundred
+// operations per thread. The force: each bond's six partials with respect
+// to the DOFs of its two triangles are taken in closed form, as the quad
+// policy takes them (quad_policy.cuh): a triangle's corner moves as u +
+// (R(th) - I) c, and a void angle is its rest angle plus or minus (th_down
+// - th_up), so a plain-value pass and a scalar reverse sweep give them. The
+// void angles at rest are taken once a launch (rest_angles); the barrier's
+// slope only where a void angle lies in [min_angle, cutoff). Each (DOF,
+// triangle) thread then sums its <= 3 bonds, one per corner, in a fixed
+// order, without atomics.
 //
 // The guarded kernel's predicate and its larger block are as for the quad
 // kernel.
@@ -64,12 +69,18 @@ struct Kagome {
   static constexpr int kC = 6;
   static constexpr int kLeaves = 20;
   static constexpr int kCmin = 14;
-  // The unguarded block: 256 threads at any batch and type.
+  static constexpr int kRest = 2;
+  // The unguarded block (measured on the H100, PERF.md §6): while each
+  // design has an SM of its own, a thread per bond of the configuration
+  // (768 threads for its 736 bonds, a cap of 80 registers; float64 spills a
+  // little and still beats 512 threads); beyond, two blocks of 512 an SM,
+  // at either type. A block sized to a smaller lattice's bonds (352 threads
+  // for the 12 x 10 population) was slower than 768.
   template <typename T>
   struct Unguarded {
-    static constexpr int kFew = 256;
-    static constexpr int kMany = 256;
-    static constexpr int kManyBlocks = 1;
+    static constexpr int kFew = 768;
+    static constexpr int kMany = 512;
+    static constexpr int kManyBlocks = 2;
   };
   enum { kCnv = 0, kCen, kRefI, kRefB1, kRefB2, kKsI };
 
@@ -95,59 +106,137 @@ struct Kagome {
     return g;
   }
 
-  // Energy term of bond q of family F (0 internal, 1 boundary-1, 2
-  // boundary-2) -> its six partials in sP (seeds 0-2: the down triangle,
-  // 3-5: the up triangle). F is a template argument so that the corner
-  // indices are constants and the corner arrays stay in registers.
-  template <typename T, bool LIN, bool CONTACT, int F>
-  __device__ static void bond_family(const Params<T, kLeaves>& p, int b, int q, const T* sUe,
-                                     T* sP) {
-    const int n1 = p.n1, n2 = p.n2, nb = n1 * n2;
-    const int nb1 = (n2 - 1) * n1, nb2 = n2 * (n1 - 1), nbond = nb + nb1 + nb2;
-    constexpr int cd = F == 0 ? 1 : (F == 1 ? 0 : 2);  // corner of the down triangle
-    constexpr int cu = F == 0 ? 0 : (F == 1 ? 2 : 1);  // corner of the up triangle
-    int r, cell_u, cell_d;
-    size_t count;
-    if (F == 0) {
-      r = q;
-      cell_u = cell_d = r;
-      count = nb;
-    } else if (F == 1) {
-      r = q - nb;
-      cell_u = r;  // (j, i) with r = j * n1 + i
-      cell_d = r + n1;
-      count = nb1;
-    } else {
-      r = q - nb - nb1;
-      const int j = r / (n1 - 1), i = r % (n1 - 1);
-      cell_u = j * n1 + i;
-      cell_d = cell_u + 1;
-      count = nb2;
-    }
-    const T* ref = p.leaf[kRefI + F] + (size_t)b * 2 * count;
-    const T* ks = p.leaf[kKsI + 3 * F] + (size_t)b * count;
-    const T* ksh = p.leaf[kKsI + 3 * F + 1] + (size_t)b * count;
-    const T* kr = p.leaf[kKsI + 3 * F + 2] + (size_t)b * count;
-    const T ud[3] = {sUe[cell_d], sUe[nb + cell_d], sUe[2 * nb + cell_d]};
-    const T uu[3] = {sUe[3 * nb + cell_u], sUe[4 * nb + cell_u], sUe[5 * nb + cell_u]};
-    const Dual<T> energy = bond_energy<T, LIN, CONTACT>(
-        ud, load_corners(p, b, 0, cell_d), cd, uu, load_corners(p, b, 1, cell_u), cu, ref[r],
-        ref[count + r], ks[r], ksh[r], kr[r], CONTACT ? p.leaf[kCmin][b] : T(0),
-        CONTACT ? p.leaf[kCmin + 1][b] : T(0), CONTACT ? p.leaf[kCmin + 2][b] : T(0));
-#pragma unroll
-    for (int s = 0; s < kSeeds; ++s) sP[s * nbond + q] = energy.d[s];
+  // The corners a bond of family F (0 internal, 1 boundary-1, 2
+  // boundary-2) joins: cd of the down triangle, cu of the up triangle.
+  template <int F>
+  struct Family {
+    static constexpr int cd = F == 0 ? 1 : (F == 1 ? 0 : 2);
+    static constexpr int cu = F == 0 ? 0 : (F == 1 ? 2 : 1);
+  };
+
+  // Design b's corner-vector planes of triangle tri (0 down, 1 up) at a
+  // cell: component k of corner c at [(2 c + k) * n1 * n2].
+  template <typename T>
+  __device__ static const T* corner_planes(const Params<T, kLeaves>& p, int b, int tri,
+                                           int cell) {
+    const size_t nb = (size_t)p.n1 * p.n2;
+    return p.leaf[kCnv] + b * 12 * nb + tri * 6 * nb + cell;
   }
 
+  // The two void angles at rest of the bond of family F joining the down
+  // triangle of cell_d to the up triangle of cell_u, into out[0] and
+  // out[stride]: void 1 from the up triangle's previous edge to the down
+  // triangle's next edge, void 2 from the down triangle's previous edge to
+  // the up triangle's next edge (the corners (c + 1) mod 3 and (c + 2) mod 3
+  // of each, as the plane energy's `voids`).
+  template <typename T, int F>
+  __device__ static void rest_voids(const Params<T, kLeaves>& p, int b, int cell_d, int cell_u,
+                                    T* out, int stride) {
+    const int nb = p.n1 * p.n2;
+    constexpr int cd = Family<F>::cd, nd = (cd + 1) % 3, pd = (cd + 2) % 3;
+    constexpr int cu = Family<F>::cu, nu = (cu + 1) % 3, pu = (cu + 2) % 3;
+    const T* gd = corner_planes(p, b, 0, cell_d);
+    const T* gu = corner_planes(p, b, 1, cell_u);
+    const T cxa = gd[2 * cd * nb], cya = gd[(2 * cd + 1) * nb];
+    const T cxb = gu[2 * cu * nb], cyb = gu[(2 * cu + 1) * nb];
+    out[0] = angle(gu[2 * pu * nb] - cxb, gu[(2 * pu + 1) * nb] - cyb, gd[2 * nd * nb] - cxa,
+                   gd[(2 * nd + 1) * nb] - cya);
+    out[stride] = angle(gd[2 * pd * nb] - cxa, gd[(2 * pd + 1) * nb] - cya,
+                        gu[2 * nu * nb] - cxb, gu[(2 * nu + 1) * nb] - cyb);
+  }
+
+  // The six partials of bond r of family F, joining the down triangle of
+  // cell_d (seeds 0-2) to the up triangle of cell_u (seeds 3-5), at the
+  // driven state sUe, into out[s * stride]; its void angles at rest in
+  // rest[0] and rest[stride]. Quad::bond_term's closed form
+  // (quad_policy.cuh) on triangles. F is a template argument so that the
+  // corner indices are constants.
+  template <typename T, bool LIN, bool CONTACT, int F>
+  __device__ static void bond_term(const Params<T, kLeaves>& p, int b, int cell_d, int cell_u,
+                                   int r, const T* sUe, const T* rest, T* out, int stride) {
+    const int n1 = p.n1, n2 = p.n2, nb = n1 * n2;
+    constexpr int cd = Family<F>::cd, cu = Family<F>::cu;
+    const size_t nf =
+        F == 0 ? (size_t)nb : (F == 1 ? (size_t)(n2 - 1) * n1 : (size_t)n2 * (n1 - 1));
+    const size_t base = (size_t)b * nf + r;
+    const T* ref = p.leaf[kRefI + F] + (size_t)b * 2 * nf + r;
+    const T* gd = corner_planes(p, b, 0, cell_d);
+    const T* gu = corner_planes(p, b, 1, cell_u);
+    const T uxa = sUe[cell_d], uya = sUe[nb + cell_d], tha = sUe[2 * nb + cell_d];
+    const T uxb = sUe[3 * nb + cell_u], uyb = sUe[4 * nb + cell_u], thb = sUe[5 * nb + cell_u];
+    const T cxa = gd[2 * cd * nb], cya = gd[(2 * cd + 1) * nb];
+    const T cxb = gu[2 * cu * nb], cyb = gu[(2 * cu + 1) * nb];
+    const T sa = sin_(tha), ca = cos_(tha), sb = sin_(thb), cb = cos_(thb);
+    const T dxa = uxa + (ca - T(1)) * cxa - sa * cya;
+    const T dya = uya + sa * cxa + (ca - T(1)) * cya;
+    const T dxb = uxb + (cb - T(1)) * cxb - sb * cyb;
+    const T dyb = uyb + sb * cxb + (cb - T(1)) * cyb;
+    T gx, gy, ta, tb;
+    ligament_grad<T, LIN>(dxb - dxa, dyb - dya, tha, thb, ref[0], ref[nf],
+                          p.leaf[kKsI + 3 * F][base], p.leaf[kKsI + 3 * F + 1][base],
+                          p.leaf[kKsI + 3 * F + 2][base], gx, gy, ta, tb);
+    ta -= gx * (-sa * cxa - ca * cya) + gy * (ca * cxa - sa * cya);
+    tb += gx * (-sb * cxb - cb * cyb) + gy * (cb * cxb - sb * cyb);
+    if (CONTACT) {
+      // A void angle is its rest angle plus (th_d - th_u) (void 1) or
+      // (th_u - th_d) (void 2), taken into atan2's range (wrap_angle). The
+      // barrier acts only on a void angle in [cmin, ccut).
+      const T v1 = wrap_angle(rest[0] + (tha - thb));
+      const T v2 = wrap_angle(rest[stride] + (thb - tha));
+      const T cmin = p.leaf[kCmin][b], ccut = p.leaf[kCmin + 1][b];
+      if (v1 >= cmin && v1 < ccut) {
+        const T d = barrier_slope(v1, cmin, ccut, p.leaf[kCmin + 2][b]);
+        ta += d;
+        tb -= d;
+      }
+      if (v2 >= cmin && v2 < ccut) {
+        const T d = barrier_slope(v2, cmin, ccut, p.leaf[kCmin + 2][b]);
+        ta -= d;
+        tb += d;
+      }
+    }
+    out[0] = -gx;
+    out[stride] = -gy;
+    out[2 * stride] = ta;
+    out[3 * stride] = gx;
+    out[4 * stride] = gy;
+    out[5 * stride] = tb;
+  }
+
+  // Bond q's two void angles at rest into sR[q] and sR[nbond + q], once a
+  // launch.
+  template <typename T>
+  __device__ static void rest_angles(const Params<T, kLeaves>& p, int b, int q, T* sR) {
+    const int n1 = p.n1, nb = n1 * p.n2, nb1 = (p.n2 - 1) * n1;
+    const int nbond = nb + nb1 + p.n2 * (n1 - 1);
+    if (q < nb) {
+      rest_voids<T, 0>(p, b, q, q, sR + q, nbond);
+    } else if (q < nb + nb1) {
+      const int r = q - nb;  // up triangle of (j, i) with r = j * n1 + i, down of (j + 1, i)
+      rest_voids<T, 1>(p, b, r + n1, r, sR + q, nbond);
+    } else {
+      const int r = q - nb - nb1, cell_u = r + r / (n1 - 1);  // (j, i): j * n1 + i
+      rest_voids<T, 2>(p, b, cell_u + 1, cell_u, sR + q, nbond);
+    }
+  }
+
+  // Bond q's six partials in sP (SoA: sP[s * nbond + q]); its rest void
+  // angles follow the partials (rest_angles' sR = sP + 6 nbond).
   template <typename T, bool LIN, bool CONTACT>
   __device__ static void bond_partials(const Params<T, kLeaves>& p, int b, int q, const T* sUe,
                                        T* sP) {
-    const int nb = p.n1 * p.n2, nb1 = (p.n2 - 1) * p.n1;
-    if (q < nb)
-      bond_family<T, LIN, CONTACT, 0>(p, b, q, sUe, sP);
-    else if (q < nb + nb1)
-      bond_family<T, LIN, CONTACT, 1>(p, b, q, sUe, sP);
-    else
-      bond_family<T, LIN, CONTACT, 2>(p, b, q, sUe, sP);
+    const int n1 = p.n1, nb = n1 * p.n2, nb1 = (p.n2 - 1) * n1;
+    const int nbond = nb + nb1 + p.n2 * (n1 - 1);
+    const T* sR = sP + kSeeds * nbond + q;
+    if (q < nb) {
+      bond_term<T, LIN, CONTACT, 0>(p, b, q, q, q, sUe, sR, sP + q, nbond);
+    } else if (q < nb + nb1) {
+      const int r = q - nb;
+      bond_term<T, LIN, CONTACT, 1>(p, b, r + n1, r, r, sUe, sR, sP + q, nbond);
+    } else {
+      const int r = q - nb - nb1, cell_u = r + r / (n1 - 1);
+      bond_term<T, LIN, CONTACT, 2>(p, b, cell_u + 1, cell_u, r, sUe, sR, sP + q, nbond);
+    }
   }
 
   // Each (DOF, triangle)'s <= 3 bonds, one per corner: internal,
@@ -225,7 +314,8 @@ struct Kagome {
 };
 
 template <typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
-__global__ void __launch_bounds__(NT) verlet_kagome_kernel(const Params<T, Kagome::kLeaves> p) {
+__global__ void __launch_bounds__(NT, (min_blocks<Kagome, T, GUARD, NT>()))
+    verlet_kagome_kernel(const Params<T, Kagome::kLeaves> p) {
   run_trajectory<Kagome, T, LIN, CONTACT, GUARD, NT>(p);
 }
 
@@ -238,14 +328,17 @@ KernelFn<T, Kagome::kLeaves> pick_flags(bool linearized, bool contact) {
                  : verlet_kagome_kernel<T, false, false, GUARD, NT>;
 }
 
-// Unguarded in blocks of Kagome::Unguarded<T>::kFew, guarded of
+// Unguarded in blocks of Kagome::Unguarded<T>::kFew or ::kMany, guarded of
 // GuardThreads<T>::kFew or ::kMany; NULL for any other block.
 template <typename T>
 KernelFn<T, Kagome::kLeaves> pick(bool linearized, bool contact, bool guard, int threads) {
   using G = GuardThreads<T>;
   using U = Kagome::Unguarded<T>;
-  if (!guard)
-    return threads == U::kFew ? pick_flags<T, false, U::kFew>(linearized, contact) : nullptr;
+  if (!guard) {
+    if (threads == U::kFew) return pick_flags<T, false, U::kFew>(linearized, contact);
+    if (threads == U::kMany) return pick_flags<T, false, U::kMany>(linearized, contact);
+    return nullptr;
+  }
   if (threads == G::kFew) return pick_flags<T, true, G::kFew>(linearized, contact);
   if (threads == G::kMany) return pick_flags<T, true, G::kMany>(linearized, contact);
   return nullptr;

@@ -79,8 +79,8 @@
 // float64 at any batch (GuardThreads in verlet_common.cuh), so that more
 // warps hide the latency of a step.
 //
-// What does not depend on the lattice (duals, the ligament and barrier
-// energies and their closed-form gradients, the substep, the guard's loop,
+// What does not depend on the lattice (the closed-form gradients of the
+// ligament and barrier energies, the substep, the guard's loop,
 // the launch) is in verlet_common.cuh, shared with the kagome kernel; the
 // quad lattice's policy (bond indexing, the bond partials, gather, travel
 // and gap) is in quad_policy.cuh, shared with the force kernel of

@@ -12,22 +12,23 @@ afresh with the same nvcc flags, at the same time (the trajectory sources
 by type where the side's ``verlet_common.cuh`` splits by
 ``VERLET_TYPE``). The other sources must export the same C interface or
 an older form of it (the launch's extra arguments, such as the load
-pointers, come after the ones an older source reads; a force library
-without ``quad_force_tile`` takes a ``(B, 6, nbond)`` workspace before
-its output).
+pointers, come after the ones an older source reads).
 
 Each version then runs, through the repository's wrappers: the flagship
 and the kagome configuration (``models/kagome_config.build_kagome``),
 unguarded and guarded (``guard="auto"``); the quad and the kagome contact
 probes, unguarded and guarded; the force pulse (kernel 1L); each at
 float64 and float32, at B = 1. The largest |other - repo| of U, V and A is
-printed, and for the guarded kernels whether decisions and flags are
-identical. Kernel 2 runs on the microbenchmark's inputs ((3, 16, 24) x
+printed with the largest |repo| (the field scale), and for the guarded
+kernels whether decisions and flags are identical. Kernel 2 runs on the microbenchmark's inputs ((3, 16, 24) x
 128, ``kernel_checks.lanes_microbench_inputs``), on the flagship's state
 mid-pulse at B = 1 and on the contact probe's state, and its largest
 |other - repo| is printed. Last, kernels 1g, 1Kg, 1 and 1K are timed
-with CUDA events at B = 1, one design per SM and four per SM, 1L at the
-pulse at B = 1, and kernel 2 at the microbenchmark's inputs and at the
+with CUDA events at B = 1, one design per SM and four per SM, 1K at the
+12 x 10-cell kagome population at B = 128
+(``kernel_checks.kagome_multistart_problem``, the population of main path
+8), 1L at the pulse at B = 1, and kernel 2 at the microbenchmark's inputs
+and at the
 flagship's B = 1, each as the replay of a CUDA graph of 20 calls (over
 20: the device's time of a call) and as one eager call;
 float32 and float64, the versions alternating (other, repo, repo, other,
@@ -52,8 +53,7 @@ from difflexmm_tpu_torch.models import loaded_configs as lc
 from difflexmm_tpu_torch.ops.kernels import build, core, launch
 
 #: The sources built on both sides; each one's kernel template is
-#: ``<source>_kernel`` (in an older force library also its bond pass,
-#: ``quad_bond_kernel``).
+#: ``<source>_kernel``.
 SOURCES = ("verlet_quad", "verlet_kagome", "quad_force")
 FORCE_REPS = 30
 #: Calls of kernel 2 in the CUDA graph that times one call's device time.
@@ -99,16 +99,11 @@ def _graphed(fn):
 
 def _force(lib, U, fixed):
     """Kernel 2 of ``lib`` (nonlinear, with contact) at ``U`` (B, 3, n2, n1)
-    and the 13 energy leaves: the repository's interface, or the older one
-    with a ``(B, 6, nbond)`` workspace before the output."""
+    and the 13 energy leaves."""
 
     B, _, n2, n1 = U.shape
     out = torch.empty_like(U)
-    tensors = [U, *fixed[:13]]
-    if not hasattr(lib, "quad_force_tile"):
-        nbond = n2 * (n1 - 1) + (n2 - 1) * n1
-        tensors.append(torch.empty((B, 6, nbond), dtype=U.dtype, device=U.device))
-    pointers = [t.data_ptr() for t in tensors + [out]]
+    pointers = [t.data_ptr() for t in [U, *fixed[:13], out]]
     err = lib.quad_force_launch((ctypes.c_void_p * len(pointers))(*pointers),
                                 (ctypes.c_int * 3)(B, n1, n2), U.element_size(), 0, 1,
                                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -170,8 +165,6 @@ def main(other: str):
                                               by_type and src in build.BY_TYPE)
         logs = {key: job.result()["log"] for key, job in jobs.items()}
     usage = {key: build.ptxas_usage(log, key[1]) for key, log in logs.items()}
-    usage["other", "quad_force"].update(build.ptxas_usage(logs["other", "quad_force"],
-                                                          "quad_bond"))
     print("registers, stack, spill stores and loads (dtype, linearized, contact, guard[, "
           "threads]; kernel 2: dtype, linearized, contact[, tile, threads]): other / repo")
     for src in SOURCES:
@@ -196,7 +189,7 @@ def main(other: str):
         for dt in (torch.float64, torch.float32):
             inputs[f"{label} {str(dt)[6:]}"] = (src, args64 if dt == torch.float64
                                                 else kc.cast(args64, dt))
-    differences, decisions = {}, {}
+    differences, scales, decisions = {}, {}, {}
     for label, (src, args) in inputs.items():
         outs = {}
         for side in dirs:
@@ -204,7 +197,9 @@ def main(other: str):
             outs[side] = core.trajectory_forward(args)
         differences[label] = max(float((a.double() - b.double()).abs().max())
                                  for a, b in zip(outs["other"][:3], outs["repo"][:3]))
-        line = f"{label}: largest |other - repo| {differences[label]!r}"
+        scales[label] = max(float(b.double().abs().max()) for b in outs["repo"][:3])
+        line = (f"{label}: largest |other - repo| {differences[label]!r} (field scale "
+                f"{scales[label]!r})")
         if args.spec.guard is not None:
             same = all(torch.equal(a, b) for a, b in zip(outs["other"][3:], outs["repo"][3:]))
             decisions[label] = dict(identical=same, fired=int(outs["repo"][4].sum()))
@@ -265,6 +260,14 @@ def main(other: str):
                 args = _repeated(args1, B)
                 turns(f"{label} {dt} B={B}", trajectory(args))
                 del args
+    population = kc.kagome_multistart_problem(device=device)
+    designs = [tuple(x + 1e-3 * b for x in population.geometry.zero_design(device=device,
+                                                                        dtype=torch.float64))
+               for b in range(128)]
+    population = kc.batched_args(population, designs)
+    for dt in (torch.float32, torch.float64):
+        turns(f"kagome population {str(dt)[6:]} B=128",
+              trajectory(kc.cast(population, dt)))
     for dt in ("float32", "float64"):
         turns(f"1L pulse {dt} B=1", trajectory(inputs[f"pulse {dt}"][1]))
     for label in ("microbench B=128", "flagship B=1"):
@@ -283,7 +286,8 @@ def main(other: str):
         "card": card,
         "ptxas": {f"{side} {src}": {" ".join(map(str, k)): v for k, v in sorted(u.items())}
                   for (side, src), u in usage.items()},
-        "max_abs_difference": differences, "decisions": decisions, "ms": times}))
+        "max_abs_difference": differences, "field_scale": scales, "decisions": decisions,
+        "ms": times}))
 
 
 if __name__ == "__main__":

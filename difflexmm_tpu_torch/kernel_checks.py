@@ -341,12 +341,17 @@ def guard_terms(args: core.TrajectoryArgs):
 # and its two signed terms (12).
 OPS_BOND_QUAD = 4 + 18 + 2 + 47 + 20 + 32
 OPS_VOID_CONTACT_QUAD = 12
-# The kagome lattice evaluates a bond on forward-mode duals carrying 6
-# partials: a dual add costs 7, a dual product or quotient 19, a dual sin
-# or cos 8-9 and a dual atan2 29 (the quad lattice did the same before its
-# closed form, at the same counts).
-OPS_BOND = 36 + 112 + 389 + 94  # block kinematics, 2 corners, ligament, void check
-OPS_BOND_CONTACT = 766  # dual void angles and two barrier terms, engaged bonds only
+# The kagome lattice (csrc/verlet_kagome.cu, Kagome::bond_term) takes a
+# bond's six partials by the quad's closed form on triangles: the sines and
+# cosines (4), the two corners' displacements (18), the ligament's gradient
+# (2 + 47), the chain to the rotations (18 + 2) and the void check on the
+# void angles at rest (12: each rest angle plus the rotations' difference,
+# wrapped), 103 a bond and substep; an engaged void angle adds 12. The void
+# angles at rest (four edges, two angles: 22) are taken once a launch
+# (Kagome::rest_angles).
+OPS_BOND_KAGOME = 4 + 18 + 2 + 47 + 20 + 12
+OPS_VOID_CONTACT_KAGOME = 12
+OPS_REST_KAGOME = 22
 OPS_GATHER = 4  # the force kernel's gather: <= 4 partials summed onto zero
 OPS_DOF = 25  # position update, gather of <= 4 partials, velocity update
 OPS_TRAVEL_PER_BLOCK = 38  # guard: theta term and two neighbour differences of x, y
@@ -406,6 +411,8 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
         ops += summary["gaps"] * OPS_GAP_PER_BOND * nbond
     ops_bond, contact = bond_ops(outU, args.fixed)
     contact *= spec.n_substeps
+    if _is_kagome(args.U0):
+        ops += B * nbond * OPS_REST_KAGOME  # once a launch
     if spec.load_map is not None:
         k_load = spec.load_map.pairs.shape[0]
         nbytes += args.loads[0].numel() * itemsize  # the substep load table
@@ -455,14 +462,14 @@ def engaged_bonds(U, fixed) -> int:
 
 def bond_ops(U, fixed) -> tuple:
     """``(operations of one bond, operations of the contact terms at U)``
-    as the lattice's kernels count them: the quad lattice's closed form
-    (:data:`OPS_BOND_QUAD`, :data:`OPS_VOID_CONTACT_QUAD` an engaged void
-    angle), the kagome lattice's duals (:data:`OPS_BOND`,
-    :data:`OPS_BOND_CONTACT` an engaged bond)."""
+    as the lattice's kernels count them, both in closed form: the quad
+    lattice's (:data:`OPS_BOND_QUAD`, :data:`OPS_VOID_CONTACT_QUAD` an
+    engaged void angle) and the kagome lattice's
+    (:data:`OPS_BOND_KAGOME`, :data:`OPS_VOID_CONTACT_KAGOME`)."""
 
-    bonds, voids = engaged_voids(U, fixed)
+    _, voids = engaged_voids(U, fixed)
     if _is_kagome(U):
-        return OPS_BOND, bonds * OPS_BOND_CONTACT
+        return OPS_BOND_KAGOME, voids * OPS_VOID_CONTACT_KAGOME
     return OPS_BOND_QUAD, voids * OPS_VOID_CONTACT_QUAD
 
 
@@ -487,6 +494,77 @@ def force_bound(U_eff, fixed) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def _bond_partials(a, b, ref, stiffness, barrier, linearized):
+    """The six partials of bonds joining a corner of block ``a`` (seeds 0-2)
+    to a corner of block ``b`` (3-5), as ``Quad::bond_term`` and
+    ``Kagome::bond_term`` take them in closed form, line for line: ``(B, 6,
+    ...)``. ``a`` and ``b`` are ``(ux, uy, th, (cx, cy) of the bond's
+    corner, (x, y) of the corner after it, (x, y) of the corner before
+    it)``, ``ref`` the bonds' reference vectors ``(B, 2, ...)``,
+    ``stiffness`` ``(ks, ksh, kr)`` and ``barrier`` ``(cmin, ccut, kc)``
+    with contact, else None."""
+
+    uxa, uya, tha, (cxa, cya), nxt_a, prv_a = a
+    uxb, uyb, thb, (cxb, cyb), nxt_b, prv_b = b
+    ks, ksh, kr = stiffness
+    sa, ca, sb, cb = torch.sin(tha), torch.cos(tha), torch.sin(thb), torch.cos(thb)
+    dxa = uxa + (ca - 1) * cxa - sa * cya
+    dya = uya + sa * cxa + (ca - 1) * cya
+    dxb = uxb + (cb - 1) * cxb - sb * cyb
+    dyb = uyb + sb * cxb + (cb - 1) * cyb
+    # ligament_grad
+    dUx, dUy, refx, refy = dxb - dxa, dyb - dya, ref[:, 0], ref[:, 1]
+    l0sq = refx * refx + refy * refy
+    if linearized:
+        axial = (dUx * refx + dUy * refy) / l0sq
+        shear = (refx * dUy - refy * dUx) / l0sq - (tha + thb) / 2
+        gx = ks * axial * refx - ksh * shear * refy
+        gy = ks * axial * refy + ksh * shear * refx
+    else:
+        rx, ry = dUx + refx, dUy + refy
+        rr = rx * rx + ry * ry
+        stretch = torch.sqrt(rr / l0sq)
+        mean = (tha + thb) / 2
+        c, s = torch.cos(mean), torch.sin(mean)
+        px, py = c * refx - s * refy, s * refx + c * refy
+        shear = torch.atan2(px * ry - py * rx, px * rx + py * ry)
+        ka = ks * (stretch - 1) / stretch
+        kt = ksh * shear * l0sq / rr
+        gx, gy = ka * rx - kt * ry, ka * ry + kt * rx
+    hs = 0.5 * ksh * shear * l0sq
+    rot = kr * (thb - tha)
+    ta = (-hs - rot) - (gx * (-sa * cxa - ca * cya) + gy * (ca * cxa - sa * cya))
+    tb = (-hs + rot) + (gx * (-sb * cxb - cb * cyb) + gy * (cb * cxb - sb * cyb))
+    if barrier is not None:
+        # Each void angle: the angle between two edges at rest plus (tha -
+        # thb) or (thb - tha), taken into [-pi, pi] (wrap_angle): void 1
+        # from b's previous edge to a's next edge, void 2 from a's previous
+        # edge to b's next edge.
+        (n1x, n1y), (p1x, p1y) = ((x - cxa, y - cya) for x, y in (nxt_a, prv_a))
+        (n2x, n2y), (p2x, p2y) = ((x - cxb, y - cyb) for x, y in (nxt_b, prv_b))
+        turn = 2 * math.pi
+        voids = []
+        for rest, rotation in ((torch.atan2(p2x * n1y - p2y * n1x, p2x * n1x + p2y * n1y),
+                                tha - thb),
+                               (torch.atan2(p1x * n2y - p1y * n2x, p1x * n2x + p1y * n2y),
+                                thb - tha)):
+            v = rest + rotation
+            voids.append(v - turn * torch.round(v * (1 / turn)))
+        # barrier_slope where the void angle lies in [cmin, ccut)
+        cmin, ccut, kc = barrier
+        span = ccut - cmin
+        lo = -1 + 64 * torch.finfo(uxa.dtype).eps
+        slopes = []
+        for v in voids:
+            x = (v - ccut) / span
+            d = (x - 1) * (x + 1)
+            on = (v >= cmin) & (v < ccut) & (x > lo) & (x < 0)
+            slopes.append(torch.where(on, kc * span * x / (d * d), torch.zeros_like(x)))
+        ta = ta + slopes[0] - slopes[1]
+        tb = tb - slopes[0] + slopes[1]
+    return torch.stack([-gx, -gy, ta, gx, gy, tb], 1)
+
+
 def closed_form_partials(U_eff, fixed, linearized=False, use_contact=True):
     """The six partials of every quad bond at ``U_eff`` (B, 3, n2, n1), as
     the kernels take them in closed form (``Quad::bond_term`` of
@@ -497,77 +575,23 @@ def closed_form_partials(U_eff, fixed, linearized=False, use_contact=True):
     cnv, _, ref_h, ref_v, ks_h, ksh_h, kr_h, ks_v, ksh_v, kr_v, cmin, ccut, kc = fixed[:13]
     B = U_eff.shape[0]
     every = slice(None)
+    barrier = (cmin, ccut, kc) if use_contact else None
     families = (
-        ((every, slice(None, -1)), (every, slice(1, None)), 0, 2, ref_h, ks_h, ksh_h, kr_h),
-        ((slice(None, -1), every), (slice(1, None), every), 1, 3, ref_v, ks_v, ksh_v, kr_v),
+        ((every, slice(None, -1)), (every, slice(1, None)), 0, 2, ref_h, (ks_h, ksh_h, kr_h)),
+        ((slice(None, -1), every), (slice(1, None), every), 1, 3, ref_v, (ks_v, ksh_v, kr_v)),
     )
     partials = []
-    for at_a, at_b, c1, c2, ref, ks, ksh, kr in families:
-        def block(at):
-            """(ux, uy, th, corner vectors (4, 2)) of the blocks at ``at``."""
+    for at_a, at_b, c1, c2, ref, stiffness in families:
+        def block(at, c):
+            """(ux, uy, th, corner c, the corner after it, the one before) of
+            the blocks at ``at``."""
 
             ux, uy, th = (U_eff[:, k][(every,) + at] for k in range(3))
-            return ux, uy, th, [[cnv[:, c, d][(every,) + at] for d in range(2)] for c in range(4)]
+            g = [[cnv[:, k, d][(every,) + at] for d in range(2)] for k in range(4)]
+            return ux, uy, th, g[c], g[(c + 1) % 4], g[(c + 3) % 4]
 
-        uxa, uya, tha, ga = block(at_a)
-        uxb, uyb, thb, gb = block(at_b)
-        (cxa, cya), (cxb, cyb) = ga[c1], gb[c2]
-        sa, ca, sb, cb = torch.sin(tha), torch.cos(tha), torch.sin(thb), torch.cos(thb)
-        dxa = uxa + (ca - 1) * cxa - sa * cya
-        dya = uya + sa * cxa + (ca - 1) * cya
-        dxb = uxb + (cb - 1) * cxb - sb * cyb
-        dyb = uyb + sb * cxb + (cb - 1) * cyb
-        # ligament_grad
-        dUx, dUy, refx, refy = dxb - dxa, dyb - dya, ref[:, 0], ref[:, 1]
-        l0sq = refx * refx + refy * refy
-        if linearized:
-            axial = (dUx * refx + dUy * refy) / l0sq
-            shear = (refx * dUy - refy * dUx) / l0sq - (tha + thb) / 2
-            gx = ks * axial * refx - ksh * shear * refy
-            gy = ks * axial * refy + ksh * shear * refx
-        else:
-            rx, ry = dUx + refx, dUy + refy
-            rr = rx * rx + ry * ry
-            stretch = torch.sqrt(rr / l0sq)
-            mean = (tha + thb) / 2
-            c, s = torch.cos(mean), torch.sin(mean)
-            px, py = c * refx - s * refy, s * refx + c * refy
-            shear = torch.atan2(px * ry - py * rx, px * rx + py * ry)
-            ka = ks * (stretch - 1) / stretch
-            kt = ksh * shear * l0sq / rr
-            gx, gy = ka * rx - kt * ry, ka * ry + kt * rx
-        hs = 0.5 * ksh * shear * l0sq
-        rot = kr * (thb - tha)
-        ta = (-hs - rot) - (gx * (-sa * cxa - ca * cya) + gy * (ca * cxa - sa * cya))
-        tb = (-hs + rot) + (gx * (-sb * cxb - cb * cyb) + gy * (cb * cxb - sb * cyb))
-        if use_contact:
-            # Each void angle: the angle between the two edges at rest plus
-            # (tha - thb) or (thb - tha), taken into [-pi, pi] (wrap_angle).
-            def edge(g, c, c0):
-                return g[c % 4][0] - g[c0][0], g[c % 4][1] - g[c0][1]
-
-            (n1x, n1y), (p1x, p1y) = edge(ga, c1 + 1, c1), edge(ga, c1 + 3, c1)
-            (n2x, n2y), (p2x, p2y) = edge(gb, c2 + 1, c2), edge(gb, c2 + 3, c2)
-            turn = 2 * math.pi
-            voids = []
-            for rest, rotation in ((torch.atan2(p2x * n1y - p2y * n1x, p2x * n1x + p2y * n1y),
-                                    tha - thb),
-                                   (torch.atan2(p1x * n2y - p1y * n2x, p1x * n2x + p1y * n2y),
-                                    thb - tha)):
-                v = rest + rotation
-                voids.append(v - turn * torch.round(v * (1 / turn)))
-            # barrier_slope where the void angle lies in [cmin, ccut)
-            span = ccut - cmin
-            lo = -1 + 64 * torch.finfo(U_eff.dtype).eps
-            slopes = []
-            for v in voids:
-                x = (v - ccut) / span
-                d = (x - 1) * (x + 1)
-                on = (v >= cmin) & (v < ccut) & (x > lo) & (x < 0)
-                slopes.append(torch.where(on, kc * span * x / (d * d), torch.zeros_like(x)))
-            ta = ta + slopes[0] - slopes[1]
-            tb = tb - slopes[0] + slopes[1]
-        partials.append(torch.stack([-gx, -gy, ta, gx, gy, tb], 1).reshape(B, 6, -1))
+        partials.append(_bond_partials(block(at_a, c1), block(at_b, c2), ref, stiffness,
+                                       barrier, linearized).reshape(B, 6, -1))
     return torch.cat(partials, -1)
 
 
@@ -586,6 +610,64 @@ def closed_form_force(U_eff, fixed, linearized=False, use_contact=True):
     g[..., :, :-1] += h[:, :3]
     g[..., 1:, :] += v[:, 3:]
     g[..., :-1, :] += v[:, :3]
+    return g
+
+
+def kagome_closed_form_partials(U_eff, fixed, linearized=False, use_contact=True):
+    """The six partials of every kagome bond at ``U_eff`` (B, 6, n2, n1), as
+    the kernels take them in closed form (``Kagome::bond_term`` of
+    ``csrc/verlet_kagome.cu``, line for line; the kernels take the void
+    angles at rest once a launch, ``Kagome::rest_angles``, by the same
+    operations): ``(B, 6, nbond)``, internal
+    bonds, then boundary-1, then boundary-2, each n1-fastest; seeds (ux,
+    uy, theta) of the down triangle, then of the up triangle. A test
+    helper: no path of the program runs it."""
+
+    cnv, _, ref_i, ref_b1, ref_b2 = fixed[:5]
+    cmin, ccut, kc = fixed[14:17]
+    B = U_eff.shape[0]
+    every = slice(None)
+    barrier = (cmin, ccut, kc) if use_contact else None
+    below, above = (slice(1, None), every), (slice(None, -1), every)
+    right, left = (every, slice(1, None)), (every, slice(None, -1))
+    # (cells of the down triangle, of the up one, their corners, reference,
+    # stiffness leaves); JAX's verlet_kagome.py:167-187.
+    families = (
+        ((every, every), (every, every), 1, 0, ref_i, fixed[5:8]),
+        (below, above, 0, 2, ref_b1, fixed[8:11]),
+        (right, left, 2, 1, ref_b2, fixed[11:14]),
+    )
+    partials = []
+    for at_d, at_u, cd, cu, ref, stiffness in families:
+        def triangle(tri, at, c):
+            """(ux, uy, th, corner c, the corner after it, the one before) of
+            triangle ``tri`` (0 down, 1 up) of the cells at ``at``."""
+
+            ux, uy, th = (U_eff[:, 3 * tri + k][(every,) + at] for k in range(3))
+            g = [[cnv[:, tri, k, d][(every,) + at] for d in range(2)] for k in range(3)]
+            return ux, uy, th, g[c], g[(c + 1) % 3], g[(c + 2) % 3]
+
+        partials.append(_bond_partials(triangle(0, at_d, cd), triangle(1, at_u, cu), ref,
+                                       stiffness, barrier, linearized).reshape(B, 6, -1))
+    return torch.cat(partials, -1)
+
+
+def kagome_closed_form_force(U_eff, fixed, linearized=False, use_contact=True):
+    """dE/dU_eff (B, 6, n2, n1) from :func:`kagome_closed_form_partials`,
+    each state element summing its <= 3 bonds in ``Kagome::gather``'s
+    order: internal, boundary-1, boundary-2."""
+
+    B, _, n2, n1 = U_eff.shape
+    P = kagome_closed_form_partials(U_eff, fixed, linearized, use_contact)
+    nb, nb1 = n1 * n2, (n2 - 1) * n1
+    internal = P[..., :nb].reshape(B, 6, n2, n1)
+    b1 = P[..., nb:nb + nb1].reshape(B, 6, n2 - 1, n1)
+    b2 = P[..., nb + nb1:].reshape(B, 6, n2, n1 - 1)
+    g = internal.clone()
+    g[:, :3, 1:, :] += b1[:, :3]  # down triangles: b1 of (j - 1, i), b2 of (j, i - 1)
+    g[:, :3, :, 1:] += b2[:, :3]
+    g[:, 3:, :-1, :] += b1[:, 3:]  # up triangles: b1 and b2 of (j, i)
+    g[:, 3:, :, :-1] += b2[:, 3:]
     return g
 
 

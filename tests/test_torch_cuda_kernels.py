@@ -18,9 +18,9 @@ equals its designs' single launches bit for bit, and its design gradients
 through the adjoint's graph replay equal an eager replay's. The guarded
 kernels take another block by the batch (``launch.block_threads``): a
 design's outputs, decisions and flags are the same bit for bit in a launch
-of 1, 132 or 528 designs, and a NaN stays in its design. So does the
-unguarded quad kernel's block (a thread per bond while the designs do not
-outnumber the SMs), at B = 1, 128, 132 and 528. Kernel 2 is one launch
+of 1, 132 or 528 designs, and a NaN stays in its design. So do the
+unguarded quad and kagome kernels' blocks (a thread per bond at float32
+while the designs do not outnumber the SMs), at B = 1, 128, 132 and 528. Kernel 2 is one launch
 over lattice tiles and designs: it matches its plain version on ragged
 tiles and keeps a NaN in its design at every tile shape.
 """
@@ -831,8 +831,9 @@ def test_guarded_nan_stays_in_its_design(device, lattice):
 
 
 # ---------------------------------------------------------------------------
-# The unguarded quad kernel's block (kernel 1 and its population 1T): one
-# design per block whatever the shape launch.block_threads picks by the batch
+# The unguarded kernels' blocks (kernels 1 and 1K and their populations 1T
+# and 1K tiled): one design per block whatever the shape
+# launch.block_threads picks by the batch
 # ---------------------------------------------------------------------------
 
 
@@ -851,6 +852,40 @@ def test_population_of_any_block_equals_single_launches(device, dtype):
     small = kc.small_problem(device=device, dtype=dtype, amplitude_scale=0.01)
     opt, design = build_flagship(device=device, dtype=dtype)
     cases = (kc.batched_args(small, [kc.random_design(small, rng) for _ in range(4)]),
+             kc.batched_args(opt.forward_problem, [design]))
+    for args in cases:
+        B0 = args.U0.shape[0]
+        single = []
+        for b in range(B0):
+            def one(x, b=b):
+                return x[b:b + 1].contiguous()
+
+            single.append(_kernel(args._replace(
+                U0=one(args.U0), V0=one(args.V0), A0=one(args.A0), drive=one(args.drive),
+                fixed=tuple(one(f) for f in args.fixed))))
+        for B in (1, 128, 132, 528):
+            batch = _kernel(_tiled(args, B))
+            for b in range(B):
+                for x, y in zip(batch, single[b % B0]):
+                    assert torch.equal(x[b], y[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kagome_population_of_any_block_equals_single_launches(device, dtype):
+    """Kernel 1K: each design of a launch of 1, 128, 132 or 528 designs
+    gives its B = 1 launch's outputs bit for bit, though the launches
+    beyond the SMs run in blocks of another shape (four random 4 x 3-cell
+    designs, the kagome contact probe, and the configuration's design)."""
+
+    lib = launch.type_library(build.load("verlet_kagome"), "verlet_kagome")
+    shapes = {B: launch.block_threads(lib, "verlet_kagome", B, dtype, False)
+              for B in (1, 128, 132, 528)}
+    assert shapes[1] == shapes[128] == shapes[132] != shapes[528]
+    rng = np.random.default_rng(19)
+    small = kc.small_kagome(device=device, dtype=dtype, amplitude_scale=0.01)
+    opt, design = build_kagome(device=device, dtype=dtype)
+    cases = (kc.batched_args(small, [kc.random_kagome_design(small, rng) for _ in range(4)]),
+             kc.kagome_contact_probe(device=device, dtype=dtype)[0],
              kc.batched_args(opt.forward_problem, [design]))
     for args in cases:
         B0 = args.U0.shape[0]
