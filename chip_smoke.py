@@ -12,7 +12,7 @@ identical at float64), the kagome kernels (1K and 1Kg, the same) and the
 fused external loads (1L) in all four of them. The plain version's runs, and
 the dense ``method="verlet"`` runs of the loaded problems, go to worker
 processes on the host's CPU cores while the kernels build. Then it drives
-nine main paths.
+eleven main paths.
 On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
 value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
 1), and the guarded constrained optimizer
@@ -45,7 +45,17 @@ its plain version at the shape of ``tools/microbench_lanes_batch.py`` (B =
 128) and timed; the flagship's value and gradient through
 ``method="verlet_ckpt"`` (one launch of kernel 2 a substep), guard levels =
 2 on the card through it (held against the plain guarded body), and the 96
-x 64 lattice of ``bench.py`` through kernel 2 and through kernel 1.
+x 64 lattice of ``bench.py`` through kernel 2 and through kernel 1. The
+flagship's robustness map (main path 10, ``bench.py:380-400``): 64 loading
+scenarios (the pulse's amplitude and rate swept) in one
+``compute_robustness_map`` call, one launch of kernel 1, each cell held
+against its scenario alone at B = 1 and two against the plain body on the
+card. The five other quad families at their example scripts' sizes (main
+path 11): the value and design gradient of multi-input focusing, energy
+splitting, the restricted design space, spin and static tuning through
+kernel 1, static tuning's value held against the plain body on the card
+(the plain-body runs of main paths 10-11 go to a process of their own,
+on the card beside main path 2).
 Objectives and float64 design gradients are checked against the JAX
 package's float64 values, and the kernels are timed against their plain
 versions. Fails
@@ -171,10 +181,10 @@ POPULATION_STEP = 1e-3
 # not held design by design.
 # Multistart MMA of main path 8: candidates, iterations, finalists.
 MULTISTART_B, MULTISTART_ITERATIONS, MULTISTART_FINALISTS = 8, 2, 4
-# Batch sizes of the designs/s curve: 1, a few designs, about one design
-# on each of the H100's 132 SMs, and four per SM (B = 8, 132 and 264 ran
-# until the time limit needed their minute).
-CURVE_BATCHES = (1, 32, 128, 528)
+# Batch sizes of the designs/s curve: 1, about one design on each of the
+# H100's 132 SMs, and four per SM (B = 8, 32, 132 and 264 ran until the
+# time limit needed their time).
+CURVE_BATCHES = (1, 128, 528)
 # Main path 9: kernel 2 at the microbenchmark's B, each time the median of
 # KERNEL2_REPS runs after a warm-up; its device time a call from a CUDA
 # graph of KERNEL2_CALLS calls (one replay of a graph of one call also
@@ -189,6 +199,26 @@ TWO_LEVELS = {"proximity_windows": 2.0, "hard_fraction": 0.1, "levels": 2}
 # stepped forward), which over 1,990 damped substeps stays far below 1e-10
 # of the objective at float64.
 LARGE_OBJECTIVE_TOL = 1e-10
+# Main path 10: the flagship's robustness map, the pulse's amplitude and
+# rate each swept by linspace(0.5, 1.5, MAP_POINTS) (bench.py:388-389), all
+# scenarios in one launch of kernel 1. A scenario's row takes the same
+# operations as the same scenario alone at B = 1 (a thread block a row, the
+# same block while the rows do not outnumber the SMs), so its fields are the
+# same; its kinetic energy is reduced in an order that follows the batch's
+# shape, a few rounding steps (MAP_TOL). The cells of MAP_PLAIN_CELLS are
+# held against the plain body on the card at F64_TRAJ_TOL.
+MAP_POINTS = 8
+MAP_TOL = 1e-12
+MAP_PLAIN_CELLS = ((1, 6), (6, 1))
+# Their plain-body yardsticks (about 10 ms a plain step on the card, a
+# minute in all) run in a process of their own, SIDE_WORKERS, while the
+# main process drives main path 2 (host-bound, the card mostly idle).
+SIDE_WORKERS = 1
+# Main path 11: launches of kernel 1 in one value of each family (two
+# forward problems for multi-input, two phases of two scenarios for static
+# tuning, one solve for the others).
+FAMILY_LAUNCHES = {"multi_input": 2, "energy_splitting": 1, "restricted_space": 1, "spin": 1,
+                   "static_tuning": 4}
 
 
 def log(*parts):
@@ -239,6 +269,76 @@ def stats_err(got, ref):
     return max(abs(a - b) for a, b in zip(got, ref)) / max(abs(x) for x in ref)
 
 
+def map_scenarios(forward_problem, device):
+    """Main path 10's scenarios: the pulse's amplitudes and rates, each the
+    problem's swept by linspace(0.5, 1.5, MAP_POINTS), float64."""
+
+    import numpy as np
+    import torch
+
+    factors = np.linspace(0.5, 1.5, MAP_POINTS)
+    like = dict(device=device, dtype=torch.float64)
+    return (torch.as_tensor(forward_problem.amplitude * factors, **like),
+            torch.as_tensor(forward_problem.loading_rate * factors, **like))
+
+
+def map_cells(optimization, design, amplitudes, rates):
+    """The target kinetic energy of ``design`` under each (amplitude, rate)
+    scenario, one ``solve_scenario`` call."""
+
+    import torch
+
+    from difflexmm_tpu_torch.geometry.polygon import compute_inertia
+    from difflexmm_tpu_torch.ops.observables import trajectory_kinetic_energy
+
+    fp = optimization.forward_problem
+    target = torch.as_tensor(optimization.target_blocks, device=design[0].device)
+    inertia = compute_inertia(fp.geometry.centroid_node_vectors(*design), fp.density)[target]
+    solution = fp.solve_scenario(design, amplitudes, rates)
+    return trajectory_kinetic_energy(solution.fields[..., 1, target, :], inertia)
+
+
+def plain_yardsticks():
+    """Main paths 10 and 11's plain-body yardsticks on the card (run in a
+    process of their own): the target kinetic energies of MAP_PLAIN_CELLS
+    of the flagship's robustness map and static tuning's value at its
+    example, each with the plain body as the forward (the "verlet_ckpt"
+    solvers with ``core.plain_trajectory`` as their spec's forward on the
+    card, as for main path 8's yardstick). Returns (cells, value, host
+    seconds)."""
+
+    import torch
+
+    from difflexmm_tpu_torch.models import family_configs as fc
+    from difflexmm_tpu_torch.models import flagship as fl
+    from difflexmm_tpu_torch.ops.kernels import core
+    from difflexmm_tpu_torch.ops.kernels.verlet_grid import quad_force
+
+    t0 = time.perf_counter()
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def plain_on_card(solve_dynamics):
+        solve_dynamics.specs[device] = solve_dynamics.spec_for(device)._replace(
+            forward=core.plain_trajectory)
+
+    flagship, design = fl.build_flagship(method="verlet_ckpt", device=device,
+                                         dtype=torch.float64)
+    plain_on_card(flagship.forward_problem.solve_dynamics)
+    amplitudes, rates = map_scenarios(flagship.forward_problem, device)
+    rows, cols = (torch.tensor(ix, device=device) for ix in zip(*MAP_PLAIN_CELLS))
+    static, static_design = fc.example_families(method="verlet_ckpt", device=device,
+                                                dtype=torch.float64)["static_tuning"]
+    plain_on_card(static.forward_problem.solve_dynamics)
+    with torch.no_grad():
+        cells = map_cells(flagship, design, amplitudes[rows], rates[cols])
+        value = float(static.objective_fn(static_design))
+    # One plain forward of the two cells, four of static tuning (two phases
+    # of two scenarios), and no launch of kernel 2.
+    if core.plain_trajectory.calls != 5 or quad_force.launches != 0:
+        raise AssertionError("main paths 10-11 yardsticks: the forwards were not the plain body")
+    return cells.tolist(), value, time.perf_counter() - t0
+
+
 def main():
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -247,16 +347,20 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
-    pool = ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    spawn = multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(PLAIN_WORKERS, mp_context=spawn)
+    side = ProcessPoolExecutor(SIDE_WORKERS, mp_context=spawn)
     try:
-        smoke(pool)
+        smoke(pool, side)
     finally:
         pool.shutdown(cancel_futures=True)
+        side.shutdown(cancel_futures=True)
 
 
-def smoke(pool):
+def smoke(pool, side):
     """Everything but the set-up: ``pool`` runs the plain body's
-    trajectories (see below)."""
+    trajectories on host cores (see below), ``side`` main paths 10 and
+    11's plain-body yardsticks on the card."""
 
     import torch
 
@@ -588,6 +692,7 @@ def smoke(pool):
                  for lattice in ("quad", "kagome") for step in (POPULATION_STEP, -POPULATION_STEP)}
     phase_done("float32 yardstick of main path 8")
 
+
     for job in builds:
         job.result()
     builders.shutdown()
@@ -778,6 +883,11 @@ def smoke(pool):
     timings = {"fwd_grad_kernel_s": main[f32][2], "fwd_grad_kernel_s_float64": main[f64][2]}
 
     phase_done("main")
+
+    # Main paths 10 and 11's plain-body yardsticks: on the card beside main
+    # path 2, whose guarded adjoint keeps the host busy and the card mostly
+    # idle (after main path 1, whose time they would share).
+    yardstick_job = side.submit(plain_yardsticks)
 
     # -- main path 2: the guarded constrained MMA through kernel 1g ----------
     def capturing(opt, grads):
@@ -1760,6 +1870,95 @@ def smoke(pool):
                                   objective_kernel1=v1))
     force["main_path_9_s"] = time.perf_counter() - t9
     phase_done(f"main path 9 ({force['main_path_9_s']:.1f} s)")
+
+    # -- main path 10: the flagship's robustness map through kernel 1 ----------
+    t10 = time.perf_counter()
+    from difflexmm_tpu_torch.models import family_configs as fc
+
+    map_opt, map_design = kernel_path[f64]
+    map_amplitudes, map_rates = map_scenarios(map_opt.forward_problem, device)
+    map_plain, static_plain, yardstick_s = yardstick_job.result()
+    map_plain = torch.tensor(map_plain, device=device, dtype=f64)
+    plain_rows, plain_cols = (torch.tensor(ix, device=device) for ix in zip(*MAP_PLAIN_CELLS))
+    log(f"main paths 10-11 plain-body yardsticks (a process of their own): {yardstick_s:.1f} s")
+    n_map = MAP_POINTS * MAP_POINTS
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        robustness = map_opt.compute_robustness_map(map_design, map_amplitudes, map_rates)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    launches, plain_calls = verlet_quad_trajectory.launches, core.plain_trajectory.calls
+    log(f"main path 10 (flagship robustness map, {n_map} scenarios at float64): {launches} "
+        f"kernel-1 launches, {plain_calls} plain-body forwards")
+    if launches != 1 or plain_calls != 0:
+        raise AssertionError("main path 10: the map was not one launch of kernel 1")
+    if tuple(robustness.shape) != (MAP_POINTS, MAP_POINTS) or not bool(
+            torch.isfinite(robustness).all()):
+        raise AssertionError(f"main path 10: map of shape {tuple(robustness.shape)}, finite "
+                             f"{bool(torch.isfinite(robustness).all())}")
+    results["verlet_quad"]["launches_by_path"] = {"1": results["verlet_quad"]["launches"],
+                                                  "10": launches}
+    warm_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            map_opt.compute_robustness_map(map_design, map_amplitudes, map_rates)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        alone = torch.stack([map_cells(map_opt, map_design, a, r) for a in map_amplitudes
+                             for r in map_rates]).reshape(MAP_POINTS, MAP_POINTS)
+    check("main path 10: each map cell vs its scenario alone at B = 1 (kernel 1)",
+          float(((robustness - alone).abs() / alone.abs()).max()), MAP_TOL)
+    cells = robustness[plain_rows, plain_cols]
+    check("main path 10: two map cells vs the plain body on the card",
+          float(((cells - map_plain).abs() / map_plain.abs()).max()), F64_TRAJ_TOL)
+    warm = statistics.median(warm_s)
+    log(f"  robustness map: {map_s:.4f} s ({n_map / map_s:.1f} scenarios/s), warm median of "
+        f"3 {warm:.4f} s ({n_map / warm:.1f} scenarios/s); {card_line}")
+    timings.update(robustness_map_s=map_s, robustness_map_scenarios_per_s=n_map / map_s,
+                   robustness_map_warm_s=warm, robustness_map_warm_scenarios_per_s=n_map / warm,
+                   yardsticks_10_11_s=yardstick_s)
+    phase_done(f"main path 10 ({time.perf_counter() - t10:.1f} s)")
+
+    # -- main path 11: the five other quad families through kernel 1 ----------
+    t11 = time.perf_counter()
+    families = fc.example_families(device=device, dtype=f64)
+    family_values, family_s = {}, {}
+    reset_counts()
+    for name, (opt, design) in families.items():
+        before = verlet_quad_trajectory.launches
+        d = tuple(x.detach().clone().requires_grad_() for x in design)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = opt.objective_fn(d)
+        grads = torch.autograd.grad(value, d)
+        torch.cuda.synchronize()
+        family_s[name] = time.perf_counter() - t0
+        family_values[name] = float(value.detach())
+        n = verlet_quad_trajectory.launches - before
+        finite_grads = all(bool(torch.isfinite(g).all()) for g in grads)
+        log(f"  {name}: value {family_values[name]!r}, |grad| "
+            f"{float(torch.sqrt(sum((g * g).sum() for g in grads))):.6e}, {n} kernel-1 "
+            f"launches, fwd+grad {family_s[name]:.3f} s")
+        if n != FAMILY_LAUNCHES[name]:
+            raise AssertionError(f"main path 11 {name}: {n} kernel-1 launches, expected "
+                                 f"{FAMILY_LAUNCHES[name]}")
+        if not (math.isfinite(family_values[name]) and finite_grads):
+            raise AssertionError(f"main path 11 {name}: value or gradient not finite")
+    launches, plain_calls = verlet_quad_trajectory.launches, core.plain_trajectory.calls
+    log(f"main path 11 (five quad families, value and gradient at float64): {launches} "
+        f"kernel-1 launches, {plain_calls} plain-body forwards; {card_line}")
+    if launches != sum(FAMILY_LAUNCHES.values()) or plain_calls != 0:
+        raise AssertionError("main path 11 did not run through kernel 1")
+    results["verlet_quad"]["launches_by_path"]["11"] = launches
+    check("main path 11: static tuning value (kernel 1) vs the plain body on the card",
+          abs(family_values["static_tuning"] - static_plain) / abs(static_plain), F64_TRAJ_TOL)
+    timings.update(families_fwd_grad_s=family_s, families_value=family_values)
+    phase_done(f"main path 11 ({time.perf_counter() - t11:.1f} s)")
 
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
                 "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "

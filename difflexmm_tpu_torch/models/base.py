@@ -282,3 +282,53 @@ def forward_problem_from_dict(cls, dict_in: dict):
     problem = cls(**data)
     problem.is_setup = False
     return problem
+
+
+def problem_to_data(problem):
+    """A fresh copy of a problem dataclass, not set up: its fields only
+    (lists and dicts copied, nested problems through their own
+    ``to_data``), none of the solver state that ``setup`` adds, so that
+    :func:`utils.types.save_data` can pickle it."""
+
+    values = {}
+    for f in dataclasses.fields(problem):
+        if not f.init:
+            continue
+        value = getattr(problem, f.name)
+        if hasattr(value, "to_data"):
+            value = value.to_data()
+        elif isinstance(value, list):
+            value = [x.to_data() if hasattr(x, "to_data") else x for x in value]
+        elif isinstance(value, dict):
+            value = dict(value)
+        values[f.name] = value
+    values["is_setup"] = False
+    return type(problem)(**values)
+
+
+def optimization_problem_from_dict(cls, forward_cls, dict_in: dict, **nested):
+    """Rebuild an OptimizationProblem-style dataclass from its ``to_dict``:
+    ``forward_problem`` (or each of ``forward_problems``) through
+    ``forward_cls.from_dict``, and each ``name=dataclass`` of ``nested``
+    (e.g. ``forward_input=ForwardInput``) from its dict."""
+
+    data = dict(dict_in)
+    if "forward_problem" in data:
+        data["forward_problem"] = forward_cls.from_dict(data["forward_problem"])
+    if "forward_problems" in data:
+        data["forward_problems"] = [forward_cls.from_dict(p) for p in data["forward_problems"]]
+    for name, nested_cls in nested.items():
+        if isinstance(data.get(name), dict):
+            data[name] = nested_cls(**data[name])
+    data["is_setup"] = False
+    return cls(**data)
+
+
+def optimization_problem_from_data(problem, forward_cls):
+    """An OptimizationProblem-style record (``to_data``, or one loaded with
+    ``load_data``) made ready for ``setup_objective``."""
+
+    for fp in getattr(problem, "forward_problems", None) or [problem.forward_problem]:
+        forward_cls.from_data(fp)
+    problem.is_setup = False
+    return problem

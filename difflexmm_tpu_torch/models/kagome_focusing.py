@@ -11,7 +11,7 @@ triangles of each target cell.
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,6 +66,8 @@ class ForwardProblem:
     (``grid_energy``) or the bond-list energy. ``guard``: None, ``"auto"``
     or a spec dict (``base.resolve_model_guard``, travel scaled by
     ``cell_size``; the dense ``"verlet"`` takes none yet, ROADMAP A4).
+    ``setup(excited_blocks_fn)`` replaces the pulse by
+    ``excited_blocks_fn(t)`` of a scalar time.
     """
 
     # Geometry
@@ -118,7 +120,7 @@ class ForwardProblem:
     is_setup: bool = False
     name: str = "kagome_focusing"
 
-    def setup(self) -> None:
+    def setup(self, excited_blocks_fn: Optional[Callable] = None) -> None:
         like = dict(device=torch.device(self.device), dtype=self.dtype)
         geometry = KagomeGeometry(
             n1_cells=self.n1_cells,
@@ -154,8 +156,12 @@ class ForwardProblem:
             np.concatenate([np.ones(k), np.zeros(2 * k), np.zeros(len(clamped_pairs))]), **like
         )
 
-        def constrained_DOFs_fn(t, amplitude, loading_rate, input_delay):
-            return base.pulse(t - input_delay, amplitude, loading_rate)[..., None] * drive_vector
+        if excited_blocks_fn is None:
+            def constrained_DOFs_fn(t, amplitude, loading_rate, input_delay):
+                return base.pulse(t - input_delay, amplitude, loading_rate) * drive_vector
+        else:
+            def constrained_DOFs_fn(t, **kwargs):
+                return excited_blocks_fn(t) * drive_vector
 
         energy = base.dense_energy(build_kagome_grid_energy, self.n1_cells, self.n2_cells,
                                    bonds, self.linearized_strains, self.use_contact,
@@ -252,6 +258,14 @@ class ForwardProblem:
     def from_dict(dict_in: dict) -> "ForwardProblem":
         return base.forward_problem_from_dict(ForwardProblem, dict_in)
 
+    def to_data(self) -> "ForwardProblem":
+        return base.problem_to_data(self)
+
+    @staticmethod
+    def from_data(problem_data) -> "ForwardProblem":
+        problem_data.is_setup = False
+        return problem_data
+
 
 @dataclass
 class OptimizationProblem(OptimizationRunnerMixin):
@@ -309,8 +323,11 @@ class OptimizationProblem(OptimizationRunnerMixin):
 
     @staticmethod
     def from_dict(dict_in: dict) -> "OptimizationProblem":
-        data = dict(dict_in)
-        data["forward_problem"] = ForwardProblem.from_dict(data["forward_problem"])
-        problem = OptimizationProblem(**data)
-        problem.is_setup = False
-        return problem
+        return base.optimization_problem_from_dict(OptimizationProblem, ForwardProblem, dict_in)
+
+    def to_data(self) -> "OptimizationProblem":
+        return base.problem_to_data(self)
+
+    @staticmethod
+    def from_data(optimization_data) -> "OptimizationProblem":
+        return base.optimization_problem_from_data(optimization_data, ForwardProblem)

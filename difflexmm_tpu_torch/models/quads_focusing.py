@@ -3,15 +3,17 @@
 
 A pulse enters from one side of an aperiodic quad lattice; the design
 (hinge shift grids) is optimized to maximize the kinetic energy delivered
-to a target patch. This module ports the forward problem, the objective
-and its population form (B designs in one solve); the constraints, the
-MMA loop and the multistart driver come from ``models/runner.py``.
+to a target patch. This module ports the forward problem, its loading
+scenarios (B pulse amplitudes and rates in one solve), the response data,
+the objective and its population form (B designs in one solve) and the
+robustness map; the constraints, the MMA loop and the multistart loop
+come from ``models/runner.py``.
 """
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,7 +23,10 @@ from difflexmm_tpu_torch.geometry.quad import QuadGeometry
 from difflexmm_tpu_torch.models import base
 from difflexmm_tpu_torch.models.runner import OptimizationRunnerMixin
 from difflexmm_tpu_torch.ops.grid import build_quad_grid_energy
-from difflexmm_tpu_torch.ops.observables import trajectory_kinetic_energy
+from difflexmm_tpu_torch.ops.observables import (
+    compute_ligament_strains_history,
+    trajectory_kinetic_energy,
+)
 from difflexmm_tpu_torch.solver.dynamics import FAST_METHODS, setup_dynamic_solver
 from difflexmm_tpu_torch.utils.types import (
     ContactParams,
@@ -42,10 +47,15 @@ class ForwardProblem:
     ``device`` in ``dtype`` (every physical parameter is cast to them).
     A population of B designs, each shift grid with a leading dimension B,
     solves in one call on the fast path (fields ``(B, T, 2, n_blocks,
-    3)``). ``device`` is the CUDA device unless the caller asks for the
-    CPU. ``method``: one of ``solver.dynamics.FAST_METHODS`` (the grid fast
-    path) or the dense ``"verlet"`` on the gridded energy
-    (``grid_energy``) or the bond-list energy. ``guard``: None, ``"auto"``
+    3)``). ``self.solve_scenario(design, amplitude, loading_rate)`` takes
+    the pulse's amplitude and rate: tensors of shape ``(B,)`` make B
+    scenarios, solved in one call on the fast path (one kernel launch on
+    the card). ``setup(excited_blocks_fn)`` replaces the pulse by
+    ``excited_blocks_fn(t)`` of a scalar time. ``device`` is the CUDA
+    device unless the caller asks for the CPU. ``method``: one of
+    ``solver.dynamics.FAST_METHODS`` (the grid fast path) or the dense
+    ``"verlet"`` on the gridded energy (``grid_energy``) or the bond-list
+    energy. ``guard``: None, ``"auto"``
     or a spec dict (``base.resolve_model_guard``; the dense ``"verlet"``
     takes none yet, ROADMAP A4).
     """
@@ -99,7 +109,7 @@ class ForwardProblem:
     is_setup: bool = False
     name: str = "quads_focusing"
 
-    def setup(self) -> None:
+    def setup(self, excited_blocks_fn: Optional[Callable] = None) -> None:
         like = dict(device=torch.device(self.device), dtype=self.dtype)
         geometry = QuadGeometry(
             n1_blocks=self.n1_blocks,
@@ -128,8 +138,12 @@ class ForwardProblem:
             np.concatenate([drive_mask, np.zeros(len(clamped_pairs))]), **like
         )
 
-        def constrained_DOFs_fn(t, amplitude, loading_rate, input_delay):
-            return base.pulse(t - input_delay, amplitude, loading_rate)[..., None] * drive_vector
+        if excited_blocks_fn is None:
+            def constrained_DOFs_fn(t, amplitude, loading_rate, input_delay):
+                return base.pulse(t - input_delay, amplitude, loading_rate) * drive_vector
+        else:
+            def constrained_DOFs_fn(t, **kwargs):
+                return excited_blocks_fn(t) * drive_vector
 
         energy = base.dense_energy(build_quad_grid_energy, self.n1_blocks, self.n2_blocks,
                                    bonds, self.linearized_strains, self.use_contact,
@@ -180,9 +194,13 @@ class ForwardProblem:
         )
         damping = torch.as_tensor(np.array(self.damping, dtype=np.float64), **like)
 
-        def control_params(design) -> ControlParams:
-            """The solver's parameters for a design (or a population)."""
+        def control_params(design, amplitude=None, loading_rate=None) -> ControlParams:
+            """The solver's parameters for a design (or a population), with
+            the problem's pulse or the one given (a scenario batch where
+            ``(B,)``)."""
 
+            amplitude = self.amplitude if amplitude is None else amplitude
+            loading_rate = self.loading_rate if loading_rate is None else loading_rate
             horizontal_shifts, vertical_shifts = design
             return ControlParams(
                 geometrical_params=GeometricalParams(
@@ -196,14 +214,19 @@ class ForwardProblem:
                     contact_params=contact_params,
                 ),
                 constraint_params=dict(
-                    amplitude=sign * scalar(self.amplitude),
-                    loading_rate=scalar(self.loading_rate),
+                    amplitude=sign * scalar(amplitude),
+                    loading_rate=scalar(loading_rate),
                     input_delay=scalar(self.input_delay),
                 ),
             )
 
-        def forward(design: Tuple[torch.Tensor, torch.Tensor]) -> SolutionData:
-            cp = control_params(design)
+        def forward_scenario(design: Tuple[torch.Tensor, torch.Tensor], amplitude,
+                             loading_rate) -> SolutionData:
+            """Forward solve with the pulse's amplitude and rate given (the
+            robustness sweep's entry point; ``(B,)`` of each for B
+            scenarios)."""
+
+            cp = control_params(design, amplitude, loading_rate)
             gp = cp.geometrical_params
             return SolutionData(
                 block_centroids=gp.block_centroids,
@@ -213,13 +236,49 @@ class ForwardProblem:
                 fields=solve_dynamics(state0, timepoints, cp),
             )
 
+        def forward(design: Tuple[torch.Tensor, torch.Tensor]) -> SolutionData:
+            return forward_scenario(design, self.amplitude, self.loading_rate)
+
         self.solve = forward
+        self.solve_scenario = forward_scenario
         self.control_params = control_params
         self.solve_dynamics = solve_dynamics
         self.timepoints = timepoints
         self.state0 = state0
         self.geometry = geometry
+        self.clamped_blocks_ids = np.unique(clamped_pairs[:, 0])
+        self.driven_blocks_ids = np.unique(driven_pairs[:, 0])
+        self.moving_blocks_ids = np.setdiff1d(np.arange(geometry.n_blocks),
+                                              self.clamped_blocks_ids)
         self.is_setup = True
+
+    def compute_response_data(self, solution_data: Optional[SolutionData] = None) -> dict:
+        """The solution's fields plus each bond's strain-energy histories
+        (stretch, shear, bending; ``(..., T, n_bonds)``) and each block's
+        kinetic-energy history (``(..., T, n_blocks)``); a scenario or
+        design batch keeps its leading dimension."""
+
+        if not self.is_setup:
+            self.setup()
+        if solution_data is None:
+            solution_data = self.solution_data
+        if not isinstance(solution_data, SolutionData):
+            raise ValueError("Solution data is not of type SolutionData!")
+        out = solution_data._asdict()
+        fields = solution_data.fields
+        displacement, velocity = fields[..., 0, :, :], fields[..., 1, :, :]
+        axial, shear, bending = compute_ligament_strains_history(
+            displacement, solution_data.centroid_node_vectors, solution_data.bond_connectivity,
+            self.geometry.reference_bond_vectors().to(displacement),
+        )
+        out["strain_energy_stretch"] = 0.5 * self.k_stretch * (axial * self.bond_length) ** 2
+        out["strain_energy_shear"] = 0.5 * self.k_shear * (shear * self.bond_length) ** 2
+        out["strain_energy_bending"] = 0.5 * self.k_rot * bending**2
+        inertia = compute_inertia(solution_data.centroid_node_vectors, self.density)
+        if inertia.dim() > 2:  # a population of designs: broadcast over time
+            inertia = inertia.unsqueeze(-3)
+        out["kinetic_energy"] = torch.sum(0.5 * velocity**2 * inertia, dim=-1)
+        return out
 
     def to_dict(self) -> dict:
         return base.problem_to_dict(self)
@@ -227,6 +286,14 @@ class ForwardProblem:
     @staticmethod
     def from_dict(dict_in: dict) -> "ForwardProblem":
         return base.forward_problem_from_dict(ForwardProblem, dict_in)
+
+    def to_data(self) -> "ForwardProblem":
+        return base.problem_to_data(self)
+
+    @staticmethod
+    def from_data(problem_data) -> "ForwardProblem":
+        problem_data.is_setup = False
+        return problem_data
 
 
 @dataclass
@@ -275,7 +342,40 @@ class OptimizationProblem(OptimizationRunnerMixin):
         self.target_blocks = target_blocks
         self.is_setup = True
 
+    def compute_robustness_map(self, design, amplitudes, loading_rates,
+                               mesh=None) -> torch.Tensor:
+        """Target kinetic energy of ``design`` over the grid of pulse
+        ``amplitudes`` x ``loading_rates``: ``(len(amplitudes),
+        len(loading_rates))``, every scenario of the grid in one
+        ``solve_scenario`` call (one kernel launch on the card)."""
+
+        if mesh is not None:
+            raise NotImplementedError("scenarios sharded over several cards are ROADMAP A11")
+        if not self.is_setup:
+            self.setup_objective()
+        fp = self.forward_problem
+        like = dict(device=torch.device(fp.device), dtype=fp.dtype)
+        A, R = torch.meshgrid(torch.as_tensor(amplitudes, **like),
+                              torch.as_tensor(loading_rates, **like), indexing="ij")
+        target = torch.as_tensor(self.target_blocks, device=like["device"])
+        inertia = compute_inertia(fp.geometry.centroid_node_vectors(*design), fp.density)
+        solution = fp.solve_scenario(design, A.reshape(-1), R.reshape(-1))
+        values = trajectory_kinetic_energy(solution.fields[..., 1, target, :],
+                                           inertia[target])
+        return values.reshape(A.shape)
+
     def to_dict(self) -> dict:
         out = dataclasses.asdict(self)
         out["forward_problem"] = self.forward_problem.to_dict()
         return out
+
+    @staticmethod
+    def from_dict(dict_in: dict) -> "OptimizationProblem":
+        return base.optimization_problem_from_dict(OptimizationProblem, ForwardProblem, dict_in)
+
+    def to_data(self) -> "OptimizationProblem":
+        return base.problem_to_data(self)
+
+    @staticmethod
+    def from_data(optimization_data) -> "OptimizationProblem":
+        return base.optimization_problem_from_data(optimization_data, ForwardProblem)

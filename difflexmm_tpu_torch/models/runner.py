@@ -54,12 +54,24 @@ class OptimizationRunnerMixin:
     """Drives ``self.objective_fn`` (maximized) with MMA.
 
     Requires on self: ``objective_fn``, ``objective_values``,
-    ``design_values``, ``constraints_violation``, ``is_setup`` and
-    ``forward_problem``.
+    ``design_values``, ``constraints_violation``, ``is_setup`` and either
+    ``forward_problem`` or ``forward_problems`` (several forward problems
+    on one design).
     """
 
+    def _forward_problems(self) -> list:
+        if hasattr(self, "forward_problem"):
+            return [self.forward_problem]
+        return list(self.forward_problems)
+
+    def _set_forward_problems(self, problems: list) -> None:
+        if hasattr(self, "forward_problem"):
+            (self.forward_problem,) = problems
+        else:
+            self.forward_problems = problems
+
     def _geometry(self):
-        return self.forward_problem.geometry
+        return self._forward_problems()[0].geometry
 
     def _boundary_node_ids(self):
         geometry = self._geometry()
@@ -110,23 +122,27 @@ class OptimizationRunnerMixin:
 
         if guard is None:
             return
-        fp = self.forward_problem
-        if self._guardable(fp) and fp.guard is None:
+        problems = self._forward_problems()
+        rearmed = [dataclasses.replace(fp, guard=guard, is_setup=False)
+                   if self._guardable(fp) and fp.guard is None else fp for fp in problems]
+        if any(new is not old for new, old in zip(rearmed, problems)):
             self.is_setup = False
-            self.forward_problem = dataclasses.replace(fp, guard=guard, is_setup=False)
+            self._set_forward_problems(rearmed)
 
     def _guarded_sibling(self, guard):
         """A guarded sibling of this problem (set up) without changing self:
         self when the forward problem is already guarded, None when it
         cannot take a guard."""
 
-        fp = self.forward_problem
-        if not self._guardable(fp):
+        problems = self._forward_problems()
+        if not all(self._guardable(fp) for fp in problems):
             return None
-        if fp.guard is not None:
+        if all(fp.guard is not None for fp in problems):
             return self
         clone = copy.copy(self)
-        clone.forward_problem = dataclasses.replace(fp, guard=guard, is_setup=False)
+        clone._set_forward_problems([
+            fp if fp.guard is not None else dataclasses.replace(fp, guard=guard, is_setup=False)
+            for fp in problems])
         clone.is_setup = False
         clone.setup_objective()
         return clone
@@ -345,14 +361,16 @@ class OptimizationRunnerMixin:
         return extras
 
     def compute_best_forward(self):
-        """Solve the forward problem at the last design of the history."""
+        """Solve the forward problem (each of ``forward_problems``, a list
+        of solutions) at the last design of the history."""
 
         if not self.design_values:
             raise ValueError("No design has been optimized yet.")
-        if not self.forward_problem.is_setup:
-            self.forward_problem.setup()
-        with torch.no_grad():
-            self.forward_problem.solution_data = self.forward_problem.solve(
-                self.design_values[-1]
-            )
-        return self.forward_problem.solution_data
+        for fp in self._forward_problems():
+            if not fp.is_setup:
+                fp.setup()
+            with torch.no_grad():
+                fp.solution_data = fp.solve(self.design_values[-1])
+        if hasattr(self, "forward_problem"):
+            return self.forward_problem.solution_data
+        return [fp.solution_data for fp in self.forward_problems]

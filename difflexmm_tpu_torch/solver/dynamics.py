@@ -12,9 +12,11 @@ drive values and their exact time derivatives (one forward-mode jvp).
 A population of designs (the counterpart of the JAX solver under ``vmap``,
 ``dynamics.py:984-1000``) is one call of the fast path: control parameters
 whose geometry carries a leading design dimension B run as one trajectory
-of B designs, the batch on the kernel's grid. The JAX package's design
-tiling and its crossover routing exist for the TPU's lanes and are not
-ported.
+of B designs, the batch on the kernel's grid. A batch of loading
+scenarios (constraint or loading parameters with a leading dimension B,
+the JAX models' ``vmap`` over scenarios) is the same batch, each row with
+its own drive and load tables. The JAX package's design tiling and its
+crossover routing exist for the TPU's lanes and are not ported.
 """
 
 from typing import Callable, Optional
@@ -73,14 +75,21 @@ def setup_dynamic_solver(
     its first use; setting one there (``spec._replace(forward=...)``) runs
     another forward with the same adjoint.
 
-    ``constrained_DOFs_fn(t, **constraint_params)`` takes a tensor ``t`` of
-    any shape and returns values broadcastable to ``t.shape + (k,)`` for
-    the k constrained pairs (the JAX version takes scalar times).
+    ``constrained_DOFs_fn(t, **constraint_params)`` takes a scalar time
+    ``t`` as in JAX and returns a scalar or the ``(k,)`` values of the k
+    constrained pairs; the fast path evaluates it at every time of a table
+    by ``torch.func.vmap``, so JAX-style functions port as they are.
     ``loaded_block_DOF_pairs`` with ``loading_fn(state, t,
     **loading_params)``: external forces on those pairs (pairs named twice
     add), evaluated at scalar times ``t`` as in JAX (a scalar or
     ``(n_loaded,)`` result). The fast path calls it with ``state=None``, so
     it must depend on time only there; the dense path passes ``(u, v)``.
+    On the fast path a constraint or loading parameter that is a tensor
+    with a leading dimension B (every other parameter a scalar) makes B
+    loading scenarios: one trajectory of B rows, each with its own drive
+    and load tables, on one design (shared by the rows) or on a population
+    of B designs; the output is then ``(B, T, 2, n_blocks, 3)``. Batches of
+    different sizes raise.
     ``energy_fn(block_displacement, control_params)``: the energy of the
     dense path (the fast path has its own plane energy and ignores it).
     ``quad_grid``: dict with n1, n2 (blocks) and optional linearized /
@@ -234,14 +243,21 @@ def setup_dynamic_solver(
                      for x, shape in zip(leaves, lattice.fixed_shapes(B, n1, n2)))
 
     def prepare(state0, timepoints, control_params: ControlParams):
-        """(trajectory args, masked y0, timepoints, population size or None
-        for one design)."""
+        """(trajectory args, masked y0, timepoints, batch size or None for
+        one design in one scenario)."""
 
         mp = control_params.mechanical_params
         cnv = control_params.geometrical_params.centroid_node_vectors
         like = dict(dtype=cnv.dtype, device=cnv.device)
-        population = cnv.shape[0] if cnv.dim() == 4 else None
-        B = population or 1
+        cparams = control_params.constraint_params or {}
+        lparams = (control_params.loading_params or {}) if has_loading else {}
+        c_keys, l_keys = _batched_keys(cparams), _batched_keys(lparams)
+        batch = _batch_size(
+            ("the design", cnv.shape[0] if cnv.dim() == 4 else None),
+            *((f"constraint_params[{k!r}]", cparams[k].shape[0]) for k in c_keys),
+            *((f"loading_params[{k!r}]", lparams[k].shape[0]) for k in l_keys),
+        )
+        B = batch or 1
 
         def batched(x):
             """A shared (per-design) tensor on the design batch, contiguous."""
@@ -252,26 +268,24 @@ def setup_dynamic_solver(
         inertia = mp.inertia if mp.inertia is not None else compute_inertia(cnv, mp.density)
         mask = torch.as_tensor(dof_set.free_mask, **like)
         y0 = torch.as_tensor(state0, **like) * mask
-        if population is None and y0.dim() != 3:
+        if batch is None and y0.dim() != 3:
             raise ValueError(f"state0 of one design has shape {tuple(y0.shape)}, want "
                              f"(2, {n_blocks}, 3)")
         ts = torch.as_tensor(timepoints, **like)
         fixed = fixed_leaves(control_params, torch.as_tensor(inertia, **like), mask, like, B)
-        cparams = control_params.constraint_params
 
         def drive_table(t):
-            """(..., n_drive) drive values, zero-padded to one column."""
+            """(B, ..., n_drive) drive values, zero-padded to one column."""
 
             if dof_set.n_constrained == 0:
-                return t.new_zeros(t.shape + (1,))
-            values = torch.as_tensor(constrained_DOFs_fn(t, **cparams), **like)
-            return torch.broadcast_to(values, t.shape + (dof_set.n_constrained,))
+                return batched(t.new_zeros(t.shape + (1,)))
+            table = _time_table(_drive_at(constrained_DOFs_fn, dof_set.n_constrained, like),
+                                cparams, c_keys, t)
+            return table.contiguous() if c_keys else batched(table)
 
-        lparams = control_params.loading_params or {}
-
-        def load_one(t):
+        def load_one(t, params):
             try:
-                values = loading_fn(None, t, **lparams)
+                values = loading_fn(None, t, **params)
             except (TypeError, IndexError, AttributeError) as err:
                 raise TypeError(
                     "fused force loading calls loading_fn(None, t, **loading_params): it must "
@@ -282,10 +296,12 @@ def setup_dynamic_solver(
             return torch.broadcast_to(values, (len(load_pairs),))
 
         def load_table(t):
-            """(..., n_loaded) loads, ``loading_fn`` evaluated at each scalar
-            time of ``t`` (vmapped, so a JAX-style function ports as it is)."""
+            """(B, ..., n_loaded) loads, ``loading_fn`` evaluated at each
+            scalar time of ``t`` (vmapped, so a JAX-style function ports as
+            it is)."""
 
-            return torch.func.vmap(load_one)(t.reshape(-1)).reshape(t.shape + (-1,))
+            table = _time_table(load_one, lparams, l_keys, t)
+            return table.contiguous() if l_keys else batched(table)
 
         # Substep end times with JAX's operations and order:
         # dt = (t1 - t0) / n, t_start = t0 + i * dt, t_end = t_start + dt.
@@ -293,8 +309,8 @@ def setup_dynamic_solver(
         i = torch.arange(n_substeps, **like)
         starts = ts[:-1, None] + i[None, :] * dts[:, None]
         ends = (starts + dts[:, None]).reshape(-1)
-        drive = batched(drive_table(ends))
-        loads = [batched(load_table(ends))] if has_loading else []
+        drive = drive_table(ends)
+        loads = [load_table(ends)] if has_loading else []
         # Micro-step end times, one table per guard level, as the guarded
         # stepper computes them: ddt = dt / refine, start_j = start + j * ddt,
         # end_j = start_j + ddt.
@@ -305,39 +321,39 @@ def setup_dynamic_solver(
             ddt = step.view((-1,) + (1,) * starts.dim())
             starts = starts[..., None] + torch.arange(guard["refine"], **like) * ddt
             ends = (starts + ddt).reshape(-1)
-            micro.append(batched(drive_table(ends)))
+            micro.append(drive_table(ends))
             if has_loading:
-                loads.append(batched(load_table(ends)))
+                loads.append(load_table(ends))
 
         y0 = torch.broadcast_to(y0, (B,) + y0.shape[-3:])
         U0, V0 = (lattice.to_planes(y0[:, i], n1, n2).contiguous() for i in range(2))
         inertia_p, damping_p, mask_p = fixed[-3:]
         # F0 carries the load at ts[0], as JAX's force_fn does.
         F0 = core.force(
-            U0, batched(drive_table(ts[0])), fixed, spec,
+            U0, drive_table(ts[0]), fixed, spec,
             create_graph=torch.is_grad_enabled(),
-            load_row=batched(load_table(ts[0])) if has_loading else None,
+            load_row=load_table(ts[0]) if has_loading else None,
         )
         A0 = (F0 - damping_p * V0) * (mask_p / inertia_p)
         args = core.TrajectoryArgs(spec, U0, V0, A0, dts, drive, fixed, tuple(micro),
                                    tuple(loads))
-        return args, y0, ts, population
+        return args, y0, ts, batch
 
     def trajectory_args(state0, timepoints, control_params: ControlParams):
         """The trajectory's inputs (a batch of 1 for one design, of B for a
-        population), as :class:`core.TrajectoryArgs`."""
+        population or a batch of scenarios), as :class:`core.TrajectoryArgs`."""
 
         return prepare(state0, timepoints, control_params)[0]
 
     def solve_dynamics(state0, timepoints, control_params: ControlParams) -> torch.Tensor:
         """Integrate the dynamics; output (T, 2, n_blocks, 3), or (B, T, 2,
-        n_blocks, 3) for a population."""
+        n_blocks, 3) for a population or a batch of scenarios."""
 
-        args, y0, ts, population = prepare(state0, timepoints, control_params)
+        args, y0, ts, batch = prepare(state0, timepoints, control_params)
         outU, outV = core.apply(args)[:2]
         out = torch.stack([outU, outV], dim=2)  # (B, T-1, 2, C, n2, n1)
         ys = torch.cat([y0[:, None], lattice.fields_from_planes(out, n_blocks)], dim=1)
-        if population is None:
+        if batch is None:
             ys = ys[0]
         return _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn,
                                  control_params.constraint_params,
@@ -362,22 +378,69 @@ def _any_requires_grad(tree) -> bool:
     return any(_any_requires_grad(x) for x in tree)
 
 
+def _batched_keys(params) -> tuple:
+    """The keys of the parameters that carry a scenario batch: tensors
+    with at least one dimension."""
+
+    return tuple(k for k, v in params.items() if isinstance(v, torch.Tensor) and v.dim() > 0)
+
+
+def _batch_size(*named_sizes):
+    """The one batch size among ``(name, size or None)`` pairs, or None;
+    differing sizes raise."""
+
+    sizes = {name: size for name, size in named_sizes if size is not None}
+    if len(set(sizes.values())) > 1:
+        raise ValueError(f"batches of different sizes: {sizes}")
+    return next(iter(sizes.values()), None)
+
+
+def _drive_at(constrained_DOFs_fn, n_constrained, like):
+    """``(t, params) -> (n_constrained,)``: the drive at one scalar time."""
+
+    def drive_at(t, params):
+        values = constrained_DOFs_fn(t, **params)
+        values = values.to(**like) if isinstance(values, torch.Tensor) \
+            else torch.as_tensor(values, **like)
+        return torch.broadcast_to(values, (n_constrained,))
+
+    return drive_at
+
+
+def _time_table(value_at, params, batched_keys, t):
+    """``value_at(scalar t, params) -> (n,)`` at each time of ``t``, by
+    ``torch.func.vmap``: ``t.shape + (n,)``, or ``(B,) + t.shape + (n,)``
+    where the parameters named by ``batched_keys`` carry a scenario batch B
+    on their first dimension (vmapped over too)."""
+
+    flat = t.reshape(-1)
+    over_t = torch.func.vmap(value_at, in_dims=(0, None))
+    if not batched_keys:
+        return over_t(flat, params).reshape(t.shape + (-1,))
+    dims = {k: 0 if k in batched_keys else None for k in params}
+    table = torch.func.vmap(over_t, in_dims=(None, dims))(flat, params)
+    return table.reshape(table.shape[:1] + t.shape + (-1,))
+
+
 def _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn, cparams, like):
     """``ys`` (..., T, 2, n_blocks, 3) with the driven DOFs set to the drive
-    values and their exact time derivatives (one forward-mode jvp)."""
+    values and their exact time derivatives (one forward-mode jvp); a
+    scenario batch in ``cparams`` gives each row of ``ys`` its own."""
 
     if dof_set.n_constrained == 0:
         return ys
+    cparams = cparams or {}
+    drive_at = _drive_at(constrained_DOFs_fn, dof_set.n_constrained, like)
+    keys = _batched_keys(cparams)
 
     def drive_values(t):
-        values = torch.as_tensor(constrained_DOFs_fn(t, **cparams), **like)
-        return torch.broadcast_to(values, t.shape + (dof_set.n_constrained,))
+        return _time_table(drive_at, cparams, keys, t)
 
     c_blocks, c_dofs, c_ids = dof_set.last_write_pairs()
     c_vals, c_rates = torch.func.jvp(drive_values, (ts,), (torch.ones_like(ts),))
     u, v = ys[..., 0, :, :].clone(), ys[..., 1, :, :].clone()
-    u[..., c_blocks, c_dofs] = c_vals[:, c_ids]
-    v[..., c_blocks, c_dofs] = c_rates[:, c_ids]
+    u[..., c_blocks, c_dofs] = c_vals[..., c_ids]
+    v[..., c_blocks, c_dofs] = c_rates[..., c_ids]
     return torch.stack([u, v], dim=-3)
 
 
@@ -415,9 +478,11 @@ def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
 
         mp = control_params.mechanical_params
         cnv = control_params.geometrical_params.centroid_node_vectors
-        if cnv.dim() != 3:
-            raise ValueError("the dense method='verlet' solves one design; a population of "
-                             "designs runs on the quad_grid/kagome_grid fast path")
+        if cnv.dim() != 3 or _batched_keys(control_params.constraint_params or {}) or \
+                _batched_keys(control_params.loading_params or {}):
+            raise ValueError("the dense method='verlet' solves one design in one scenario; a "
+                             "population of designs or a batch of scenarios runs on the "
+                             "quad_grid/kagome_grid fast path")
         like = dict(dtype=cnv.dtype, device=cnv.device)
         inertia = mp.inertia if mp.inertia is not None else compute_inertia(cnv, mp.density)
         inertia = torch.as_tensor(inertia, **like)

@@ -321,22 +321,23 @@ def test_kagome_design_gradient_matches_jax(ref):
         assert np.all(np.isfinite(g.numpy())) and rel(g, ref[f"harness_grad{i}"]) <= GRAD_TOL
 
 
-def test_kagome_plain_body_matches_jax_pallas_interpret():
+# The shortened window of the interpret-mode comparison: 2 intervals of 2
+# substeps.
+INTERPRET_TIMEPOINTS = 3
+
+
+def test_kagome_plain_body_matches_jax_pallas_interpret(model_ref):
     # The JAX package's kagome kernel itself, in interpret mode, on a
-    # shortened window (2 intervals of 2 substeps).
-    n_t = 3
-    jsolve, _, _, jcp, jstate0 = _harness("jax", "verlet_pallas", n_substeps=2)
+    # shortened window (its result recorded, ``jax_model_references``).
     tsolve, _, _, tcp, tstate0 = _harness("torch", "auto", n_substeps=2)
-    design = _design()
-    ref = jsolve(jstate0, jnp.asarray(TIMEPOINTS[:n_t]), jcp(tuple(jnp.asarray(x)
-                                                                    for x in design)))
     with torch.no_grad():
-        got = tsolve(tstate0, torch.tensor(TIMEPOINTS[:n_t]), tcp(tuple(torch.tensor(x)
-                                                                         for x in design)))
+        got = tsolve(tstate0, torch.tensor(TIMEPOINTS[:INTERPRET_TIMEPOINTS]),
+                     tcp(tuple(torch.tensor(x) for x in _design())))
+    ref = model_ref["interpret_fields"]
     # The Pallas kernel takes the polynomial atan2 (about 2e-8 from the
     # true one, tests/test_pallas_kagome.py): its tolerance, not ours.
-    assert np.abs(np.asarray(ref)).max() > 1e-4
-    assert np.allclose(got.numpy(), np.asarray(ref), atol=1e-6)
+    assert np.abs(ref).max() > 1e-4
+    assert np.allclose(got.numpy(), ref, atol=1e-6)
 
 
 # A travel-only guard with a low threshold: it fires on some substeps of
@@ -458,19 +459,53 @@ def _jax_dict(problem):
             for k, v in problem.to_dict().items()}
 
 
-def test_kagome_model_objective_and_gradient_match_jax():
-    jp = _small_jax_problem()
-    jo = jax_kagome.OptimizationProblem(jp, target_size=(2, 2))
+@pytest.fixture(scope="module")
+def model_ref():
+    """The recorded JAX results of ``jax_model_references``."""
+
+    return stored("kagome_model_small")
+
+
+def jax_model_references() -> dict:
+    """The JAX package's float64 results that ``kagome_model_small.npz``
+    records: the small model's objective and design gradient at
+    ``_design(seed=11)`` (``verlet_ckpt``), its target blocks, and the
+    harness's first ``INTERPRET_TIMEPOINTS`` timepoints through the Pallas
+    kernel in interpret mode at ``_design()``."""
+
+    jo = jax_kagome.OptimizationProblem(_small_jax_problem(), target_size=(2, 2))
     jo.setup_objective()
+    value, grads = jax.jit(jax.value_and_grad(jo.objective_fn))(
+        tuple(jnp.asarray(x) for x in _design(seed=11)))
+    out = {"model_value": float(value), "target_blocks": np.asarray(jo.target_blocks)}
+    out.update({f"model_grad{i}": np.asarray(g) for i, g in enumerate(grads)})
+    jsolve, _, _, jcp, jstate0 = _harness("jax", "verlet_pallas", n_substeps=2)
+    out["interpret_fields"] = np.asarray(jsolve(
+        jstate0, jnp.asarray(TIMEPOINTS[:INTERPRET_TIMEPOINTS]),
+        jcp(tuple(jnp.asarray(x) for x in _design()))))
+    return out
+
+
+@pytest.mark.slow
+def test_kagome_model_references_match_jax():
+    """Make ``tests/data/kagome_model_small.npz`` again with the JAX package."""
+
+    record_or_check("kagome_model_small", jax_model_references())
+
+
+def test_kagome_model_objective_and_gradient_match_jax(model_ref):
+    # JAX's value and gradient (about half a minute to trace and compile)
+    # are recorded (``jax_model_references``).
+    jp = _small_jax_problem()
     design = [np.asarray(x) for x in _design(seed=11)]
-    jvalue, jgrads = jax.jit(jax.value_and_grad(jo.objective_fn))(
-        tuple(jnp.asarray(x) for x in design))
+    jvalue = float(model_ref["model_value"])
+    jgrads = [model_ref[f"model_grad{i}"] for i in range(3)]
 
     problem = kc.small_kagome(device="cpu")
     assert _jax_dict(jp)["n1_cells"] == problem.n1_cells
     to = port_kagome.OptimizationProblem(problem, target_size=(2, 2))
     to.setup_objective()
-    np.testing.assert_array_equal(to.target_blocks, jo.target_blocks)
+    np.testing.assert_array_equal(to.target_blocks, model_ref["target_blocks"])
     d = tuple(torch.tensor(x, requires_grad=True) for x in design)
     value = to.objective_fn(d)
     grads = torch.autograd.grad(value, d)
@@ -566,8 +601,9 @@ def test_kagome_problems_cross_over_from_jax_dicts():
     assert opt.target_shift == (1, 0) and opt.objective_values == [1.0, 2.0]
     assert [len(d) for d in opt.design_values] == [3, 3]
     assert rel(flat_numpy(opt.design_values[1]), flat_numpy(history[1])) == 0.0
-    with pytest.raises(NotImplementedError, match="family"):
-        forward_problem_from_jax_dict({**_jax_dict(jp), "name": "quads_spin"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="family.*A12"):
+        forward_problem_from_jax_dict({**_jax_dict(jp), "name": "hinge_characterization"},
+                                      device="cpu")
 
 
 def test_kagome_config_is_the_example_json():

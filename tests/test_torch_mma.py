@@ -265,36 +265,82 @@ def test_run_mma_fused_raises_on_bad_initial_design():
 # ---------------------------------------------------------------------------
 
 
+FLAGSHIP_N1, FLAGSHIP_N2 = 24, 16
+
+
+def _constraint_design():
+    """The flagship's 25-degree rotated square plus noise of 0.3 (numpy,
+    seed 0), the design both packages' constraints are taken at."""
+
+    geometry = QuadGeometry(FLAGSHIP_N1, FLAGSHIP_N2, SPACING, 0.15 * SPACING)
+    rng = np.random.default_rng(0)
+    return [np.asarray(x) + 0.3 * rng.standard_normal(tuple(x.shape))
+            for x in geometry.get_design_from_rotated_square(25 * math.pi / 180)]
+
+
+def _constraint_fns(lib_base, geometry, boundary):
+    bounds = lib_base.quad_boundary_node_ids(FLAGSHIP_N1, FLAGSHIP_N2) if boundary else None
+    geometry.get_parametrization()
+    return [lib_base.build_angle_constraints(geometry.centroid_node_vectors,
+                                             geometry.bond_connectivity(), 0.1, 0.2, bounds),
+            lib_base.build_edge_length_constraints(geometry.centroid_node_vectors, 0.75)]
+
+
+def jax_constraint_references() -> dict:
+    """The JAX package's fabrication constraints and their Jacobians at
+    ``_constraint_design()``, with and without the boundary angles, that
+    ``tests/data/flagship_constraints.npz`` records: values, and each
+    Jacobian (mostly zeros) as its shape, the flat indices of its nonzero
+    entries and their values."""
+
+    jgeo = JaxQuadGeometry(FLAGSHIP_N1, FLAGSHIP_N2, SPACING, 0.15 * SPACING)
+    design = _constraint_design()
+    out = {"design0": design[0], "design1": design[1]}
+    for boundary in (False, True):
+        for k, jfn in enumerate(_constraint_fns(jax_base, jgeo, boundary)):
+            jd = tuple(jnp.asarray(x) for x in design)
+            key = f"{'boundary' if boundary else 'plain'}{k}"
+            out[f"{key}_values"] = np.asarray(jfn(jd))
+            jacobians = jax.jacobian(lambda *d: jfn(d), argnums=(0, 1))(*jd)
+            for a, jac in enumerate(jacobians):
+                jac = np.asarray(jac)
+                nonzero = np.flatnonzero(jac)
+                out[f"{key}_jac{a}_shape"] = np.asarray(jac.shape)
+                out[f"{key}_jac{a}_index"] = nonzero
+                out[f"{key}_jac{a}_value"] = jac.reshape(-1)[nonzero]
+    return out
+
+
+@pytest.mark.slow
+def test_flagship_constraint_references_match_jax():
+    """Make ``tests/data/flagship_constraints.npz`` again with the JAX package."""
+
+    record_or_check("flagship_constraints", jax_constraint_references())
+
+
 @pytest.mark.parametrize("boundary", [False, True])
 def test_constraints_and_jacobians_match_jax_at_flagship_design(boundary):
-    n1, n2 = 24, 16
-    jgeo = JaxQuadGeometry(n1, n2, SPACING, 0.15 * SPACING)
-    tgeo = QuadGeometry(n1, n2, SPACING, 0.15 * SPACING)
-    jgeo.get_parametrization()
-    tgeo.get_parametrization()
-    rng = np.random.default_rng(0)
-    design = [np.asarray(x) + 0.3 * rng.standard_normal(x.shape)
-              for x in jgeo.get_design_from_rotated_square(25 * math.pi / 180)]
-    ids = jax_base.quad_boundary_node_ids(n1, n2)
-    np.testing.assert_array_equal(base.quad_boundary_node_ids(n1, n2), ids)
-    bounds = ids if boundary else None
-    jfns = [jax_base.build_angle_constraints(jgeo.centroid_node_vectors, jgeo.bond_connectivity(),
-                                             0.1, 0.2, bounds),
-            jax_base.build_edge_length_constraints(jgeo.centroid_node_vectors, 0.75)]
-    tfns = [base.build_angle_constraints(tgeo.centroid_node_vectors, tgeo.bond_connectivity(),
-                                         0.1, 0.2, bounds),
-            base.build_edge_length_constraints(tgeo.centroid_node_vectors, 0.75)]
-    for jfn, tfn in zip(jfns, tfns):
-        jd = tuple(jnp.asarray(x) for x in design)
-        jv = jfn(jd)
-        jj = jax.jacobian(lambda *d: jfn(d), argnums=(0, 1))(*jd)
+    # JAX's values and Jacobians (tens of seconds of eager JAX) are recorded
+    # (``jax_constraint_references``).
+    ref = stored("flagship_constraints")
+    np.testing.assert_array_equal(base.quad_boundary_node_ids(FLAGSHIP_N1, FLAGSHIP_N2),
+                                  jax_base.quad_boundary_node_ids(FLAGSHIP_N1, FLAGSHIP_N2))
+    design = _constraint_design()
+    for x, r in zip(design, (ref["design0"], ref["design1"])):
+        np.testing.assert_array_equal(x, r)
+    tgeo = QuadGeometry(FLAGSHIP_N1, FLAGSHIP_N2, SPACING, 0.15 * SPACING)
+    for k, tfn in enumerate(_constraint_fns(base, tgeo, boundary)):
+        key = f"{'boundary' if boundary else 'plain'}{k}"
+        jv = ref[f"{key}_values"]
         td = tuple(torch.tensor(x) for x in design)
         tv = tfn(td)
         tj = torch.func.jacrev(lambda *d: tfn(d), argnums=(0, 1))(*td)
         assert tv.shape == jv.shape
         assert rel(tv, jv) <= CONSTRAINT_TOL
-        for a, b in zip(tj, jj):
-            assert rel(a, b) <= CONSTRAINT_TOL
+        for a, got in enumerate(tj):
+            jac = np.zeros(tuple(ref[f"{key}_jac{a}_shape"]))
+            jac.reshape(-1)[ref[f"{key}_jac{a}_index"]] = ref[f"{key}_jac{a}_value"]
+            assert rel(got, jac) <= CONSTRAINT_TOL
 
 
 # ---------------------------------------------------------------------------
