@@ -12,7 +12,7 @@ identical at float64), the kagome kernels (1K and 1Kg, the same) and the
 fused external loads (1L) in all four of them. The plain version's runs, and
 the dense ``method="verlet"`` runs of the loaded problems, go to worker
 processes on the host's CPU cores while the kernels build. Then it drives
-eleven main paths.
+twelve main paths.
 On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
 value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
 1), and the guarded constrained optimizer
@@ -22,7 +22,8 @@ one at float32 timed). On the kagome configuration
 (``examples/configs/kagome_focusing.json``: 16 x 16 cells, 200
 timepoints, 10 substeps): the value and design gradient (kernel 1K), and
 ``run_optimization_mma`` with the configuration's settings (kernel 1Kg, two
-iterations at float64 held against the JAX history and gradients). The
+iterations at float64 held against the JAX history and gradients; in a
+process of its own on the card, beside the flagship's MMA). The
 force pulse of ``examples/pulse_rotated_squares.py`` (10 x 5 rotated-square
 cells, 100 timepoints, 16 substeps, kernel 1L): the value and gradient of
 the last kinetic energy with respect to (angle, amplitude, rate), held
@@ -44,8 +45,9 @@ launch of kernel 1g). Kernel 2, the quad force (main path 9): held against
 its plain version at the shape of ``tools/microbench_lanes_batch.py`` (B =
 128) and timed; the flagship's value and gradient through
 ``method="verlet_ckpt"`` (one launch of kernel 2 a substep), guard levels =
-2 on the card through it (held against the plain guarded body), and the 96
-x 64 lattice of ``bench.py`` through kernel 2 and through kernel 1. The
+2 on the card through it (held against the plain guarded body; the same
+guard runs through kernel 1g in main path 12), and the 96 x 64 lattice of
+``bench.py`` through kernel 2 and through kernel 1. The
 flagship's robustness map (main path 10, ``bench.py:380-400``): 64 loading
 scenarios (the pulse's amplitude and rate swept) in one
 ``compute_robustness_map`` call, one launch of kernel 1, each cell held
@@ -55,7 +57,16 @@ path 11): the value and design gradient of multi-input focusing, energy
 splitting, the restricted design space, spin and static tuning through
 kernel 1, static tuning's value held against the plain body on the card
 (the plain-body runs of main paths 10-11 go to a process of their own,
-on the card beside main path 2).
+on the card beside main path 2). Guards deeper than one level (main path
+12) through kernels 1g and 1Kg, which refine to any depth: the flagship's
+n = 5 rescue (unguarded NaN; the travel-only guard at one level and at two
+within 1e-3 of the f64 odeint oracle at both types and within 1e-8 of the
+JAX package's f64 value), the flagship at its MMA iterate 1 and the kagome
+configuration at levels 2, and the violent 8 x 6 problem's value and
+design gradient at levels 2 (against the plain body's on the host) and its
+value at levels 3; before it, those kernels and guarded 1L at levels 2 and
+3 against the plain guarded body, decisions of every depth identical at
+float64.
 Objectives and float64 design gradients are checked against the JAX
 package's float64 values, and the kernels are timed against their plain
 versions. Fails
@@ -193,6 +204,21 @@ KERNEL2_B, KERNEL2_REPS, KERNEL2_CALLS = 128, 30, 20
 # The flagship's guard ("auto": proximity 2 windows, hard 0.1 window)
 # refined to depth 2.
 TWO_LEVELS = {"proximity_windows": 2.0, "hard_fraction": 0.1, "levels": 2}
+# Main path 12 (d): the violent 8 x 6 problem (kernel_checks.small_problem,
+# DEEP_SMALL_TIMEPOINTS timepoints) under that guard at refine 4, at levels
+# 2 and 3. Its value and design gradient at levels 2 through kernel 1g
+# (the adjoint replays the fired intervals with the kernel's decisions)
+# against the plain body's on the host within DEEP_GRAD_TOL of their scale:
+# the two forwards differ by rounding (1e-10 of the fields at float64), the
+# adjoints replay the same plain body.
+DEEP_SMALL_GUARD = dict(TWO_LEVELS, refine=4)
+DEEP_SMALL_TIMEPOINTS = 3
+DEEP_GRAD_TOL = 1e-9
+# Main path 12 (a): the n = 5 rescue (models/flagship.py), held within
+# RESCUE_ORACLE_TOL of the f64 odeint oracle at both types (the JAX
+# package's own gate for it) and at float64 within OBJECTIVE_TOL of the JAX
+# package's f64 value for the same guard.
+RESCUE_ORACLE_TOL = 1e-3
 # The 96 x 64 lattice (bench.py:405-440) through kernel 2 and through kernel
 # 1: the two forwards differ by rounding (the force's summation is the same
 # code; the Verlet update is fused on the card in kernel 1, not in the
@@ -212,7 +238,8 @@ MAP_TOL = 1e-12
 MAP_PLAIN_CELLS = ((1, 6), (6, 1))
 # Their plain-body yardsticks (about 10 ms a plain step on the card, a
 # minute in all) run in a process of their own, SIDE_WORKERS, while the
-# main process drives main path 2 (host-bound, the card mostly idle).
+# main process drives main path 2 (host-bound, the card mostly idle); so
+# does main path 4 after them, the kagome MMA (as host-bound).
 SIDE_WORKERS = 1
 # Main path 11: launches of kernel 1 in one value of each family (two
 # forward problems for multi-input, two phases of two scenarios for static
@@ -339,6 +366,112 @@ def plain_yardsticks():
     return cells.tolist(), value, time.perf_counter() - t0
 
 
+def deep_small_objective(device, dtype, levels=2):
+    """Main path 12 (d): the focusing objective (target 2 x 2) of the
+    violent 8 x 6 problem under DEEP_SMALL_GUARD at ``levels``, and its
+    design (the 25-degree rotated square with noise from a seed)."""
+
+    import numpy as np
+
+    from difflexmm_tpu_torch import kernel_checks as kc
+    from difflexmm_tpu_torch.models.quads_focusing import OptimizationProblem
+
+    problem = kc.small_problem(n_timepoints=DEEP_SMALL_TIMEPOINTS, device=device, dtype=dtype,
+                               guard=dict(DEEP_SMALL_GUARD, levels=levels))
+    opt = OptimizationProblem(problem, target_size=(2, 2))
+    opt.setup_objective()
+    return opt, kc.random_design(problem, np.random.default_rng(13))
+
+
+def deep_small_value_and_grad(device="cpu", levels=2):
+    """The value and flattened design gradient of
+    :func:`deep_small_objective` at float64 on ``device`` (on the host: the
+    plain body, one thread) and the seconds they took."""
+
+    import torch
+
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    opt, design = deep_small_objective(device, torch.float64, levels)
+    d = tuple(x.detach().clone().requires_grad_() for x in design)
+    t0 = time.perf_counter()
+    value = opt.objective_fn(d)
+    grads = torch.autograd.grad(value, d)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    grad = torch.cat([g.flatten() for g in grads]).cpu()
+    return float(value.detach()), grad, time.perf_counter() - t0
+
+
+def capturing(opt, grads):
+    """Keep the design gradient of every value-and-gradient call of
+    ``opt.objective_fn`` (the MMA's), flattened, in ``grads``."""
+
+    objective_fn = opt.objective_fn
+
+    def objective(design):
+        value = objective_fn(design)
+        if value.requires_grad:
+            got = [None] * len(design)
+            grads.append(got)
+            for i, x in enumerate(design):
+                def keep(g, i=i, got=got):
+                    got[i] = g.detach().flatten()
+                x.register_hook(keep)
+        return value
+
+    opt.objective_fn = objective
+
+
+def kagome_mma():
+    """Main path 4 (run in a process of its own on the card, beside main
+    path 2): the kagome configuration's guarded MMA through kernel 1Kg, at
+    float64, MMA_ITERATIONS iterations with the configuration's settings,
+    built guarded as the JAX reference ran (``run_optimization_mma`` re-arms
+    "auto"), so that the objective whose gradients are kept is the MMA's.
+    Returns the seconds an iteration took (host clock), this process's
+    launch counts of the run (its counts set to 0 just before it), and the
+    history to hold against JAX's: each iteration's objective, design
+    summary, gradient summary and the guard's firing (substeps and
+    intervals) at its design."""
+
+    import torch
+
+    from difflexmm_tpu_torch import kernel_checks as kc
+    from difflexmm_tpu_torch.models import flagship as fl
+    from difflexmm_tpu_torch.models import kagome_config as kg
+    from difflexmm_tpu_torch.ops.kernels import core, launch
+    from difflexmm_tpu_torch.ops.kernels.verlet_grid import quad_force, verlet_quad_trajectory
+    from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    opt, design = kg.build_kagome(device=device, dtype=torch.float64, guard="auto")
+    grads = []
+    capturing(opt, grads)
+    for wrapper in (verlet_quad_trajectory, verlet_kagome_trajectory):
+        launch.reset_counts(wrapper)
+    quad_force.launches = 0
+    core.plain_trajectory.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.run_optimization_mma(design, n_iterations=MMA_ITERATIONS, verbose=False,
+                             **kg.KAGOME_MMA_SETTINGS)
+    torch.cuda.synchronize()
+    out = dict(per_iter=(time.perf_counter() - t0) / MMA_ITERATIONS,
+               launches=verlet_kagome_trajectory.guarded_launches,
+               plain_calls=core.plain_trajectory.calls, values=list(opt.objective_values),
+               design_stats=[fl.design_stats(d, design) for d in opt.design_values],
+               grad_stats=[fl.vector_stats(torch.cat(g).cpu().numpy()) for g in grads],
+               fired=[], intervals=[])
+    for d in opt.design_values:
+        with torch.no_grad():
+            fired = core.trajectory_forward(kc.batched_args(opt.forward_problem, [d]))[4]
+        n_int = fired.shape[1] // opt.forward_problem.n_substeps
+        out["fired"].append((int(fired.sum()), fired.numel()))
+        out["intervals"].append((int(fired.view(n_int, -1).any(-1).sum()), n_int))
+    return out
+
+
 def main():
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -360,7 +493,7 @@ def main():
 def smoke(pool, side):
     """Everything but the set-up: ``pool`` runs the plain body's
     trajectories on host cores (see below), ``side`` main paths 10 and
-    11's plain-body yardsticks on the card."""
+    11's plain-body yardsticks and main path 4 on the card."""
 
     import torch
 
@@ -474,6 +607,21 @@ def smoke(pool, side):
         cases["tensile chain 0.6"] = tensile64[0].trajectory_args(
             tensile64[2], tensile64[3], tensile64[1](0.6))
     cases["pulse 20x10 prefix"] = kc.prefix(cases["pulse 20x10"], PULSE_F32_INTERVALS)
+    # Main path 12: guard levels > 1 through kernels 1g, 1Kg and guarded 1L,
+    # (c) the kagome configuration and (d) the violent 8 x 6 problem; (b),
+    # the flagship's, needs main path 2's iterate and comes after it.
+    deep_labels = ["kagome 16x16 levels 2"]
+    cases[deep_labels[0]] = kc.batched_args(
+        kg.build_kagome(device=device, dtype=f64, guard=TWO_LEVELS)[0].forward_problem,
+        [kagome_design])
+    for levels in (2, 3):
+        deep_opt, deep_design = deep_small_objective(device, f64, levels)
+        label = f"8x6 violent levels {levels}"
+        cases[label] = kc.batched_args(deep_opt.forward_problem, [deep_design])
+        deep_labels.append(label)
+    cases["8x6 violent levels 2 loads"] = kc.with_loads(cases["8x6 violent levels 2"],
+                                                        kc.QUAD_LOAD_PAIRS)
+    deep_labels.append("8x6 violent levels 2 loads")
     # Main path 9 (c): guard levels = 2 through method="verlet_ckpt" on the
     # violent 8 x 6 problem, whose micro-steps fire at depth 2 too.
     deep_small = kc.batched_args(
@@ -501,12 +649,17 @@ def smoke(pool, side):
                                        ("32", args32, False), ("ref", kc.cast(args32, f64), False))
         }
 
-    # The configurations' runs (the longest) first.
-    for label in sorted(cases, key=lambda label: not ("16" in label or "20x10" in label)):
+    # The configurations' runs (the longest) first; main path 12's last,
+    # needed only at its end.
+    firsts = [label for label in cases if label not in deep_labels]
+    for label in sorted(firsts, key=lambda label: not ("16" in label or "20x10" in label)):
         submit(label)
     deep_jobs = {"8x6 violent": pool.submit(kc.plain_reference,
                                             kc.to_bytes(kc.on_cpu(deep_small)))}
-    log(f"plain body: {3 * len(cases) + 1} runs of {len(cases) + 1} cases sent to "
+    for label in deep_labels:
+        submit(label)
+    deep_grad_job = pool.submit(deep_small_value_and_grad)
+    log(f"plain body: {3 * len(cases) + 2} runs of {len(cases) + 1} cases sent to "
         f"{PLAIN_WORKERS} worker processes at {time.perf_counter() - started:.1f} s")
 
     def plain(label, name):
@@ -528,10 +681,13 @@ def smoke(pool, side):
         for name, k, p in zip("UVA", k64_cpu, p64):
             check(f"{label} float64 {name}", kc.max_rel_err(k, p), tol64)
         if args64.spec.guard is not None:
-            if not torch.equal(k64_cpu[4], p64[4]) or not torch.equal(k64_cpu[3], p64[3]):
+            if len(k64_cpu) != len(p64) or not all(torch.equal(k, p) for k, p in
+                                                    zip(k64_cpu[3:], p64[3:])):
                 raise AssertionError(f"{label}: float64 decisions of kernel and plain body differ")
-            log(f"  {label} float64: decisions identical, {int(k64_cpu[4].sum())} of "
-                f"{k64_cpu[4].numel()} substeps fired")
+            deep = "".join(f", {int(t.sum())} of {t.numel()} micro-steps of depth {d}"
+                           for d, t in enumerate(k64_cpu[5:], start=1))
+            log(f"  {label} float64: decisions of every depth identical, "
+                f"{int(k64_cpu[4].sum())} of {k64_cpu[4].numel()} substeps fired{deep}")
         k32 = [x.cpu() for x in core.trajectory_forward(kc.cast(args64, f32))]
         finite(k32[:3], f"{label} float32 kernel")
         p32, plain_ms, _ = plain(label, "32")
@@ -546,9 +702,10 @@ def smoke(pool, side):
                 check(f"{label} float32 {name} kernel vs float64", kc.max_rel_err(k.double(), r),
                       max(F32_TRAJ_FACTOR * e_plain, F32_TRAJ_FLOOR))
         if args64.spec.guard is not None:
-            log(f"  {label} float32: {int(k32[4].sum())} substeps fired in the kernel, "
-                f"{int(p32[4].sum())} in the plain body, decisions "
-                f"{'identical' if torch.equal(k32[4], p32[4]) else 'differ'}")
+            same = len(k32) == len(p32) and all(torch.equal(k, p) for k, p in zip(k32[4:], p32[4:]))
+            log(f"  {label} float32: {[int(t.sum()) for t in k32[4:]]} steps fired by depth in "
+                f"the kernel, {[int(t.sum()) for t in p32[4:]]} in the plain body, decisions "
+                f"{'identical' if same else 'differ'}")
         errors = {
             "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(k64_cpu[:3], p64[:3])),
             "max_rel_err": {dtype_name(dt): max(kc.max_rel_err(k, p) for k, p in zip(ks, ps))
@@ -599,17 +756,6 @@ def smoke(pool, side):
                 check(f"{label} guarded vs unguarded kernel {name}", kc.max_rel_err(g, u),
                       GUARD_NOOP_TOL)
         return k64, summary, errors
-
-    def refuses_two_levels(args):
-        """levels > 1 is the plain body's only: the kernel raises."""
-
-        deep = args.spec._replace(guard=dict(args.spec.guard, levels=2))
-        try:
-            core.trajectory_forward(args._replace(spec=deep))
-        except NotImplementedError as err:
-            log(f"  levels=2 on the card: NotImplementedError ({err})")
-        else:
-            raise AssertionError("the guarded kernel accepted levels=2")
 
     def engaged(args, label):
         U_eff = args.U0 * args.fixed[-1] + core.drive_planes(args.drive[:, 0], args.spec,
@@ -749,7 +895,6 @@ def smoke(pool, side):
     results["verlet_quad_guarded"]["summary"] = summary
     results["verlet_quad_guarded"].update(
         kc.trajectory_bound(kc.cast(flagship_guarded, f32), k64[0], summary))
-    refuses_two_levels(flagship_guarded)
 
     phase_done("guarded")
 
@@ -796,7 +941,6 @@ def smoke(pool, side):
     results["verlet_kagome_guarded"]["summary"] = summary
     results["verlet_kagome_guarded"].update(
         kc.trajectory_bound(kc.cast(kagome_guarded, f32), k64[0], summary))
-    refuses_two_levels(kagome_guarded)
 
     phase_done("kagome guarded checks")
 
@@ -888,27 +1032,12 @@ def smoke(pool, side):
     # path 2, whose guarded adjoint keeps the host busy and the card mostly
     # idle (after main path 1, whose time they would share).
     yardstick_job = side.submit(plain_yardsticks)
+    # Main path 4, the kagome MMA, in the same process after them: its
+    # adjoint keeps a host core busy and the card mostly idle, as main path
+    # 2's does, so the two run side by side.
+    kagome_job = side.submit(kagome_mma)
 
     # -- main path 2: the guarded constrained MMA through kernel 1g ----------
-    def capturing(opt, grads):
-        """Keep the design gradient of every value-and-gradient call of
-        ``opt.objective_fn`` (the MMA's), flattened, in ``grads``."""
-
-        objective_fn = opt.objective_fn
-
-        def objective(design):
-            value = objective_fn(design)
-            if value.requires_grad:
-                got = [None] * len(design)
-                grads.append(got)
-                for i, x in enumerate(design):
-                    def keep(g, i=i, got=got):
-                        got[i] = g.detach().flatten()
-                    x.register_hook(keep)
-            return value
-
-        opt.objective_fn = objective
-
     mma = {}
     mma_grads = []
     reset_counts()
@@ -969,11 +1098,24 @@ def smoke(pool, side):
     # Main path 9 (c): the second float64 iterate with the guard refined to
     # depth 2 through method="verlet_ckpt"; its plain guarded body runs in a
     # worker process from here on.
+    # Main path 12 (b) runs the same inputs through kernel 1g; the plain
+    # guarded body's runs on them serve both.
+    deep_design = opt.design_values[1]
     deep_flagship = kc.batched_args(
         fl.build_flagship(method="verlet_ckpt", device=device, dtype=f64,
-                          guard=TWO_LEVELS)[0].forward_problem, [opt.design_values[1]])
-    deep_jobs["flagship MMA iterate 1"] = pool.submit(
-        kc.plain_reference, kc.to_bytes(kc.on_cpu(deep_flagship)))
+                          guard=TWO_LEVELS)[0].forward_problem, [deep_design])
+    flagship_deep = "flagship MMA iterate 1 levels 2"
+    cases[flagship_deep] = kc.batched_args(
+        fl.build_flagship(device=device, dtype=f64, guard=TWO_LEVELS)[0].forward_problem,
+        [deep_design])
+    for key in ("U0", "V0", "A0", "dts", "drive", "fixed", "micro"):
+        a, b = getattr(cases[flagship_deep], key), getattr(deep_flagship, key)
+        if not all(torch.equal(x, y) for x, y in zip(*((a, b) if key in ("fixed", "micro")
+                                                       else ((a,), (b,))))):
+            raise AssertionError(f"{flagship_deep}: {key} differs between the two methods")
+    submit(flagship_deep)
+    deep_labels.append(flagship_deep)
+    deep_jobs["flagship MMA iterate 1"] = plain_jobs[flagship_deep]["64"]
     opt, design, per_iter = mma[f32]
     violation = max(v[-1] for v in opt.constraints_violation.values())
     values = opt.objective_values
@@ -1044,52 +1186,35 @@ def smoke(pool, side):
 
     phase_done("kagome main")
 
-    # -- main path 4: the kagome MMA through kernel 1Kg ----------------------
-    # Built guarded, as the JAX reference ran (run_optimization_mma re-arms
-    # "auto"), so that the objective whose gradients are kept is the MMA's.
-    opt, design = kg.build_kagome(device=device, dtype=f64, guard="auto")
-    kagome_grads = []
-    capturing(opt, kagome_grads)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    opt.run_optimization_mma(design, n_iterations=MMA_ITERATIONS, verbose=False,
-                             **kg.KAGOME_MMA_SETTINGS)
-    torch.cuda.synchronize()
-    per_iter = (time.perf_counter() - t0) / MMA_ITERATIONS
-    launches = verlet_kagome_trajectory.guarded_launches
-    plain_calls = core.plain_trajectory.calls
-    log(f"main path 4 (kagome MMA, {MMA_ITERATIONS} iterations at float64): {launches} guarded "
-        f"kernel launches, {plain_calls} plain-body forwards, {per_iter:.2f} s/iter (host clock)")
+    # -- main path 4: the kagome MMA through kernel 1Kg (run beside main path 2) --
+    km = kagome_job.result()
+    launches, plain_calls, per_iter = km["launches"], km["plain_calls"], km["per_iter"]
+    log(f"main path 4 (kagome MMA, {MMA_ITERATIONS} iterations at float64, in a process of "
+        f"its own beside main path 2): {launches} guarded kernel launches, {plain_calls} "
+        f"plain-body forwards, {per_iter:.2f} s/iter (host clock)")
     if launches < MMA_ITERATIONS or plain_calls != 0:
         raise AssertionError("main path 4 did not run through kernel 1Kg")
     results["verlet_kagome_guarded"]["launches"] = launches
     timings["kagome_mma_float64_s_per_iter"] = per_iter
-    if len(opt.objective_values) != len(kg.JAX_F64_MMA_VALUES) \
-            or len(kagome_grads) != len(kg.JAX_F64_MMA_GRAD_STATS):
-        raise AssertionError(f"kagome MMA: {len(opt.objective_values)} history entries, "
-                             f"{len(kagome_grads)} gradients")
+    if len(km["values"]) != len(kg.JAX_F64_MMA_VALUES) \
+            or len(km["grad_stats"]) != len(kg.JAX_F64_MMA_GRAD_STATS):
+        raise AssertionError(f"kagome MMA: {len(km['values'])} history entries, "
+                             f"{len(km['grad_stats'])} gradients")
     scale = max(abs(x) for s in kg.JAX_F64_MMA_DESIGN_STATS for x in s)
-    for k, (value, ref) in enumerate(zip(opt.objective_values, kg.JAX_F64_MMA_VALUES)):
-        stats = fl.design_stats(opt.design_values[k], design)
-        ref_stats = kg.JAX_F64_MMA_DESIGN_STATS[k]
-        grad_stats = fl.vector_stats(torch.cat(kagome_grads[k]).cpu().numpy())
-        with torch.no_grad():
-            fired = core.trajectory_forward(kc.batched_args(opt.forward_problem,
-                                                            [opt.design_values[k]]))[4]
-        n_int = fired.shape[1] // opt.forward_problem.n_substeps
-        intervals = int(fired.view(n_int, -1).any(-1).sum())
+    for k, (value, ref) in enumerate(zip(km["values"], kg.JAX_F64_MMA_VALUES)):
+        stats, ref_stats = km["design_stats"][k], kg.JAX_F64_MMA_DESIGN_STATS[k]
+        grad_stats = km["grad_stats"][k]
+        (fired, substeps), (intervals, n_int) = km["fired"][k], km["intervals"][k]
         log(f"  kagome MMA iteration {k}: objective {value!r} (JAX {ref!r}), design "
             f"(|dx|, sum dx, dx.r) {stats} (JAX {ref_stats}), gradient {grad_stats} (JAX "
-            f"{kg.JAX_F64_MMA_GRAD_STATS[k]}); guard fired on {int(fired.sum())} of "
-            f"{fired.numel()} substeps, in {intervals} of {n_int} intervals (JAX: "
-            f"{kg.JAX_F64_MMA_FIRED[k]} intervals)")
+            f"{kg.JAX_F64_MMA_GRAD_STATS[k]}); guard fired on {fired} of {substeps} substeps, "
+            f"in {intervals} of {n_int} intervals (JAX: {kg.JAX_F64_MMA_FIRED[k]} intervals)")
         check(f"kagome MMA iteration {k} objective vs JAX", abs(value - ref) / abs(ref), MMA_TOL)
         check(f"kagome MMA iteration {k} design vs JAX",
               max(abs(a - b) for a, b in zip(stats, ref_stats)) / scale, MMA_TOL)
         check(f"kagome MMA iteration {k} gradient vs JAX",
               stats_err(grad_stats, kg.JAX_F64_MMA_GRAD_STATS[k]), GRAD_TOL)
-        timings[f"kagome_mma_fired_substeps_{k}"] = int(fired.sum())
+        timings[f"kagome_mma_fired_substeps_{k}"] = fired
 
     phase_done("kagome mma")
 
@@ -1959,6 +2084,157 @@ def smoke(pool, side):
           abs(family_values["static_tuning"] - static_plain) / abs(static_plain), F64_TRAJ_TOL)
     timings.update(families_fwd_grad_s=family_s, families_value=family_values)
     phase_done(f"main path 11 ({time.perf_counter() - t11:.1f} s)")
+
+    # -- main path 12: guards deeper than one level through kernels 1g and 1Kg --
+    t12 = time.perf_counter()
+    # The kernels against the plain guarded body on the same inputs (run in
+    # the worker processes): (b) the flagship's MMA iterate 1 and (c) the
+    # kagome configuration at TWO_LEVELS, (d) the violent 8 x 6 problem at
+    # levels 2 (also with loads: guarded 1L) and 3. Float64: the decisions of
+    # every depth identical, U, V, A within F64_TRAJ_TOL; float32 by the rule.
+    deep = {}
+    for label in deep_labels:
+        k64, summary, errors = against_plain(label)
+        deep[label] = (k64, summary, errors)
+        log(f"  {label}: steps fired by depth {summary['fired_by_depth']} "
+            f"(refine {cases[label].spec.guard['refine']}), gap needed by depth "
+            f"{summary['gaps_by_depth']}")
+    if not bool(deep["8x6 violent levels 3"][0][6].any()):
+        FAILED.append("main path 12: no micro-step of depth 2 fired at levels 3 on the 8x6 case")
+    for label in ("8x6 violent levels 2", "8x6 violent levels 2 loads"):
+        if not bool(deep[label][0][5].any()):
+            FAILED.append(f"main path 12: no micro-step of depth 1 fired on {label}")
+    # Kernel times at levels 2 (CUDA events, medians of 3 after a warm-up),
+    # each with the steps of every depth it ran and its bound.
+    deep_timing = {}
+    for label, name in ((flagship_deep, "verlet_quad_guarded"),
+                        ("kagome 16x16 levels 2", "verlet_kagome_guarded")):
+        args64 = cases[label]
+        args32 = kc.cast(args64, f32)
+        k64, summary, errors = deep[label]
+        core.trajectory_forward(args32)  # warm up
+        r = dict(ms=event_ms(trajectory(args32), 3), ms_float64=event_ms(trajectory(args64), 3),
+                 fired_by_depth=summary["fired_by_depth"], refine=args64.spec.guard["refine"],
+                 max_abs_err=errors["max_abs_err"], max_rel_err=errors["max_rel_err"],
+                 plain_ms=errors["plain_ms"])
+        r.update(kc.trajectory_bound(args32, k64[0], summary))
+        r["us_per_step"] = r["ms"] * 1e3 / r["steps"]
+        # The kernel of the walk (GUARD = 2) in its block, nonlinear with
+        # contact as the configurations run.
+        prefix = "verlet_kagome" if "kagome" in name else "verlet_quad"
+        lib = launch.type_library(build.load(prefix), prefix)
+        used = {dtype_name(dt): usage[prefix].get(
+            (dtype_name(dt), 0, 1, 2, launch.block_threads(lib, prefix, 1, dt, True)), {})
+            for dt in dtypes}
+        r["registers"] = {d: u.get("registers") for d, u in used.items()}
+        r["spills"] = {d: {k: v for k, v in u.items() if k != "registers"}
+                       for d, u in used.items()}
+        deep_timing[name] = r
+        log(f"  {label}: kernel float32 {r['ms']:.3f} ms, float64 {r['ms_float64']:.3f} ms "
+            f"for {r['steps']} steps ({r['us_per_step']:.3f} us a step at float32), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {card_line}")
+    stepped_s = force["levels2_flagship"]["s"]
+    log(f"  flagship MMA iterate 1 at levels 2, float64 forward: kernel 1g "
+        f"{deep_timing['verlet_quad_guarded']['ms_float64']:.3f} ms, the stepped forward of "
+        f"verlet_ckpt (main path 9 (c), host clock) {stepped_s:.2f} s")
+
+    # The main path: the entry points a user calls. (a) The n = 5 rescue's
+    # objective, forward only, unguarded (kernel 1, NaN), at one level and at
+    # two (kernel 1g); (b) the flagship's objective at TWO_LEVELS at the MMA
+    # iterate; (c) the kagome configuration's objective at TWO_LEVELS; (d) the
+    # 8 x 6 objective's value and design gradient at levels 2, its value at
+    # levels 3.
+    rescue_builds = {(name, dt): fl.build_flagship(n_substeps=fl.RESCUE_N5_SUBSTEPS,
+                                                   device=device, dtype=dt, guard=guard)
+                     for dt in dtypes
+                     for name, guard in (("plain", None), *fl.RESCUE_N5_GUARDS.items())}
+    deep_objectives = {("flagship", dt): fl.build_flagship(device=device, dtype=dt,
+                                                           guard=TWO_LEVELS)[0]
+                       for dt in dtypes}
+    deep_objectives.update({("kagome", dt): kg.build_kagome(device=device, dtype=dt,
+                                                            guard=TWO_LEVELS)[0]
+                            for dt in dtypes})
+    deep3_opt, deep3_design = deep_small_objective(device, f64, 3)
+    reset_counts()
+    with torch.no_grad():
+        rescue = {key: float(o.objective_fn(d)) for key, (o, d) in rescue_builds.items()}
+        deep_values = {}
+        for (lattice, dt), o in deep_objectives.items():
+            design = deep_design if lattice == "flagship" else kagome_design
+            deep_values[(lattice, dt)] = float(o.objective_fn(tuple(x.to(dt) for x in design)))
+        deep3_value = float(deep3_opt.objective_fn(deep3_design))
+    deep_value, deep_grad, deep_s = deep_small_value_and_grad(device, 2)
+    torch.cuda.synchronize()
+    quad_guarded = verlet_quad_trajectory.guarded_launches
+    kagome_guarded = verlet_kagome_trajectory.guarded_launches
+    quad_plain_launches = verlet_quad_trajectory.launches
+    plain_calls, force_launches = core.plain_trajectory.calls, quad_force.launches
+    log(f"main path 12 (guards of two and three levels: the n = 5 rescue, the flagship and "
+        f"kagome at levels 2, the 8x6 value and gradient): {quad_guarded} kernel-1g launches, "
+        f"{kagome_guarded} kernel-1Kg launches, {quad_plain_launches} kernel-1 launches, "
+        f"{plain_calls} plain-body forwards, {force_launches} kernel-2 launches")
+    # 1g: four rescue objectives, two flagship objectives, the 8 x 6 value at
+    # levels 3 and its value and gradient at levels 2; 1Kg: two; kernel 1: the
+    # two unguarded rescue objectives.
+    if (quad_guarded != 4 + 2 + 2 or kagome_guarded != 2 or quad_plain_launches != 2
+            or plain_calls != 0 or force_launches != 0):
+        raise AssertionError("main path 12 did not run through kernels 1g, 1Kg and 1 alone")
+    for dt in dtypes:
+        name = dtype_name(dt)
+        plain_value = rescue[("plain", dt)]
+        log(f"  n = 5 rescue {name}: unguarded {plain_value!r}, " + ", ".join(
+            f"{key} {rescue[(key, dt)]!r} (JAX f64 {fl.JAX_F64_RESCUE_N5[key]!r})"
+            for key in fl.RESCUE_N5_GUARDS) + f", f64 odeint oracle {fl.ODEINT_F64_ORACLE!r}")
+        if not math.isnan(plain_value):
+            FAILED.append(f"n = 5 rescue {name}: the unguarded objective is {plain_value!r}, "
+                          "not NaN")
+        for key in fl.RESCUE_N5_GUARDS:
+            value = rescue[(key, dt)]
+            check(f"n = 5 rescue {name} {key} vs the f64 odeint oracle",
+                  abs(value - fl.ODEINT_F64_ORACLE) / fl.ODEINT_F64_ORACLE, RESCUE_ORACLE_TOL)
+            if dt == f64:
+                ref = fl.JAX_F64_RESCUE_N5[key]
+                check(f"n = 5 rescue float64 {key} vs JAX float64", abs(value - ref) / ref,
+                      OBJECTIVE_TOL["float64"])
+    for (lattice, dt), value in deep_values.items():
+        log(f"  {lattice} at levels 2 {dtype_name(dt)}: objective {value!r}")
+        if not math.isfinite(value):
+            FAILED.append(f"main path 12: {lattice} objective at levels 2 is {value!r}")
+    plain_value, plain_grad, plain_s = deep_grad_job.result()
+    log(f"  8x6 violent levels 2 float64: value {deep_value!r} (plain body {plain_value!r}), "
+        f"value and gradient {deep_s:.2f} s (plain body on a host core {plain_s:.2f} s); "
+        f"levels 3 value {deep3_value!r}")
+    check("8x6 violent levels 2 float64 value: kernel 1g vs plain body",
+          abs(deep_value - plain_value) / abs(plain_value), DEEP_GRAD_TOL)
+    check("8x6 violent levels 2 float64 design gradient: kernel 1g vs plain body",
+          kc.max_rel_err(deep_grad, plain_grad), DEEP_GRAD_TOL)
+    if not math.isfinite(deep3_value):
+        FAILED.append(f"main path 12: the 8x6 value at levels 3 is {deep3_value!r}")
+    # How the rescue's guards fired, and their kernels' times (float32 and
+    # float64, medians of 3), outside the counted run.
+    rescue_runs = {}
+    for key in fl.RESCUE_N5_GUARDS:
+        r = rescue_runs[key] = {}
+        for dt in dtypes:
+            o, d = rescue_builds[(key, dt)]
+            args = kc.batched_args(o.forward_problem, [d])
+            out = core.trajectory_forward(args)
+            r[dtype_name(dt)] = dict(fired_by_depth=[int(t.sum()) for t in out[4:]],
+                                     substeps=out[4].numel(), ms=event_ms(trajectory(args), 3),
+                                     value=rescue[(key, dt)])
+        log(f"  n = 5 rescue {key}: " + "; ".join(
+            f"{d} fired by depth {v['fired_by_depth']} of {v['substeps']} substeps, "
+            f"kernel {v['ms']:.3f} ms" for d, v in r.items()))
+    for name, launches in (("verlet_quad_guarded", quad_guarded),
+                           ("verlet_kagome_guarded", kagome_guarded)):
+        results[name]["levels2"] = dict(deep_timing[name], launches=launches)
+        results[name]["launches_by_path"] = {
+            "2" if name == "verlet_quad_guarded" else "4": results[name]["launches"],
+            "12": launches}
+    results["verlet_quad"]["launches_by_path"]["12"] = quad_plain_launches
+    timings.update(rescue_n5=rescue_runs, levels2_stepped_s=stepped_s,
+                   deep_small_fwd_grad_s=deep_s, deep_small_plain_s=plain_s)
+    phase_done(f"main path 12 ({time.perf_counter() - t12:.1f} s)")
 
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
                 "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "

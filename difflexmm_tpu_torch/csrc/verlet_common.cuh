@@ -60,7 +60,7 @@ struct GuardThreads {
 
 // The least number of blocks an SM must hold, for __launch_bounds__: the
 // unguarded kernel in its block for many designs, else 1.
-template <typename L, typename T, bool GUARD, int NT>
+template <typename L, typename T, int GUARD, int NT>
 constexpr int min_blocks() {
   using U = typename L::template Unguarded<T>;
   return (!GUARD && NT == U::kMany) ? U::kManyBlocks : 1;
@@ -311,8 +311,15 @@ template <typename T>
 struct Guard {
   T threshold, proximity, hard, length_scale;
   bool has_proximity, has_hard, has_length_scale, relative;
-  int refine;
+  int refine, levels;
 };
+
+// The deepest guard a launch takes. Params holds each depth's tables as
+// kernel arguments, so their number is fixed: 64 levels, where a
+// micro-step table at refine >= 2 would hold 2^64 rows a substep, more
+// than the kernel's 64-bit row indices reach (and any device's memory
+// long before).
+constexpr int kMaxLevels = 64;
 
 // ---------------------------------------------------------------------------
 // The trajectory
@@ -335,20 +342,23 @@ struct Params {
   T* outV;
   T* outA;
   T* workspace;
-  // Guarded only: the micro-step drive table (B, n_int * n_sub * refine,
-  // k_drive), the per-substep decisions (B, n_int * n_sub) and the
-  // per-interval flags (B, n_int).
-  const T* micro;
+  // Guarded only: the per-substep decisions (B, n_int * n_sub), the
+  // per-interval flags (B, n_int) and, for each depth d = 1 ... levels,
+  // micro[d - 1], the micro-step drive table (B, n_int * n_sub * refine^d,
+  // k_drive), and for d = 1 ... levels - 1 deep[d - 1], the decisions of
+  // the micro-steps of depth d, indexed as micro[d - 1]'s rows.
+  const T* micro[kMaxLevels];
   unsigned char* decisions;
+  unsigned char* deep[kMaxLevels];
   unsigned char* flags;
   Guard<T> guard;
   // External loads (k_load > 0 only): the load table (B, n_int * n_sub,
   // k_load) with one column per loaded slot (the wrapper sums the pairs
-  // that name one slot), guarded also its micro-step table (B, n_int *
-  // n_sub * refine, k_load), and load_map (C, n2, n1): each state element's
-  // column, -1 where nothing is loaded.
+  // that name one slot), guarded also its micro-step table of each depth
+  // (load_micro[d - 1], as micro[d - 1], k_load columns), and load_map (C,
+  // n2, n1): each state element's column, -1 where nothing is loaded.
   const T* load;
-  const T* load_micro;
+  const T* load_micro[kMaxLevels];
   const int* load_map;
 };
 
@@ -481,8 +491,9 @@ __device__ __forceinline__ bool guard_risky(const Params<T, L::kLeaves>& p, int 
   return gap < g.proximity;
 }
 
-// The guarded trajectory of design b on the carry S (levels = 1) in a
-// block of NT threads.
+// The guarded trajectory of design b on the carry S at one guard level in
+// a block of NT threads (GUARD = 1): each risky substep runs as refine
+// micro-steps of dt / refine, with no predicate of their own.
 template <typename L, typename T, bool LIN, bool CONTACT, int NT>
 __device__ __forceinline__ void guarded_trajectory(const Params<T, L::kLeaves>& p, int b, T* S) {
   __shared__ T red[2][3 * 32];
@@ -511,8 +522,8 @@ __device__ __forceinline__ void guarded_trajectory(const Params<T, L::kLeaves>& 
       } else {
         for (int j = 0; j < refine; ++j) {
           const size_t micro = step * refine + j;
-          verlet_step<L, T, LIN, CONTACT>(p, b, ddt, mhdt, mhdt2, p.micro + micro * p.k_drive,
-                                          p.load_micro + micro * p.k_load, S,
+          verlet_step<L, T, LIN, CONTACT>(p, b, ddt, mhdt, mhdt2, p.micro[0] + micro * p.k_drive,
+                                          p.load_micro[0] + micro * p.k_load, S,
                                           last && j == refine - 1, obase);
         }
       }
@@ -523,9 +534,86 @@ __device__ __forceinline__ void guarded_trajectory(const Params<T, L::kLeaves>& 
   }
 }
 
+// The guarded trajectory of design b on the carry S at any guard depth
+// (levels > 1; GUARD = 2, a kernel of its own so that the one-level kernel
+// keeps its registers), in a block of NT threads: make_guarded_stepper's
+// recursion, as core._guarded_step runs it, as an iterative depth-first
+// walk. The walk's position is a (micro-)step's depth and its row in the
+// table of that depth: a substep is row step of depth 0, and the
+// micro-steps of row r of depth d are rows r * refine + j of depth d + 1,
+// of size dt_d / refine (divided once a level, as the plain body divides
+// it). At depths below levels the block first evaluates the predicate
+// with the step's size and writes its decision (depth 0: decisions, depth
+// d: deep[d - 1]); a risky step descends to its first micro-step, any
+// other runs. After a step, the walk moves to the next row of its depth,
+// and up a depth for each group of refine micro-steps the step completed,
+// the size taken again from the substep's by as many divisions. The
+// decision is uniform across the block, so every thread walks the same
+// way and the barriers stay legal. An interval's state is written after
+// its last (micro-)step, at whatever depth that step ran.
+template <typename L, typename T, bool LIN, bool CONTACT, int NT>
+__device__ __forceinline__ void guarded_walk(const Params<T, L::kLeaves>& p, int b, T* S) {
+  __shared__ T red[2][3 * 32];
+  const int ne = L::kC * p.n1 * p.n2;
+  const int n_steps = p.n_int * p.n_sub;
+  const int refine = p.guard.refine;
+  // guard_risky's speculation hints: the substeps', carried from substep
+  // to substep, and the micro-steps', reset where the walk descends.
+  bool hint0 = false, hint = false;
+  for (int k = 0; k < p.n_int; ++k) {
+    bool fired = false;
+    for (int i = 0; i < p.n_sub; ++i) {
+      int depth = 0;
+      size_t row = (size_t)b * n_steps + (size_t)k * p.n_sub + i;
+      T dt = p.dts[k];
+      while (true) {
+        const T hdt2 = T(0.5) * dt * dt;
+        if (depth < p.guard.levels) {
+          __syncthreads();  // the predicate reads other threads' carry
+          bool h = depth == 0 ? hint0 : hint;
+          const bool risky = guard_risky<L, T, CONTACT, NT>(p, b, dt, hdt2, S, red[0], red[1], h);
+          if (depth == 0) hint0 = h;
+          else hint = h;
+          if (threadIdx.x == 0) (depth == 0 ? p.decisions : p.deep[depth - 1])[row] = risky;
+          if (risky) {
+            fired = fired || depth == 0;
+            ++depth;
+            row *= refine;
+            dt = dt / T(refine);
+            hint = false;
+            continue;
+          }
+        }
+        // The last step of the interval: the last substep's, and the last
+        // micro-step of each group up to it.
+        bool last = i == p.n_sub - 1;
+        for (size_t r = row, d = depth; last && d > 0; --d, r /= refine)
+          last = r % refine == (size_t)refine - 1;
+        const T* drow = depth == 0 ? p.drive : p.micro[depth - 1];
+        const T* lrow = depth == 0 ? p.load : p.load_micro[depth - 1];
+        verlet_step<L, T, LIN, CONTACT>(p, b, dt, T(0.5) * dt, hdt2, drow + row * p.k_drive,
+                                        lrow + row * p.k_load, S, last,
+                                        ((size_t)b * p.n_int + k) * ne);
+        const int at = depth;
+        while (depth > 0 && ++row % refine == 0) {
+          row = row / refine - 1;  // the group's parent, now complete
+          --depth;
+        }
+        if (depth == 0) break;
+        if (depth < at) {
+          dt = p.dts[k];
+          for (int d = 0; d < depth; ++d) dt = dt / T(refine);
+        }
+      }
+    }
+    if (threadIdx.x == 0) p.flags[(size_t)b * p.n_int + k] = fired;
+  }
+}
+
 // The whole trajectory of design blockIdx.x in a block of NT threads: the
 // body of each lattice's __global__ kernel.
-template <typename L, typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
+// GUARD: 0 unguarded, 1 guarded at one level, 2 guarded at any depth.
+template <typename L, typename T, bool LIN, bool CONTACT, int GUARD, int NT>
 __device__ __forceinline__ void run_trajectory(const Params<T, L::kLeaves>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x;
@@ -545,8 +633,10 @@ __device__ __forceinline__ void run_trajectory(const Params<T, L::kLeaves>& p) {
     for (int q = threadIdx.x; q < nbond; q += blockDim.x) L::rest_angles(p, b, q, sR);
   }
 
-  if constexpr (GUARD) {
+  if constexpr (GUARD == 1) {
     guarded_trajectory<L, T, LIN, CONTACT, NT>(p, b, S);
+  } else if constexpr (GUARD == 2) {
+    guarded_walk<L, T, LIN, CONTACT, NT>(p, b, S);
   } else {
     const int n_steps = p.n_int * p.n_sub;
     for (int k = 0; k < p.n_int; ++k) {
@@ -597,19 +687,24 @@ inline int device_sms() {
 }
 
 // Unpack the C interface's arguments and launch the instantiation that
-// pick(linearized, contact, guarded, threads) returns (NULL: none) in
-// blocks of block_threads<L, T>.
+// pick(linearized, contact, guard, threads) returns (NULL: none; guard as
+// run_trajectory's GUARD) in blocks of block_threads<L, T>, or at levels >
+// 1 of GuardThreads<T>::kFew at any batch.
 //   ptrs: U0, V0, A0, dts, drive, drive_map, the N fixed leaves, outU, outV,
-//         outA, workspace (NULL: carry in shared memory), micro, decisions,
-//         flags (guarded; else NULL), load, load_micro (guarded; else NULL),
-//         load_map (k_load > 0; else NULL).
+//         outA, workspace (NULL: carry in shared memory), micro table 1,
+//         decisions, flags (guarded; else NULL), load, load micro table 1
+//         (guarded; else NULL), load_map (k_load > 0; else NULL); then,
+//         guarded at levels > 1, the micro tables of depths 2 ... levels,
+//         the load micro tables of the same depths (NULL without loads)
+//         and the deep decision tables of depths 1 ... levels - 1.
 //   dims: B, n1, n2, n_int, n_sub, k_drive, k_load.
 //   guard: NULL (unguarded) or threshold, has_proximity, proximity,
-//          has_hard, hard, has_length_scale, length_scale, refine, relative.
+//          has_hard, hard, has_length_scale, length_scale, refine, relative,
+//          levels.
 template <typename L, typename T>
 cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int use_contact,
                    const double* guard, cudaStream_t stream,
-                   KernelFn<T, L::kLeaves> (*pick)(bool, bool, bool, int)) {
+                   KernelFn<T, L::kLeaves> (*pick)(bool, bool, int, int)) {
   constexpr int N = L::kLeaves;
   Params<T, N> p;
   p.B = dims[0];
@@ -632,27 +727,42 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
   p.outV = const_cast<T*>(f[N + 7]);
   p.outA = const_cast<T*>(f[N + 8]);
   p.workspace = const_cast<T*>(f[N + 9]);
-  p.micro = nullptr;
+  for (int d = 0; d < kMaxLevels; ++d) {
+    p.micro[d] = nullptr;
+    p.deep[d] = nullptr;
+    p.load_micro[d] = nullptr;
+  }
   p.decisions = nullptr;
   p.flags = nullptr;
   p.guard = Guard<T>{};
   p.load = nullptr;
-  p.load_micro = nullptr;
   p.load_map = nullptr;
   if (p.B <= 0 || p.n1 <= 0 || p.n2 <= 0 || p.n_int <= 0 || p.n_sub <= 0 || p.k_drive <= 0 ||
       p.k_load < 0)
     return cudaErrorInvalidValue;
+  const int levels = guard ? (int)guard[9] : 0;
+  if (guard && (levels < 1 || levels > kMaxLevels)) return cudaErrorInvalidValue;
+  auto deeper = [&](int group, int d) { return ptrs[N + 16 + group * (levels - 1) + d - 2]; };
   if (p.k_load > 0) {
     p.load = f[N + 13];
-    p.load_micro = f[N + 14];
     p.load_map = reinterpret_cast<const int*>(ptrs[N + 15]);
-    if (!p.load || !p.load_map || (guard && !p.load_micro))
-      return cudaErrorInvalidValue;
+    if (!p.load || !p.load_map) return cudaErrorInvalidValue;
+    for (int d = 1; d <= levels; ++d) {
+      p.load_micro[d - 1] = d == 1 ? f[N + 14] : static_cast<const T*>(deeper(1, d));
+      if (!p.load_micro[d - 1]) return cudaErrorInvalidValue;
+    }
   }
   if (guard) {
-    p.micro = f[N + 10];
     p.decisions = reinterpret_cast<unsigned char*>(const_cast<void*>(ptrs[N + 11]));
     p.flags = reinterpret_cast<unsigned char*>(const_cast<void*>(ptrs[N + 12]));
+    for (int d = 1; d <= levels; ++d) {
+      p.micro[d - 1] = d == 1 ? f[N + 10] : static_cast<const T*>(deeper(0, d));
+      if (!p.micro[d - 1]) return cudaErrorInvalidValue;
+    }
+    for (int d = 1; d < levels; ++d) {
+      p.deep[d - 1] = static_cast<unsigned char*>(const_cast<void*>(deeper(2, d + 1)));
+      if (!p.deep[d - 1]) return cudaErrorInvalidValue;
+    }
     Guard<T>& g = p.guard;
     g.threshold = T(guard[0]);
     g.has_proximity = guard[1] != 0.0;
@@ -663,13 +773,15 @@ cudaError_t launch(const void* const* ptrs, const int* dims, int linearized, int
     g.length_scale = T(guard[6]);
     g.refine = (int)guard[7];
     g.relative = guard[8] != 0.0;
-    if (!p.micro || !p.decisions || !p.flags || g.refine < 2) return cudaErrorInvalidValue;
+    g.levels = levels;
+    if (!p.decisions || !p.flags || g.refine < 2) return cudaErrorInvalidValue;
   }
   const int n_sm = device_sms();
   if (n_sm < 1) return cudaErrorInvalidDevice;
-  const int threads = block_threads<L, T>(guard != nullptr, p.B, n_sm);
-  return launch_kernel<L, T>(pick(linearized != 0, use_contact != 0, guard != nullptr, threads),
-                            threads, p, stream);
+  const int mode = !guard ? 0 : levels == 1 ? 1 : 2;
+  const int threads = mode == 2 ? GuardThreads<T>::kFew : block_threads<L, T>(mode, p.B, n_sm);
+  return launch_kernel<L, T>(pick(linearized != 0, use_contact != 0, mode, threads), threads, p,
+                            stream);
 }
 
 // Largest dynamic shared memory one block of the current device may use
@@ -688,7 +800,7 @@ inline long long max_dynamic_smem() {
 // The C interface of a lattice's library: PREFIX_scratch_bytes,
 // PREFIX_max_smem, PREFIX_block_threads, PREFIX_launch and
 // PREFIX_error_string. PICK is the lattice's template `pick<T>(linearized,
-// contact, guarded, threads)`. PREFIX_launch calls PREFIX_launch_f32 or
+// contact, guard, threads)`. PREFIX_launch calls PREFIX_launch_f32 or
 // PREFIX_launch_f64 by type. Built with -DVERLET_TYPE=4 a source holds
 // the float32 kernels and the common functions, with -DVERLET_TYPE=8 the
 // float64 kernels, so that the two types compile in parallel and link into

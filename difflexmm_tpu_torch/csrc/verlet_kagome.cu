@@ -42,7 +42,9 @@
 // order, without atomics.
 //
 // The guarded kernel's predicate and its larger block are as for the quad
-// kernel.
+// kernel, and so is its refinement to any depth: an iterative depth-first
+// walk over the micro-steps in a kernel of its own (guarded_walk, GUARD =
+// 2), each level's tables passed to the launch.
 //
 // The guard's travel is the max over channels 2 and 5; with length_scale,
 // plus the max over neighbour differences of channels 0, 1, 3 and 4 along
@@ -313,13 +315,13 @@ struct Kagome {
   }
 };
 
-template <typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
+template <typename T, bool LIN, bool CONTACT, int GUARD, int NT>
 __global__ void __launch_bounds__(NT, (min_blocks<Kagome, T, GUARD, NT>()))
     verlet_kagome_kernel(const Params<T, Kagome::kLeaves> p) {
   run_trajectory<Kagome, T, LIN, CONTACT, GUARD, NT>(p);
 }
 
-template <typename T, bool GUARD, int NT>
+template <typename T, int GUARD, int NT>
 KernelFn<T, Kagome::kLeaves> pick_flags(bool linearized, bool contact) {
   if (linearized)
     return contact ? verlet_kagome_kernel<T, true, true, GUARD, NT>
@@ -328,19 +330,22 @@ KernelFn<T, Kagome::kLeaves> pick_flags(bool linearized, bool contact) {
                  : verlet_kagome_kernel<T, false, false, GUARD, NT>;
 }
 
-// Unguarded in blocks of Kagome::Unguarded<T>::kFew or ::kMany, guarded of
-// GuardThreads<T>::kFew or ::kMany; NULL for any other block.
+// Unguarded (guard 0) in blocks of Kagome::Unguarded<T>::kFew or ::kMany,
+// guarded at one level (1) of GuardThreads<T>::kFew or ::kMany, guarded at
+// any depth (2) of GuardThreads<T>::kFew; NULL for any other block.
 template <typename T>
-KernelFn<T, Kagome::kLeaves> pick(bool linearized, bool contact, bool guard, int threads) {
+KernelFn<T, Kagome::kLeaves> pick(bool linearized, bool contact, int guard, int threads) {
   using G = GuardThreads<T>;
   using U = Kagome::Unguarded<T>;
-  if (!guard) {
-    if (threads == U::kFew) return pick_flags<T, false, U::kFew>(linearized, contact);
-    if (threads == U::kMany) return pick_flags<T, false, U::kMany>(linearized, contact);
+  if (guard == 0) {
+    if (threads == U::kFew) return pick_flags<T, 0, U::kFew>(linearized, contact);
+    if (threads == U::kMany) return pick_flags<T, 0, U::kMany>(linearized, contact);
     return nullptr;
   }
-  if (threads == G::kFew) return pick_flags<T, true, G::kFew>(linearized, contact);
-  if (threads == G::kMany) return pick_flags<T, true, G::kMany>(linearized, contact);
+  if (guard == 2)
+    return threads == G::kFew ? pick_flags<T, 2, G::kFew>(linearized, contact) : nullptr;
+  if (threads == G::kFew) return pick_flags<T, 1, G::kFew>(linearized, contact);
+  if (threads == G::kMany) return pick_flags<T, 1, G::kMany>(linearized, contact);
   return nullptr;
 }
 
@@ -348,5 +353,6 @@ KernelFn<T, Kagome::kLeaves> pick(bool linearized, bool contact, bool guard, int
 
 // ptrs: U0, V0, A0, dts, drive, drive_map, the 20 fixed leaves above, outU,
 //       outV, outA, workspace (NULL: carry in shared memory), and when
-//       guarded: micro, decisions, flags (verlet::launch).
+//       guarded: micro, decisions, flags, then the load pointers and the
+//       tables of the deeper guard levels (verlet::launch).
 VERLET_C_INTERFACE(verlet_kagome, Kagome, pick)

@@ -55,7 +55,7 @@
 //
 // The guarded variant (GUARD = true) replaces the same call with a substep
 // guard (difflexmm_tpu/ops/pallas/core.py:330-625: make_interval_body with
-// emit_risk=True, make_guarded_stepper at levels = 1, guard_travel,
+// emit_risk=True, make_guarded_stepper at any levels, guard_travel,
 // make_risk_predicate; the quad gap function of
 // difflexmm_tpu/ops/pallas/verlet_grid.py:201-262). Before each substep the
 // block evaluates the risk predicate on its carry (U, V, A):
@@ -72,8 +72,12 @@
 // The decision is uniform across the block, so every thread takes the same
 // branch and the barriers stay legal: a risky substep runs `refine`
 // micro-steps of dt / refine with drive rows from the micro-step table.
-// Each substep's decision and each interval's "any fired" flag are written
-// as bytes. The guard costs a pass and a reduction a substep and, where it
+// Deeper guards (levels > 1) refine the same way down to `levels` in a
+// kernel of their own (GUARD = 2), as an iterative depth-first walk
+// (guarded_walk): each micro-step above the last depth first evaluates the
+// predicate at its own size, with the tables of its depth, and no
+// recursion on the device. Each (micro-)step's decision and each
+// interval's "any fired" flag are written as bytes. The guard costs a pass and a reduction a substep and, where it
 // fires, refine - 1 extra steps. Its block while the designs do not
 // outnumber the SMs is 512 threads at float32 (256 beyond) and 384 at
 // float64 at any batch (GuardThreads in verlet_common.cuh), so that more
@@ -92,13 +96,13 @@ namespace {
 
 using namespace verlet;
 
-template <typename T, bool LIN, bool CONTACT, bool GUARD, int NT>
+template <typename T, bool LIN, bool CONTACT, int GUARD, int NT>
 __global__ void __launch_bounds__(NT, (min_blocks<Quad, T, GUARD, NT>()))
     verlet_quad_kernel(const Params<T, Quad::kLeaves> p) {
   run_trajectory<Quad, T, LIN, CONTACT, GUARD, NT>(p);
 }
 
-template <typename T, bool GUARD, int NT>
+template <typename T, int GUARD, int NT>
 KernelFn<T, Quad::kLeaves> pick_flags(bool linearized, bool contact) {
   if (linearized)
     return contact ? verlet_quad_kernel<T, true, true, GUARD, NT>
@@ -107,19 +111,22 @@ KernelFn<T, Quad::kLeaves> pick_flags(bool linearized, bool contact) {
                  : verlet_quad_kernel<T, false, false, GUARD, NT>;
 }
 
-// Unguarded in blocks of Quad::Unguarded<T>::kFew or ::kMany, guarded of
-// GuardThreads<T>::kFew or ::kMany; NULL for any other block.
+// Unguarded (guard 0) in blocks of Quad::Unguarded<T>::kFew or ::kMany,
+// guarded at one level (1) of GuardThreads<T>::kFew or ::kMany, guarded at
+// any depth (2) of GuardThreads<T>::kFew; NULL for any other block.
 template <typename T>
-KernelFn<T, Quad::kLeaves> pick(bool linearized, bool contact, bool guard, int threads) {
+KernelFn<T, Quad::kLeaves> pick(bool linearized, bool contact, int guard, int threads) {
   using G = GuardThreads<T>;
   using U = Quad::Unguarded<T>;
-  if (!guard) {
-    if (threads == U::kFew) return pick_flags<T, false, U::kFew>(linearized, contact);
-    if (threads == U::kMany) return pick_flags<T, false, U::kMany>(linearized, contact);
+  if (guard == 0) {
+    if (threads == U::kFew) return pick_flags<T, 0, U::kFew>(linearized, contact);
+    if (threads == U::kMany) return pick_flags<T, 0, U::kMany>(linearized, contact);
     return nullptr;
   }
-  if (threads == G::kFew) return pick_flags<T, true, G::kFew>(linearized, contact);
-  if (threads == G::kMany) return pick_flags<T, true, G::kMany>(linearized, contact);
+  if (guard == 2)
+    return threads == G::kFew ? pick_flags<T, 2, G::kFew>(linearized, contact) : nullptr;
+  if (threads == G::kFew) return pick_flags<T, 1, G::kFew>(linearized, contact);
+  if (threads == G::kMany) return pick_flags<T, 1, G::kMany>(linearized, contact);
   return nullptr;
 }
 
@@ -127,5 +134,6 @@ KernelFn<T, Quad::kLeaves> pick(bool linearized, bool contact, bool guard, int t
 
 // ptrs: U0, V0, A0, dts, drive, drive_map, the 16 fixed leaves (Quad), outU,
 //       outV, outA, workspace (NULL: carry in shared memory), and when
-//       guarded: micro, decisions, flags (verlet::launch).
+//       guarded: micro, decisions, flags, then the load pointers and the
+//       tables of the deeper guard levels (verlet::launch).
 VERLET_C_INTERFACE(verlet_quad, Quad, pick)

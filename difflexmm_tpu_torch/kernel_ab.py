@@ -17,8 +17,10 @@ pointers, come after the ones an older source reads).
 Each version then runs, through the repository's wrappers: the flagship
 and the kagome configuration (``models/kagome_config.build_kagome``),
 unguarded and guarded (``guard="auto"``); the quad and the kagome contact
-probes, unguarded and guarded; the force pulse (kernel 1L); each at
-float64 and float32, at B = 1. The largest |other - repo| of U, V and A is
+probes, unguarded and guarded; the force pulse (kernel 1L); the guarded
+flagship and kagome configurations with loads on a few pairs
+(``kernel_checks.with_loads``: guarded 1L); each at float64 and float32,
+at B = 1. The largest |other - repo| of U, V and A is
 printed with the largest |repo| (the field scale), and for the guarded
 kernels whether decisions and flags are identical. Kernel 2 runs on the microbenchmark's inputs ((3, 16, 24) x
 128, ``kernel_checks.lanes_microbench_inputs``), on the flagship's state
@@ -27,7 +29,8 @@ mid-pulse at B = 1 and on the contact probe's state, and its largest
 with CUDA events at B = 1, one design per SM and four per SM, 1K at the
 12 x 10-cell kagome population at B = 128
 (``kernel_checks.kagome_multistart_problem``, the population of main path
-8), 1L at the pulse at B = 1, and kernel 2 at the microbenchmark's inputs
+8), 1L at the pulse and guarded 1L at the guarded configurations with
+loads at B = 1, and kernel 2 at the microbenchmark's inputs
 and at the
 flagship's B = 1, each as the replay of a CUDA graph of 20 calls (over
 20: the device's time of a call) and as one eager call;
@@ -141,6 +144,10 @@ def cases(device) -> dict:
         "kagome contact probe": ("verlet_kagome", _unguarded(kprobe)),
         "kagome contact probe guarded": ("verlet_kagome", kprobe),
         "pulse": ("verlet_quad", pulse),
+        # Guarded 1L: the guarded configurations with loads on a few pairs.
+        "flagship guarded loaded": ("verlet_quad", kc.with_loads(guarded, kc.QUAD_LOAD_PAIRS)),
+        "kagome guarded loaded": ("verlet_kagome", kc.with_loads(kguarded,
+                                                                 kc.KAGOME_LOAD_PAIRS)),
     }
 
 
@@ -270,6 +277,8 @@ def main(other: str):
               trajectory(kc.cast(population, dt)))
     for dt in ("float32", "float64"):
         turns(f"1L pulse {dt} B=1", trajectory(inputs[f"pulse {dt}"][1]))
+        for label in ("flagship guarded loaded", "kagome guarded loaded"):
+            turns(f"{label} {dt} B=1", trajectory(inputs[f"{label} {dt}"][1]))
     for label in ("microbench B=128", "flagship B=1"):
         for dt in (torch.float32, torch.float64):
             U, fixed = forces[label][0].to(dt), tuple(f.to(dt) for f in forces[label][1])

@@ -304,29 +304,45 @@ def guard_terms(args: core.TrajectoryArgs):
     by the proximity term alone and those whose predicate needed the gap,
     and gives the travel/threshold ratio closest to 1 over all substeps and
     the smallest gap/proximity ratio where the gap was needed (how near a
-    decision came to flipping).
+    decision came to flipping); and, a count a depth (0: the substeps, d:
+    the micro-steps of depth d that decide), the steps that fired
+    (``fired_by_depth``) and the predicates that needed the gap
+    (``gaps_by_depth``).
     """
 
     guard, trace = args.spec.guard, []
     outs = core.plain_trajectory(args.U0, args.V0, args.A0, args.dts, args.drive, args.fixed,
                                  args.spec, args.micro, args.loads, trace=trace)
     decisions = outs[4]
-    travel = torch.stack([t for t, _ in trace], dim=1)
-    gap = torch.stack([g for _, g in trace], dim=1)
-    beyond = ~(travel <= guard["hard"]) if guard["hard"] is not None \
-        else torch.zeros_like(decisions)
-    # Substeps whose predicate needed the gap (the kernel reduces it only there).
-    needed = ~(travel <= guard["threshold"]) & ~beyond & (gap != float("inf"))
-    gaps = int(needed.sum()) if guard["proximity"] is not None else 0
+
+    def needing_gap(travel, gap):
+        """The predicates beyond the hard term, and those that needed the
+        gap (the kernel reduces it only there)."""
+
+        beyond = ~(travel <= guard["hard"]) if guard["hard"] is not None \
+            else torch.zeros_like(travel, dtype=torch.bool)
+        needed = ~(travel <= guard["threshold"]) & ~beyond & (gap != float("inf"))
+        return beyond, needed if guard["proximity"] is not None else torch.zeros_like(needed)
+
+    top = [entry for entry in trace if entry[0] == 0]
+    travel = torch.stack([t for _, t, _, _ in top], dim=1)
+    gap = torch.stack([g for _, _, g, _ in top], dim=1)
+    beyond, needed = needing_gap(travel, gap)
+    gaps_by_depth = [int(needed.sum())]
+    for depth in range(1, guard["levels"]):
+        gaps_by_depth.append(sum(int((needing_gap(t, g)[1] & ran).sum())
+                                 for d, t, g, ran in trace if d == depth))
     ratio = (travel / guard["threshold"]).flatten()
     closest = ratio[torch.argmin(ratio.log().abs())]
     gap_ratio = float("nan")
-    if gaps:
+    if gaps_by_depth[0]:
         gap_ratio = float((gap / guard["proximity"])[needed].min())
     return outs, dict(fired=int(decisions.sum()), substeps=decisions.numel(),
                       fired_hard=int((decisions & beyond).sum()),
-                      fired_proximity=int((decisions & ~beyond).sum()), gaps=gaps,
-                      closest_ratio=float(closest), closest_gap_ratio=gap_ratio)
+                      fired_proximity=int((decisions & ~beyond).sum()), gaps=gaps_by_depth[0],
+                      closest_ratio=float(closest), closest_gap_ratio=gap_ratio,
+                      fired_by_depth=[int(t.sum()) for t in outs[4:]],
+                      gaps_by_depth=gaps_by_depth)
 
 
 # Operations of one trajectory kernel, counted from csrc/verlet_common.cuh
@@ -375,9 +391,11 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
     needs: contact terms engaged at the interval boundaries of ``outU``
     (the kernel's U output, times the substeps of an interval;
     :func:`bond_ops`) and,
-    guarded (``summary``: :func:`guard_terms`' for these inputs), guard gaps
-    only where the predicate needs them and micro-steps and their drive
-    rows only where the guard fired.
+    guarded (``summary``: :func:`guard_terms`' for these inputs), a
+    predicate on every substep and on every micro-step of a depth that
+    decides, guard gaps only where a predicate needs them, and the
+    micro-steps of every depth and their drive rows only where the guard
+    fired. ``steps`` counts the (micro-)steps of all designs.
 
     ``sm_floor_ms`` is the least time with one design in one SM's share of
     the peak rate (the kernels keep a design in one thread block): the
@@ -396,19 +414,27 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
         ops_dof, ops_travel = OPS_DOF, OPS_TRAVEL_PER_BLOCK
     n_int = args.dts.shape[0]
     n_steps = n_int * spec.n_substeps
-    steps = n_steps
+    steps = B * n_steps  # (micro-)steps of all designs
+    micro_rows = 0  # micro-step table rows read
     inputs = [args.U0, args.V0, args.A0, args.dts, args.drive, *args.fixed]
     nbytes = sum(t.numel() * t.element_size() for t in inputs)
     nbytes += 4 * C * ncell  # the int32 drive map
     nbytes += 3 * B * n_int * C * ncell * itemsize  # outputs U, V, A
     ops = 0
     if summary is not None:
+        # A step that fires at any depth runs as refine micro-steps of the
+        # next; the predicate runs on every substep and on every micro-step
+        # above the last depth; a micro-step that fires reads no row of its
+        # own table.
         refine = spec.guard["refine"]
-        steps += summary["fired"] * (refine - 1)
-        nbytes += B * (n_steps + n_int)  # decisions and flags, a byte each
-        nbytes += summary["fired"] * refine * args.drive.shape[-1] * itemsize
-        ops += B * n_steps * ops_travel * ncell
-        ops += summary["gaps"] * OPS_GAP_PER_BOND * nbond
+        fired = summary["fired_by_depth"]
+        steps += (refine - 1) * sum(fired)
+        predicates = B * n_steps + refine * sum(fired[:-1])
+        micro_rows = refine * sum(fired) - sum(fired[1:])
+        nbytes += predicates + B * n_int  # decisions and flags, a byte each
+        nbytes += micro_rows * args.drive.shape[-1] * itemsize
+        ops += predicates * ops_travel * ncell
+        ops += sum(summary["gaps_by_depth"]) * OPS_GAP_PER_BOND * nbond
     ops_bond, contact = bond_ops(outU, args.fixed)
     contact *= spec.n_substeps
     if _is_kagome(args.U0):
@@ -417,18 +443,17 @@ def trajectory_bound(args: core.TrajectoryArgs, outU, summary=None) -> dict:
         k_load = spec.load_map.pairs.shape[0]
         nbytes += args.loads[0].numel() * itemsize  # the substep load table
         nbytes += 4 * C * ncell  # the int32 load map
-        if summary is not None:
-            nbytes += summary["fired"] * spec.guard["refine"] * k_load * B * itemsize
+        nbytes += micro_rows * k_load * itemsize
         # Each loaded pair's value added to its slot, and each loaded slot's
         # sum to the force.
-        ops += steps * B * (k_load + spec.load_map.slots.shape[0])
-    ops += steps * B * (nbond * ops_bond + C * ncell * ops_dof) + contact
+        ops += steps * (k_load + spec.load_map.slots.shape[0])
+    ops += steps * (nbond * ops_bond + C * ncell * ops_dof) + contact
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FLOPS[args.U0.dtype] * 1e3
     n_sm = (torch.cuda.get_device_properties(args.U0.device).multi_processor_count
             if args.U0.is_cuda else H100_SMS)
     bound_ms = max(bytes_ms, ops_ms)
-    return dict(bytes=nbytes, ops=ops, bound_ms=bound_ms,
+    return dict(bytes=nbytes, ops=ops, steps=steps, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 sm_floor_ms=max(bound_ms, ops_ms * n_sm / B))
 
@@ -754,6 +779,79 @@ def prefix(args: core.TrajectoryArgs, n_intervals: int) -> core.TrajectoryArgs:
     return args._replace(dts=args.dts[:n_intervals].contiguous(),
                          drive=args.drive[:, :rows].contiguous(),
                          loads=tuple(t[:, :rows].contiguous() for t in args.loads))
+
+
+def depth_walk(args: core.TrajectoryArgs):
+    """A CPU mirror of the guarded kernels' depth walk (``guarded_walk`` in
+    ``csrc/verlet_common.cuh``, the kernels at levels > 1), step for step:
+    each design on its own, a (micro-)step at a time in the kernel's order,
+    at its depth's size (the parent's divided by ``refine``, and taken again
+    from the substep's by as many divisions after a climb), at the kernel's
+    table rows (a substep is row ``b * n_steps + k * n_sub + i`` of depth
+    0, the micro-steps of row r of depth d rows ``r * refine + j`` of depth
+    d + 1), writing its decision tables where the kernel writes them. Each
+    step is ``core.one_step`` and each predicate the plain body's
+    (``core.spec_risk``), taken on the whole batch (every design at the
+    same row of its own tables) and read at design b, so that each
+    operation sees the tensors of the plain body's batch and rounds as it
+    does (vectorized and scalar math on the CPU may differ in the last
+    bit). The outputs are ``core.plain_trajectory``'s: ``(outU, outV,
+    outA, flags, decisions, *deep)``, the ``spec.n_deep`` deep tables False
+    where a micro-step did not run. A test helper: no path of the program
+    runs it."""
+
+    spec = args.spec
+    refine, levels = spec.guard["refine"], spec.guard["levels"]
+    B = args.U0.shape[0]
+    n_int, n_sub = args.dts.shape[0], spec.n_substeps
+    n_steps = n_int * n_sub
+    drive = [t.detach() for t in (args.drive, *args.micro)]
+    loads = [t.detach() for t in args.loads]
+    fixed = tuple(f.detach() for f in args.fixed)
+    risk = core.spec_risk(spec, fixed)
+    tables = [torch.zeros(B * n_steps * refine ** d, dtype=torch.bool) for d in range(levels)]
+    flags = torch.zeros(B * n_int, dtype=torch.bool)
+    outs = [torch.empty((B, n_int) + tuple(args.U0.shape[1:]), dtype=args.U0.dtype)
+            for _ in range(3)]
+    with torch.no_grad():
+        for b in range(B):
+            carry = tuple(x.detach() for x in (args.U0, args.V0, args.A0))
+            for k in range(n_int):
+                dt0 = args.dts[k].detach()
+                fired = False
+                for i in range(n_sub):
+                    depth, row, dt = 0, b * n_steps + k * n_sub + i, dt0
+                    while True:
+                        if depth < levels:
+                            risky = bool(risk(carry, dt)[b])
+                            tables[depth][row] = risky
+                            if risky:
+                                fired = fired or depth == 0
+                                depth, row, dt = depth + 1, row * refine, dt / refine
+                                continue
+                        last, r = i == n_sub - 1, row
+                        for _ in range(depth):
+                            last, r = last and r % refine == refine - 1, r // refine
+                        local = row - b * n_steps * refine ** depth  # the row in design b's table
+                        carry = core.one_step(*carry, dt, drive[depth][:, local], fixed, spec,
+                                              load_row=loads[depth][:, local] if loads else None)
+                        if last:
+                            for out, x in zip(outs, carry):
+                                out[b, k] = x[b]
+                        at = depth
+                        while depth > 0:
+                            row += 1
+                            if row % refine:
+                                break
+                            row, depth = row // refine - 1, depth - 1
+                        if depth == 0:
+                            break
+                        if depth < at:
+                            dt = dt0
+                            for _ in range(depth):
+                                dt = dt / refine
+                flags[b * n_int + k] = fired
+    return (*outs, flags.view(B, n_int), *(t.view(B, -1) for t in tables))
 
 
 def on_cpu(args: core.TrajectoryArgs) -> core.TrajectoryArgs:

@@ -81,6 +81,21 @@ JAX_F64_MMA_GRAD_STATS = (
     (5.601530841701871, 0.0, 1.2930103916175053),
 )
 
+#: The n = 5 rescue (``tools/tunneling_study.py``): the flagship at
+#: ``n_substeps=5``, whose plain integrator steps across a force spike and
+#: gives NaN, under the travel-only model guard at one level (refine 16)
+#: and at two (refine 32). JAX_F64_RESCUE_N5: the JAX package's f64
+#: objective of each at the 25-degree design (method "verlet_ckpt", the
+#: plane layout of the port; recorded in ``tests/data/guard_depth.npz`` by
+#: ``tests/jax_guard_depth_references.py``). ODEINT_F64_ORACLE: the f64
+#: adaptive ``odeint`` objective of the same design (``TUNNELING.json``),
+#: which a rescue must land within 1e-3 of (``tools/tpu_parity_check.py``'s
+#: gate).
+RESCUE_N5_SUBSTEPS = 5
+RESCUE_N5_GUARDS = {"levels1": {}, "levels2": {"refine": 32, "levels": 2}}
+JAX_F64_RESCUE_N5 = {"levels1": 4.926892021240123, "levels2": 4.928659567608952}
+ODEINT_F64_ORACLE = 4.925499947691854
+
 
 def flat_numpy(design) -> np.ndarray:
     """A design (tensors or arrays) as one float64 numpy vector."""

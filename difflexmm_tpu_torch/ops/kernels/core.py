@@ -454,7 +454,7 @@ def interval_body(U, V, A, dt, drive_rows, fixed, spec, create_graph=False, load
 
 
 def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, risky,
-                  decisions, replay, lrows=None, force_fn=force):
+                  decisions, replay, lrows=None, force_fn=force, trace=None):
     """One (micro-)step at guard depth ``depth`` (0: a substep), as
     ``make_guarded_stepper``'s ``stepper``: where ``risky`` (B,) bool, on
     any device, the step re-runs as ``refine`` micro-steps of ``dt /
@@ -466,7 +466,11 @@ def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, 
     a micro-step that decides reads its decision there where ``replay``,
     else evaluates the predicate and writes it there. Designs of a batch
     decide on their own: where they disagree both branches run and each
-    design takes its own, as ``vmap(lax.cond)`` does."""
+    design takes its own, as ``vmap(lax.cond)`` does. A design that takes
+    the coarse branch runs none of the micro-steps, so its decisions there
+    are written False (and its discarded fine branch refines no further),
+    as the kernels leave them. ``trace``: as for
+    :func:`guarded_interval_body`."""
 
     guard = spec.guard
     load_row = None if lrows is None else lrows[depth][:, idx]
@@ -489,10 +493,12 @@ def _guarded_step(carry, dt, idx, depth, rows, fixed, spec, risk, create_graph, 
                     r = decisions[depth + 1][:, sub]
                 else:
                     with torch.no_grad():
-                        r = risk(c, ddt)
+                        r = risk(c, ddt) & risky.to(c[0].device)
+                        if trace is not None:
+                            trace.append(_traced(depth + 1, c, ddt, fixed, spec, risky))
                     decisions[depth + 1][:, sub] = r
             c = _guarded_step(c, ddt, sub, depth + 1, rows, fixed, spec, risk, create_graph, r,
-                              decisions, replay, lrows, force_fn)
+                              decisions, replay, lrows, force_fn, trace)
         return c
 
     if not bool(risky.any()):
@@ -516,8 +522,10 @@ def guarded_interval_body(U, V, A, dt, rows, fixed, spec, create_graph=False, de
     micro-steps of depth d, indexed as micro-step table d's rows (the
     adjoint's replay: the gradient is the taken branches', and the replay
     cannot take another branch than the forward did at any depth).
-    ``trace``: a list that receives ``(travel, gap)``, each (B,), of every
-    substep's predicate. Returns ``((U, V, A), decisions)``, the tables
+    ``trace``: a list that receives ``(depth, travel, gap, ran)`` of every
+    predicate, in the order they run: its depth, the travel and gap (B,)
+    of every design and the (B,) designs that ran that (micro-)step (every
+    design at depth 0). Returns ``((U, V, A), decisions)``, the tables
     taken (False where a micro-step did not run).
     """
 
@@ -535,12 +543,18 @@ def guarded_interval_body(U, V, A, dt, rows, fixed, spec, create_graph=False, de
             with torch.no_grad():
                 risky = risk(carry, dt)
                 if trace is not None:
-                    trace.append((guard_travel(carry[1], carry[2], dt, spec.guard),
-                                  spec.gap_of(carry[0], fixed)))
+                    trace.append(_traced(0, carry, dt, fixed, spec, torch.ones_like(risky)))
             decisions[0][:, i] = risky
         carry = _guarded_step(carry, dt, i, 0, rows, fixed, spec, risk, create_graph, risky,
-                              decisions, replay, lrows, force_fn)
+                              decisions, replay, lrows, force_fn, trace)
     return carry, decisions
+
+
+def _traced(depth, carry, dt, fixed, spec, ran):
+    """A predicate's entry of :func:`guarded_interval_body`'s ``trace``."""
+
+    return (depth, guard_travel(carry[1], carry[2], dt, spec.guard), spec.gap_of(carry[0], fixed),
+            ran)
 
 
 def interval_rows(k, drive, micro, spec):

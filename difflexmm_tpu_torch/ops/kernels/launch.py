@@ -57,7 +57,9 @@ def carry_bytes(lib, prefix: str, n1: int, n2: int, dtype) -> tuple:
 def block_threads(lib, prefix: str, B: int, dtype, guarded: bool) -> int:
     """Threads of a block of the launch of ``B`` designs of ``dtype`` on the
     current CUDA device, as the kernel's launch picks them
-    (``block_threads`` in ``csrc/verlet_common.cuh``; one design a block)."""
+    (``block_threads`` in ``csrc/verlet_common.cuh``; one design a block),
+    guarded at one level; a deeper guard's kernel takes the guarded block
+    for few designs (``GuardThreads<T>::kFew``) at any B."""
 
     itemsize = torch.empty((), dtype=dtype).element_size()
     query = getattr(lib, f"{prefix}_block_threads")
@@ -87,25 +89,28 @@ def reset_counts(wrapper):
         setattr(wrapper, name, 0)
 
 
-def guard_params(guard, theta_channels, prefix: str):
-    """The resolved guard as the kernel's nine doubles: threshold,
-    has_proximity, proximity, has_hard, hard, has_length_scale,
-    length_scale, refine, relative translation."""
+#: The deepest guard the kernels take (``kMaxLevels`` in
+#: ``csrc/verlet_common.cuh``): at refine >= 2 a micro-step table of that
+#: depth would hold more rows than the kernels' 64-bit row indices reach.
+MAX_LEVELS = 64
 
-    if guard["levels"] != 1:
-        raise NotImplementedError(
-            f"guard levels={guard['levels']}: the trajectory kernel refines one level; "
-            "levels > 1 runs on the card with method='verlet_ckpt' (the stepped forward, one "
-            "launch of the force kernel, kernel 2, a (micro-)step) and on CPU tensors; "
-            "ROADMAP B2."
-        )
+
+def guard_params(guard, theta_channels, prefix: str):
+    """The resolved guard as the kernel's ten doubles: threshold,
+    has_proximity, proximity, has_hard, hard, has_length_scale,
+    length_scale, refine, relative translation, levels."""
+
     if tuple(guard["theta_channels"]) != tuple(theta_channels):
         raise ValueError(f"{prefix} guard: theta must be plane channels {tuple(theta_channels)}")
+    if not 1 <= guard["levels"] <= MAX_LEVELS:
+        raise ValueError(f"{prefix} guard: levels={guard['levels']}, the kernel takes 1 to "
+                         f"{MAX_LEVELS}")
     values = []
     for key in ("proximity", "hard", "length_scale"):
         values += [guard[key] is not None, guard[key] or 0.0]
-    values = [guard["threshold"], *values, guard["refine"], guard["translation"] == "relative"]
-    return (ctypes.c_double * 9)(*(float(v) for v in values))
+    values = [guard["threshold"], *values, guard["refine"], guard["translation"] == "relative",
+              guard["levels"]]
+    return (ctypes.c_double * 10)(*(float(v) for v in values))
 
 
 def run(lib, prefix: str, wrapper, U0, V0, A0, dts, drive, fixed, spec, micro, loads=(), *,
@@ -113,16 +118,19 @@ def run(lib, prefix: str, wrapper, U0, V0, A0, dts, drive, fixed, spec, micro, l
     """Launch the kernel of ``lib`` on CUDA tensors: ``(B, C, n2, n1)``
     initial state, ``(T-1,)`` substep sizes, ``(B, (T-1) * n_sub, k)`` drive
     table, the fixed leaves (``fixed_shapes``, the design batch leading)
-    and, guarded, the micro-step table; with ``spec.load_map``, the load
-    tables ``(B, rows, k_load)`` (substep table, guarded also the
-    micro-step table), which the kernel gets summed into their slots
-    (``core.slot_loads``) with ``spec.load_map.columns``. Returns ``(outU,
-    outV, outA)``, each ``(B, T-1, C, n2, n1)``, and guarded also the
-    per-interval flags ``(B, T-1)`` and per-substep decisions ``(B, (T-1) *
-    n_sub)`` (bool). Raises on what the kernel does not take.
-    ``fixed_shapes`` ends with the mask planes' ``(B, C, n2, n1)``, which
-    the state must match. A launch adds one to ``wrapper``'s counter
-    (:func:`counter`)."""
+    and, guarded, the ``spec.n_micro`` micro-step tables, table ``d``
+    ``(B, (T-1) * n_sub * refine**d, k)``; with ``spec.load_map``, the load
+    tables ``(B, rows, k_load)`` (the substep table and, guarded, one
+    micro-step table a depth), which the kernel gets summed into their
+    slots (``core.slot_loads``) with ``spec.load_map.columns``. Returns
+    ``(outU, outV, outA)``, each ``(B, T-1, C, n2, n1)``, and guarded also
+    the per-interval flags ``(B, T-1)``, the per-substep decisions ``(B,
+    (T-1) * n_sub)`` and the ``spec.n_deep`` decision tables of the
+    micro-steps of depths 1 ... levels - 1, each indexed as that depth's
+    micro-step table's rows and False where a micro-step did not run
+    (bool). Raises on what the kernel does not take. ``fixed_shapes`` ends
+    with the mask planes' ``(B, C, n2, n1)``, which the state must match. A
+    launch adds one to ``wrapper``'s counter (:func:`counter`)."""
 
     guard = None if spec.guard is None else guard_params(spec.guard, theta_channels, prefix)
     dtype = U0.dtype
@@ -136,10 +144,10 @@ def run(lib, prefix: str, wrapper, U0, V0, A0, dts, drive, fixed, spec, micro, l
     tensors = (U0, V0, A0, dts, drive, *fixed, *micro, *loads)
     expected = ((B, C, n2, n1),) * 3 + ((n_int,), (B, n_int * n_sub, k_drive))
     expected += tuple(fixed_shapes)
-    rows = (n_int * n_sub,)
-    if guard is not None:
-        rows += (n_int * n_sub * spec.guard["refine"],)
-        expected += ((B, rows[1], k_drive),)
+    # Rows of the substep tables, then of each depth's micro-step tables.
+    refine = 1 if guard is None else spec.guard["refine"]
+    rows = tuple(n_int * n_sub * refine ** d for d in range(1 + spec.n_micro))
+    expected += tuple((B, r, k_drive) for r in rows[1:])
     expected += tuple((B, r, k_load) for r in rows) if k_load else ()
     if (len(fixed) != len(fixed_shapes) or k_drive < 1 or len(micro) != spec.n_micro
             or len(loads) != spec.n_loads):
@@ -165,20 +173,29 @@ def run(lib, prefix: str, wrapper, U0, V0, A0, dts, drive, fixed, spec, micro, l
                      for _ in range(3))
         if guard is not None:
             outs += (torch.empty((B, n_int), dtype=torch.bool, device=U0.device),
-                     torch.empty((B, n_int * n_sub), dtype=torch.bool, device=U0.device))
+                     torch.empty((B, rows[0]), dtype=torch.bool, device=U0.device))
+            # The kernel writes the micro-steps that ran; the others stay False.
+            outs += tuple(torch.zeros((B, r), dtype=torch.bool, device=U0.device)
+                          for r in rows[1:-1])
         scratch, max_smem = carry_bytes(lib, prefix, n1, n2, dtype)
         workspace = None
         if scratch > max_smem:
             workspace = torch.empty(B * scratch // itemsize, dtype=dtype, device=U0.device)
         pointers = [t.data_ptr() for t in (U0, V0, A0, dts, drive, drive_map, *fixed, *outs[:3])]
         pointers.append(workspace.data_ptr() if workspace is not None else None)
-        # The guarded and the load pointers have fixed places (None where
-        # absent): a library that knows no loads reads only the first ones.
+        # The guarded and the load pointers of depth 1 have fixed places
+        # (None where absent): a library that knows no loads, or one level,
+        # reads only the first ones. Those of the deeper levels follow.
         pointers += [micro[0].data_ptr(), outs[4].data_ptr(), outs[3].data_ptr()] \
             if guard is not None else [None] * 3
         pointers += [slot_tables[0].data_ptr(),
                      slot_tables[1].data_ptr() if guard is not None else None,
                      spec.load_map.columns.data_ptr()] if k_load else [None] * 3
+        if spec.n_micro > 1:
+            pointers += [t.data_ptr() for t in micro[1:]]
+            pointers += [t.data_ptr() for t in slot_tables[2:]] if k_load \
+                else [None] * (spec.n_micro - 1)
+            pointers += [t.data_ptr() for t in outs[5:]]
         ptrs = (ctypes.c_void_p * len(pointers))(*pointers)
         n_slots = spec.load_map.slots.shape[0] if k_load else 0
         dims = (ctypes.c_int * 7)(B, n1, n2, n_int, n_sub, k_drive, n_slots)

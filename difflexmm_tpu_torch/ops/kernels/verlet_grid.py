@@ -272,14 +272,16 @@ def verlet_quad_trajectory(
     """Whole quad trajectory: ``(B, 3, n2, n1)`` initial state, ``(T-1,)``
     substep sizes, ``(B, (T-1) * n_sub, k)`` drive table and the
     :data:`N_FIXED_ARRAYS` fixed leaves -> ``(outU, outV, outA)``, each
-    ``(B, T-1, 3, n2, n1)``. With ``spec.guard`` it also takes the
-    micro-step table ``micro[0]`` ``(B, (T-1) * n_sub * refine, k)`` and
-    returns the per-interval flags ``(B, T-1)`` and per-substep decisions
-    ``(B, (T-1) * n_sub)`` (bool).
+    ``(B, T-1, 3, n2, n1)``. With ``spec.guard`` (any ``levels``) it also
+    takes the micro-step table of each depth d, ``micro[d - 1]`` ``(B,
+    (T-1) * n_sub * refine**d, k)``, and returns the per-interval flags
+    ``(B, T-1)``, the per-substep decisions ``(B, (T-1) * n_sub)`` and the
+    ``spec.n_deep`` decision tables of the micro-steps of depths 1 ...
+    levels - 1 (bool; ``launch.run``).
 
     With ``spec.load_map`` it also takes the load tables ``loads`` (the
-    substep table ``(B, (T-1) * n_sub, k_load)`` and, guarded, the
-    micro-step table), added into the force (``launch.run``).
+    substep table ``(B, (T-1) * n_sub, k_load)`` and, guarded, one
+    micro-step table a depth), added into the force (``launch.run``).
 
     CPU tensors go through the plain body (``core.plain_trajectory``).
     CUDA tensors launch ``csrc/verlet_quad.cu`` or raise: there is no
@@ -386,8 +388,9 @@ quad_force.launches = 0
 def verlet_ckpt_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro=(), loads=()):
     """The forward of ``method="verlet_ckpt"`` (the JAX solver's stepped
     forward): on CUDA tensors ``core.stepped_trajectory``, one launch of
-    the force kernel a (micro-)step, guarded to any depth; on CPU tensors
-    the plain body (``core.plain_trajectory``)."""
+    the force kernel a (micro-)step, guarded to any depth (as the
+    trajectory kernel of the default method is); on CPU tensors the plain
+    body (``core.plain_trajectory``)."""
 
     if U0.device.type == "cpu":
         return core.plain_trajectory(U0, V0, A0, dts, drive, fixed, spec, micro, loads)

@@ -98,10 +98,10 @@ def setup_dynamic_solver(
     escalation, a spec dict as for the JAX solver (``core.resolve_guard``;
     translation "relative" by default; theta is plane channel 2 on quads,
     channels 2 and 5 on kagome). Substeps whose predicted travel is risky
-    re-run as ``refine`` micro-steps. CUDA tensors run the guarded kernel
-    (one level), or with ``method="verlet_ckpt"`` the stepped guarded body
-    (any depth; quads on the force kernel); CPU tensors the plain guarded
-    body (any depth).
+    re-run as ``refine`` micro-steps, recursively to ``levels`` deep. CUDA
+    tensors run the guarded kernel (any depth), or with
+    ``method="verlet_ckpt"`` the stepped guarded body (any depth; quads on
+    the force kernel); CPU tensors the plain guarded body (any depth).
 
     Options of the JAX solver that this port does not implement yet raise
     ``NotImplementedError`` naming the ROADMAP item; none is ignored.

@@ -22,7 +22,13 @@ of 1, 132 or 528 designs, and a NaN stays in its design. So do the
 unguarded quad and kagome kernels' blocks (a thread per bond at float32
 while the designs do not outnumber the SMs), at B = 1, 128, 132 and 528. Kernel 2 is one launch
 over lattice tiles and designs: it matches its plain version on ragged
-tiles and keeps a NaN in its design at every tile shape.
+tiles and keeps a NaN in its design at every tile shape. The guarded
+kernels take guards of any depth: at levels 2 and 3, with loads and on a
+batch whose designs decide differently, their decisions of every depth
+equal the plain body's on a CPU copy of the inputs and U, V, A agree
+within 1e-10 at float64; the levels-2 value and gradient through 1g agree
+with the plain body's within 1e-9; at one level they give the outputs of
+the kernels from before the depth walk bit for bit.
 """
 
 import ctypes
@@ -57,6 +63,11 @@ def device():
 
 def _plain(args):
     return core.plain_trajectory(*args[1:7], args.spec, args.micro, args.loads)
+
+
+# Guard levels = 2 with refine 4 on the violent 8 x 6 problem: micro-steps
+# fire at depth 1, so some run at depth 2.
+TWO_LEVELS = {"proximity_windows": 2.0, "hard_fraction": 0.1, "levels": 2, "refine": 4}
 
 
 def _kernel(args):
@@ -153,11 +164,33 @@ def test_guarded_kernel_equals_unguarded_where_nothing_fires(device):
         assert kc.max_rel_err(g, u) <= 1e-12
 
 
-def test_guarded_kernel_refuses_more_than_one_level(device):
-    problem = kc.small_problem(n_timepoints=3, device=device, guard=dict(window=0.1, levels=2))
+def _deep_matches(args, tol=1e-10):
+    """The guarded kernel on ``args`` (float64, guard levels > 1 allowed)
+    against the plain guarded body on a CPU copy: flags and the decisions
+    of every depth identical, U, V, A within ``tol`` of their scale."""
+
+    kernel = _kernel(args)
+    plain = _plain(kc.on_cpu(args))
+    assert len(kernel) == len(plain) == 5 + args.spec.n_deep
+    for k, p in zip(kernel[3:], plain[3:]):
+        assert torch.equal(k.cpu(), p)
+    for k, p in zip(kernel[:3], plain[:3]):
+        assert torch.isfinite(k).all()
+        assert kc.max_rel_err(k.cpu(), p) <= tol
+    return kernel
+
+
+def _deep_problem(device, levels=2, lattice="quad", amplitude=1.0, n_timepoints=3):
+    make = kc.small_problem if lattice == "quad" else kc.small_kagome
+    return make(n_timepoints=n_timepoints, device=device, amplitude_scale=amplitude,
+                guard=dict(TWO_LEVELS, levels=levels))
+
+
+def test_guarded_kernel_at_two_levels_matches_the_plain_body(device):
+    problem = _deep_problem(device)
     args = kc.batched_args(problem, [kc.random_design(problem, np.random.default_rng(4))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.trajectory_forward(args)
+    kernel = _deep_matches(args)
+    assert bool(kernel[5].any())  # micro-steps of depth 1 fired: depth 2 ran
 
 
 def test_guarded_objective_runs_the_guarded_kernel(device):
@@ -237,12 +270,12 @@ def test_kagome_guarded_kernel_equals_unguarded_where_nothing_fires(device):
         assert kc.max_rel_err(g, u) <= 1e-12
 
 
-def test_kagome_guarded_kernel_refuses_more_than_one_level(device):
-    problem = kc.small_kagome(n_timepoints=3, device=device, guard=dict(window=0.1, levels=2))
+def test_kagome_guarded_kernel_at_two_levels_matches_the_plain_body(device):
+    problem = _deep_problem(device, lattice="kagome")
     args = kc.batched_args(problem, [kc.random_kagome_design(problem,
                                                              np.random.default_rng(4))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        core.trajectory_forward(args)
+    kernel = _deep_matches(args)
+    assert bool(kernel[5].any())
 
 
 def test_kagome_guarded_objective_runs_the_guarded_kernel(device):
@@ -612,11 +645,6 @@ def test_force_kernel_keeps_a_nan_in_its_design(device):
         assert torch.equal(dirty[b], clean[b])
 
 
-# Guard levels = 2 with refine 4 on the violent 8 x 6 problem: micro-steps
-# fire at depth 1, so some run at depth 2.
-TWO_LEVELS = {"proximity_windows": 2.0, "hard_fraction": 0.1, "levels": 2, "refine": 4}
-
-
 def _two_levels(device):
     problem = kc.small_problem(n_timepoints=3, device=device, guard=TWO_LEVELS,
                                method="verlet_ckpt")
@@ -680,6 +708,110 @@ def test_stepped_gradient_at_two_levels_matches_the_plain_body(device):
     assert abs(card[0] - host[0]) <= 1e-9 * abs(host[0])
     for c, h in zip(card[1], host[1]):
         assert float(h.abs().max()) > 0 and kc.max_rel_err(c, h) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# Guards deeper than one level in kernels 1g, 1Kg and guarded 1L
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_guarded_kernel_at_three_levels_matches_the_plain_body(device, lattice):
+    problem = _deep_problem(device, levels=3, lattice=lattice, amplitude=0.3)
+    draw = kc.random_design if lattice == "quad" else kc.random_kagome_design
+    args = kc.batched_args(problem, [draw(problem, np.random.default_rng(8))])
+    kernel = _deep_matches(args)
+    assert len(kernel) == 7 and bool(kernel[5].any())
+
+
+@pytest.mark.parametrize("lattice", ["quad", "kagome"])
+def test_guarded_loads_at_two_levels_match_the_plain_body(device, lattice):
+    problem = _deep_problem(device, lattice=lattice)
+    draw = kc.random_design if lattice == "quad" else kc.random_kagome_design
+    args = kc.batched_args(problem, [draw(problem, np.random.default_rng(9))])
+    pairs = kc.QUAD_LOAD_PAIRS if lattice == "quad" else kc.KAGOME_LOAD_PAIRS
+    args = kc.with_loads(args, pairs)
+    assert len(args.loads) == 3
+    wrapper = verlet_kagome_trajectory if lattice == "kagome" else verlet_quad_trajectory
+    launches = wrapper.loaded_guarded_launches
+    _deep_matches(args)
+    assert wrapper.loaded_guarded_launches == launches + 1
+
+
+def test_guarded_batch_at_two_levels_decides_per_design(device):
+    """A violent design and a tamer one in one launch at guard levels = 2:
+    each block walks its own depths; the plain body runs both branches
+    where the two disagree and leaves False the decisions of micro-steps a
+    design did not run, as the kernel does."""
+
+    rng = np.random.default_rng(10)
+    parts = []
+    for amplitude in (1.0, 0.03):
+        problem = _deep_problem(device, amplitude=amplitude)
+        parts.append(kc.batched_args(problem, [kc.random_design(problem, rng)]))
+    cat = lambda xs: torch.cat(xs).contiguous()  # noqa: E731
+    args = parts[0]._replace(
+        **{k: cat([getattr(p, k) for p in parts]) for k in ("U0", "V0", "A0", "drive")},
+        fixed=tuple(cat(list(x)) for x in zip(*(p.fixed for p in parts))),
+        micro=tuple(cat(list(x)) for x in zip(*(p.micro for p in parts))))
+    kernel = _deep_matches(args)
+    assert int(kernel[5][0].sum()) > int(kernel[5][1].sum())
+
+
+def _guarded_two_levels(device):
+    problem = _deep_problem(device)
+    return kc.batched_args(problem, [kc.random_design(problem, np.random.default_rng(5))])
+
+
+def test_guarded_gradient_at_two_levels_matches_the_plain_body(device):
+    """The value and gradient at guard levels = 2 through kernel 1g (the
+    adjoint replays the fired intervals with the kernel's decisions of both
+    depths) against the plain body's on a CPU copy of the same inputs, at
+    float64: the gradients with respect to the initial state, the
+    centroid-node vectors and the horizontal bonds' stretching stiffness
+    within 1e-9 of their scale."""
+
+    args = _guarded_two_levels(device)
+    rng = np.random.default_rng(7)
+    cots = [rng.standard_normal((1, 2) + tuple(args.U0.shape[1:])) for _ in range(3)]
+
+    def value_and_grad(a):
+        x = [a.U0.clone().requires_grad_(), a.V0.clone().requires_grad_(),
+             a.fixed[0].clone().requires_grad_(), a.fixed[4].clone().requires_grad_()]
+        fixed = (x[2],) + a.fixed[1:4] + (x[3],) + a.fixed[5:]
+        outs = core.VerletTrajectory.apply(a.spec, x[0], x[1], a.A0, a.dts, a.drive, *a.micro,
+                                           *fixed)
+        value = sum(torch.sum(o * torch.tensor(c, device=o.device))
+                    for o, c in zip(outs[:3], cots))
+        grads = torch.autograd.grad(value, x)
+        return value.item(), [g.cpu() for g in grads], [d.cpu() for d in outs[4:]]
+
+    launches, calls = verlet_quad_trajectory.guarded_launches, core.plain_trajectory.calls
+    card = value_and_grad(args)
+    assert verlet_quad_trajectory.guarded_launches == launches + 1
+    assert core.plain_trajectory.calls == calls
+    host = value_and_grad(kc.on_cpu(args))
+    assert bool(card[2][1].any())  # micro-steps of depth 1 fired
+    for c, h in zip(card[2], host[2]):
+        assert torch.equal(c, h)
+    assert abs(card[0] - host[0]) <= 1e-9 * abs(host[0])
+    for c, h in zip(card[1], host[1]):
+        assert float(h.abs().max()) > 0 and kc.max_rel_err(c, h) <= 1e-9
+
+
+def test_one_level_kernels_equal_the_recorded_parent_kernels(device):
+    """Kernels 1g, 1Kg and guarded 1L at one level give, bit for bit, the
+    outputs, flags and decisions that the kernels from before the depth
+    walk gave on the same inputs (recorded on an H100 by
+    ``tests/record_guarded_kernel_outputs.py`` in
+    ``tests/data/guarded_levels1_kernels.npz``)."""
+
+    import record_guarded_kernel_outputs as record
+
+    recorded = np.load(record.DATA)
+    for label, outs in record.outputs(device).items():
+        for i, out in enumerate(outs):
+            assert np.array_equal(out.cpu().numpy(), recorded[f"{label} {i}"]), (label, i)
 
 
 def test_verlet_ckpt_objective_runs_the_force_kernel_only(device):
@@ -771,8 +903,8 @@ def _gap_needed(args):
 
     trace, guard = [], args.spec.guard
     core.plain_trajectory(*args[1:7], args.spec, args.micro, args.loads, trace=trace)
-    travel = torch.stack([t for t, _ in trace], dim=1)[0]
-    gap = torch.stack([g for _, g in trace], dim=1)[0]
+    travel = torch.stack([t for depth, t, _, _ in trace if depth == 0], dim=1)[0]
+    gap = torch.stack([g for depth, _, g, _ in trace if depth == 0], dim=1)[0]
     return ~(travel <= guard["threshold"]) & (travel <= guard["hard"]) & (gap != float("inf"))
 
 

@@ -10,7 +10,9 @@ guarded trajectories and gradients on it, whose trace and compile take
 slow ``test_guard_harness_references_match_jax``, which makes them again.
 """
 
+import contextlib
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -206,11 +208,74 @@ def test_gap_matches_jax_at_random_states(seed):
     assert not math.isnan(float(got[0])) and math.isnan(float(got[1]))
 
 
-def test_kernel_refuses_more_than_one_level():
-    guard = core.resolve_guard(dict(GUARD), (2,))
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        launch.guard_params(guard, (2,), "verlet_quad")
-    assert len(launch.guard_params(dict(guard, levels=1), (2,), "verlet_quad")) == 9
+class _Library:
+    """A stand-in for a trajectory kernel's library: it records what
+    ``launch.run`` passes to ``verlet_quad_launch`` and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def verlet_quad_max_smem(self):
+        return 1 << 20
+
+    def verlet_quad_scratch_bytes(self, n1, n2, itemsize):
+        return 1024
+
+    def verlet_quad_launch(self, ptrs, dims, itemsize, linearized, use_contact, guard, stream):
+        self.calls.append((list(ptrs), list(dims), list(guard)))
+        return 0
+
+
+@pytest.mark.parametrize("levels", [2, 3])
+def test_kernel_takes_guards_of_any_depth(levels, monkeypatch):
+    """``launch.guard_params`` packs a guard of any depth (ten doubles,
+    ``levels`` last; past :data:`launch.MAX_LEVELS` it raises), and
+    ``launch.run`` takes ``1 + n_micro`` drive tables and as many load
+    tables, passes every table of every depth to the kernel after the
+    pointers of depth 1 and returns ``spec.n_deep`` zero-filled deep
+    decision tables, one a depth below ``levels``, of the micro-step
+    tables' rows."""
+
+    guard = core.resolve_guard(dict(GUARD, levels=levels), (2,))
+    packed = launch.guard_params(guard, (2,), "verlet_quad")
+    assert len(packed) == 10 and packed[7] == 8 and packed[9] == levels
+    with pytest.raises(ValueError, match="levels"):
+        launch.guard_params(dict(guard, levels=launch.MAX_LEVELS + 1), (2,), "verlet_quad")
+    problem = kc.small_problem(n_timepoints=3, n_substeps=2, device="cpu",
+                               guard=dict(window=0.1, levels=levels, refine=3))
+    args = kc.batched_args(problem, [problem.geometry.get_design_from_rotated_square(0.4)] * 2)
+    args = kc.with_loads(args, kc.QUAD_LOAD_PAIRS)
+    assert args.spec.n_micro == levels and args.spec.n_deep == levels - 1
+    assert len(args.loads) == 1 + levels
+    # Off the card: the wrapper's checks and packing run, the launch does not.
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=0))
+    lib = _Library()
+    fixed_shapes = verlet_grid.fixed_shapes(2, 8, 6)
+    keywords = dict(linearized=False, use_contact=True, fixed_shapes=fixed_shapes,
+                    drive_map=args.spec.forward.keywords["drive_map"], theta_channels=(2,))
+    with pytest.raises(ValueError, match="malformed"):
+        launch.run(lib, "verlet_quad", verlet_grid.verlet_quad_trajectory, *args[1:7], args.spec,
+                   args.micro[:-1], args.loads, **keywords)
+    outs = launch.run(lib, "verlet_quad", verlet_grid.verlet_quad_trajectory, *args[1:7],
+                      args.spec, args.micro, args.loads, **keywords)
+    ptrs, dims, packed = lib.calls[-1]
+    n = len(args.fixed)
+    assert dims == [2, 8, 6, 2, 2, args.drive.shape[-1], args.spec.load_map.slots.shape[0]]
+    assert packed[9] == levels and len(outs) == 5 + args.spec.n_deep
+    # Depth 1's pointers at fixed places, then the micro-step tables of
+    # depths 2 ... levels, the load tables of the same depths, the deep
+    # decision tables.
+    assert ptrs[n + 10] == args.micro[0].data_ptr()
+    assert ptrs[n + 11:n + 13] == [outs[4].data_ptr(), outs[3].data_ptr()]
+    deep = ptrs[n + 16:]
+    assert len(deep) == 3 * (levels - 1)
+    assert deep[:levels - 1] == [t.data_ptr() for t in args.micro[1:]]
+    assert deep[2 * (levels - 1):] == [t.data_ptr() for t in outs[5:]]
+    for d, table in enumerate(outs[5:], start=1):
+        assert table.dtype == torch.bool and tuple(table.shape) == (2, 2 * 2 * 3 ** d)
+        assert not table.any()
 
 
 # ---------------------------------------------------------------------------
