@@ -12,7 +12,7 @@ identical at float64), the kagome kernels (1K and 1Kg, the same) and the
 fused external loads (1L) in all four of them. The plain version's runs, and
 the dense ``method="verlet"`` runs of the loaded problems, go to worker
 processes on the host's CPU cores while the kernels build. Then it drives
-twelve main paths.
+thirteen main paths.
 On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
 value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
 1), and the guarded constrained optimizer
@@ -66,7 +66,23 @@ configuration at levels 2, and the violent 8 x 6 problem's value and
 design gradient at levels 2 (against the plain body's on the host) and its
 value at levels 3; before it, those kernels and guarded 1L at levels 2 and
 3 against the plain guarded body, decisions of every depth identical at
-float64.
+float64 (guarded 1L at levels 2 timed on the 8 x 6 case). The rest of the
+optimizer and the solver remnants (main path 13): the runner's
+``run_optimization_optax`` on the flagship under ``guard="auto"`` (kernel
+1g, two float64 iterations held against the JAX package's recorded
+history); ``run_multistart_optax`` on 128 flagship designs (kernel 1 with
+the batch on the grid, three iterations; two candidates held against B = 1
+runs of ``optim.loops.run_optimization_optax``; designs/s); the MMA with a
+``MetricsLogger`` and an ``OptimizationCheckpoint`` on the 6 x 6 problem of
+``models/small_configs.py`` (kernel 1g), resumed by a fresh problem, held
+against JAX's history; the periodic kagome (``KagomePeriodicGeometry``,
+16 x 16 cells) value and shift gradient through kernel 1K against JAX's;
+the dense ``"rk4"``, ``"semi_implicit"`` and guarded ``"verlet"`` with
+distance-based contact and node loads on CUDA tensors against the same on
+the host; and one flagship value and gradient inside
+``utils.observability.trace``, whose Chrome trace must list kernel 1's
+launch. All of it but (b)'s population runs in a process of its own on
+the card beside main paths 2 and 4, whose work is host-bound too.
 Objectives and float64 design gradients are checked against the JAX
 package's float64 values, and the kernels are timed against their plain
 versions. Fails
@@ -82,6 +98,7 @@ before that.
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -246,6 +263,38 @@ SIDE_WORKERS = 1
 # tuning, one solve for the others).
 FAMILY_LAUNCHES = {"multi_input": 2, "energy_splitting": 1, "restricted_space": 1, "spin": 1,
                    "static_tuning": 4}
+
+# Main path 13 (the rest of the optimizer and the solver remnants):
+# (a) the runner's optax path on the flagship, OPTAX_ITERATIONS float64
+# iterations under guard="auto" (kernel 1g), held against the JAX package's
+# recorded history (models/flagship.py) at MMA_TOL: the kernel forward's
+# rounding (1e-9 of the field scale) reaches the objective at ~1e-12 and the
+# gradient at ~1e-9, and Adam's first steps move by lr * sign(g).
+OPTAX_ITERATIONS = 2
+# (b) run_multistart_optax on OPTAX_B flagship designs (stepped_designs),
+# OPTAX_MULTISTART_ITERATIONS iterations through kernel 1 with the batch on
+# the grid; candidates OPTAX_CHECKED against B = 1 runs of
+# optim.loops.run_optimization_optax from the same designs within
+# OPTAX_POPULATION_TOL: a design's forward in the population equals its B = 1
+# forward bit for bit, its float64 gradient replays the same operations at
+# another batch width (1e-12), and Adam's update is elementwise.
+OPTAX_B = 128
+OPTAX_MULTISTART_ITERATIONS = 3
+OPTAX_CHECKED = (0, 127)
+OPTAX_POPULATION_TOL = 1e-12
+# (c) the 6 x 6 checkpointed MMA (models/small_configs.py) through kernel 1g
+# against the JAX history, as (a): MMA_TOL.
+# (d) the periodic kagome (models/kagome_config.py) through kernel 1K:
+# value within PERIODIC_VALUE_TOL, the shift triple's gradient within
+# PERIODIC_GRAD_TOL of the JAX float64 values (the kernel forward's rounding,
+# 1e-9 of the fields, as for the kagome configuration's objective).
+PERIODIC_VALUE_TOL, PERIODIC_GRAD_TOL = 1e-8, 1e-7
+# (e) the dense rk4, semi-implicit and guarded Verlet runs of the remnant
+# lattice on CUDA tensors against the same runs on the host: the same
+# operations, so only the two devices' rounding of library functions
+# separates them, carried through 16 damped (micro-)steps; the guard's
+# decisions must be the same.
+REMNANT_TRAJ_TOL, REMNANT_GRAD_TOL = 1e-10, 1e-9
 
 
 def log(*parts):
@@ -472,6 +521,353 @@ def kagome_mma():
     return out
 
 
+def remnant_reference(name):
+    """Main path 13 (e) on the host (a worker process): the remnant run
+    ``name`` at float64, as numpy (fields, value, gradients, decisions)."""
+
+    import torch
+
+    from difflexmm_tpu_torch.models import small_configs as sc
+
+    torch.set_num_threads(1)
+    solve, fields, value, grads = sc.remnant_run(name, device="cpu")
+    return (fields.detach().numpy(), float(value.detach()), [g.numpy() for g in grads],
+            list(solve.decisions))
+
+
+def counted(fn):
+    """Run ``fn`` with this process's counts set to 0 just before it and
+    the card synchronised around it: (its result, seconds, {count: value})."""
+
+    import torch
+
+    from difflexmm_tpu_torch.ops.kernels import core, launch
+    from difflexmm_tpu_torch.ops.kernels.verlet_grid import quad_force, verlet_quad_trajectory
+    from difflexmm_tpu_torch.ops.kernels.verlet_kagome import verlet_kagome_trajectory
+
+    for wrapper in (verlet_quad_trajectory, verlet_kagome_trajectory):
+        launch.reset_counts(wrapper)
+    quad_force.launches = 0
+    core.plain_trajectory.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(quad=verlet_quad_trajectory.launches,
+                  quad_guarded=verlet_quad_trajectory.guarded_launches,
+                  kagome=verlet_kagome_trajectory.launches,
+                  kagome_guarded=verlet_kagome_trajectory.guarded_launches,
+                  force=quad_force.launches, plain=core.plain_trajectory.calls)
+    return result, seconds, counts
+
+
+def only(label, counts, **expected):
+    """The run went through the kernels ``expected`` names, that many
+    times, and through nothing else."""
+
+    want = dict(dict.fromkeys(counts, 0), **expected)
+    if counts != want:
+        raise AssertionError(f"main path 13 {label}: launches {counts}, expected {want}")
+
+
+def scan_trace(path, kernel, category="kernel"):
+    """Stream a Chrome trace of ``torch.profiler`` without loading it (a
+    flagship fwd+grad's is gigabytes): (events of ``category``, those of
+    them whose name holds ``kernel``, their microseconds in all, and their
+    span from the first start to the last end). Kineto writes an event's
+    keys on one line or a line each; both are read."""
+
+    import re
+
+    fields = re.compile(r'"(cat|name|ts|dur)": ("[^"]*"|[-0-9.eE+]+)')
+    n_events, n_named, busy = 0, 0, 0.0
+    first, last = float("inf"), float("-inf")
+    inside, ts = False, 0.0
+    with open(path) as f:
+        for line in f:
+            for key, value in fields.findall(line):
+                if key == "cat":
+                    inside = value == f'"{category}"'
+                    n_events += inside
+                elif not inside:
+                    continue
+                elif key == "name":
+                    n_named += kernel in value
+                elif key == "ts":
+                    ts = float(value)
+                else:
+                    dur = float(value)
+                    busy += dur
+                    first, last = min(first, ts), max(last, ts + dur)
+                    inside = False
+    return n_events, n_named, busy, (last - first) if n_events else 0.0
+
+
+def main_path_13_side():
+    """Main path 13's parts beside main path 2 (a process of its own on the
+    card, whose work is host-bound, while main path 2's is): (f) one flagship
+    value and gradient inside ``utils.observability.trace`` with a
+    ``trace_dir`` (its Chrome trace streamed, then removed: it holds every
+    kernel of the adjoint's graph replays); (b)'s B = 1 loops of
+    ``optim.loops.run_optimization_optax``; (a) the runner's optax path on the
+    flagship under ``guard="auto"``; (c) the 6 x 6 checkpointed MMA and its
+    resumption; (d) the periodic kagome's value and shift gradient; (e) the
+    dense remnant runs on CUDA tensors. Returns each part's numbers, this
+    process's launch counts and seconds (host clock); main_path_13 checks
+    them."""
+
+    import torch
+
+    from difflexmm_tpu_torch.models import flagship as fl
+    from difflexmm_tpu_torch.models import kagome_config as kg
+    from difflexmm_tpu_torch.models import small_configs as sc
+    from difflexmm_tpu_torch.optim import loops
+    from difflexmm_tpu_torch.utils.observability import (
+        MetricsLogger,
+        OptimizationCheckpoint,
+        trace,
+    )
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    f64 = torch.float64
+    out = {}
+
+    # (f)
+    opt, design = fl.build_flagship(device=device, dtype=f64)
+    traces = os.path.join(REPO, "build", "traces")
+    shutil.rmtree(traces, ignore_errors=True)
+
+    def traced():
+        with trace("flagship fwd+grad", trace_dir=traces):
+            d = tuple(x.detach().clone().requires_grad_() for x in design)
+            torch.autograd.grad(opt.objective_fn(d), d)
+
+    _, seconds, counts = counted(traced)
+    (path,) = [os.path.join(traces, f) for f in os.listdir(traces)]
+    size = os.path.getsize(path)
+    out["f"] = dict(seconds=seconds, counts=counts, bytes=size,
+                    scan=scan_trace(path, "verlet_quad_kernel"))
+    shutil.rmtree(traces)
+
+    # (b)'s B = 1 loops, from the population's candidates OPTAX_CHECKED.
+    designs = stepped_designs(design, OPTAX_B, POPULATION_STEP)
+    runs, seconds, counts = counted(lambda: [loops.run_optimization_optax(
+        opt.objective_fn, tuple(x[b] for x in designs), OPTAX_MULTISTART_ITERATIONS)
+        for b in OPTAX_CHECKED])
+    out["singles"] = dict(seconds=seconds, counts=counts, runs=[
+        (r.objective_values, fl.flat_numpy(r.design_values[-1])) for r in runs])
+
+    # (a) The runner's optax path: it re-arms guard="auto" (kernel 1g).
+    final, seconds, counts = counted(
+        lambda: opt.run_optimization_optax(design, n_iterations=OPTAX_ITERATIONS, verbose=False))
+    out["a"] = dict(seconds=seconds, counts=counts, values=list(opt.objective_values),
+                    design_stats=[fl.design_stats(d, design) for d in opt.design_values],
+                    final_stats=fl.design_stats(final, design))
+
+    # (c) Two MMA iterations with a logger and a snapshot every iteration,
+    # then a fresh problem resumes for one more.
+    work = os.path.join(REPO, "build", "main_path_13")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt = OptimizationCheckpoint(os.path.join(work, "opt.ckpt"), every=1)
+    logger = MetricsLogger(os.path.join(work, "opt.jsonl"))
+
+    def checkpointed():
+        first, start = sc.checkpoint_problem(device=device)
+        first.run_optimization_mma(start, n_iterations=sc.CHECKPOINT_ITERATIONS[0],
+                                   metrics_logger=logger, checkpoint=ckpt, **sc.CHECKPOINT_MMA)
+        second, _ = sc.checkpoint_problem(device=device)
+        second.run_optimization_mma(start, n_iterations=sc.CHECKPOINT_ITERATIONS[1],
+                                    checkpoint=ckpt, resume=True, **sc.CHECKPOINT_MMA)
+        return second, start
+
+    (second, start), seconds, counts = counted(checkpointed)
+    out["c"] = dict(seconds=seconds, counts=counts, steps=[r["step"] for r in logger.read()],
+                    values=list(second.objective_values),
+                    design_stats=[fl.design_stats(d, start) for d in second.design_values],
+                    violations={k: list(v) for k, v in second.constraints_violation.items()})
+
+    # (d) The periodic kagome through kernel 1K.
+    objective = kg.build_periodic_kagome(device=device, dtype=f64)
+    shifts = kg.periodic_shifts(device=device, dtype=f64).requires_grad_()
+
+    def periodic():
+        value = objective(shifts)
+        return float(value.detach()), torch.autograd.grad(value, shifts)[0].cpu().numpy()
+
+    (value, grad), seconds, counts = counted(periodic)
+    out["d"] = dict(seconds=seconds, counts=counts, value=value, grad=grad.ravel())
+
+    # (e) The dense remnant runs on CUDA tensors (plain torch).
+    out["e"] = {}
+    for name in sc.REMNANT_RUNS:
+        (solve, fields, value, grads), seconds, counts = counted(
+            lambda name=name: sc.remnant_run(name, device=device))
+        out["e"][name] = dict(seconds=seconds, counts=counts,
+                              fields=fields.detach().cpu().numpy(),
+                              grads=[g.cpu().numpy() for g in grads],
+                              decisions=list(solve.decisions))
+    return out
+
+
+def rel_err(got, ref):
+    """Largest difference of two arrays (or sequences), relative to the
+    largest entry of ``ref`` (absolute where ``ref`` is all zeros)."""
+
+    import numpy as np
+
+    got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
+    scale = float(np.max(np.abs(ref))) if ref.size else 0.0
+    return float(np.max(np.abs(got - ref))) / (scale if scale > 0 else 1.0)
+
+
+def main_path_13(device, results, side_job, remnant_jobs, card_line):
+    """Main path 13: the rest of the optimizer and the solver remnants
+    through the entry points a user calls. (b)'s population runs here;
+    ``side_job`` is :func:`main_path_13_side`'s (the other parts, run
+    beside main path 2), ``remnant_jobs`` the host's runs of (e). Checks
+    every part, returns the timings and adds the launches to ``results``."""
+
+    import numpy as np
+    import torch
+
+    from difflexmm_tpu_torch.models import flagship as fl
+    from difflexmm_tpu_torch.models import kagome_config as kg
+    from difflexmm_tpu_torch.models import small_configs as sc
+    from difflexmm_tpu_torch.parallel import run_multistart_optax
+
+    t13 = time.perf_counter()
+    side = side_job.result()
+    out = {}
+
+    # (a) The runner's optax path on the flagship, guard="auto" (kernel 1g):
+    # each iteration one guarded forward, then compute_best_forward.
+    a = side["a"]
+    only("(a)", a["counts"], quad_guarded=OPTAX_ITERATIONS + 1)
+    log(f"main path 13 (a) (runner optax, flagship, {OPTAX_ITERATIONS} float64 iterations under "
+        f"guard='auto', beside main path 2): {a['counts']['quad_guarded']} kernel-1g launches, "
+        f"{a['seconds']:.2f} s ({a['seconds'] / OPTAX_ITERATIONS:.2f} s/iter, host clock); "
+        f"values {a['values']}")
+    check("(a) optax values vs JAX float64", rel_err(a["values"], fl.JAX_F64_OPTAX_VALUES),
+          MMA_TOL)
+    for k, (got, ref) in enumerate(zip(a["design_stats"], fl.JAX_F64_OPTAX_DESIGN_STATS)):
+        check(f"(a) optax design {k} vs JAX float64 (summary)", rel_err(got, ref), MMA_TOL)
+    check("(a) optax returned design vs JAX float64 (summary)",
+          rel_err(a["final_stats"], fl.JAX_F64_OPTAX_FINAL_STATS), MMA_TOL)
+    out.update(optax_flagship_s_per_iter=a["seconds"] / OPTAX_ITERATIONS)
+
+    # (b) run_multistart_optax on a population of the flagship (kernel 1,
+    # the batch on the grid), against the B = 1 loops of the side process.
+    opt, design = fl.build_flagship(device=device, dtype=torch.float64)
+    designs = stepped_designs(design, OPTAX_B, POPULATION_STEP)
+    result, seconds, counts = counted(lambda: run_multistart_optax(
+        opt.population_objective_fn, designs, OPTAX_MULTISTART_ITERATIONS))
+    only("(b)", counts, quad=OPTAX_MULTISTART_ITERATIONS)
+    rate = OPTAX_B * OPTAX_MULTISTART_ITERATIONS / seconds
+    log(f"main path 13 (b) (run_multistart_optax, {OPTAX_B} flagship designs, "
+        f"{OPTAX_MULTISTART_ITERATIONS} float64 iterations): {counts['quad']} kernel-1 launches "
+        f"of {OPTAX_B} designs, {seconds:.2f} s, {rate:.2f} designs/s (fwd+grad and the Adam "
+        f"step, host clock); best candidate {result.best_index}; {card_line}")
+    values = result.objective_values.cpu().numpy()
+    if values.shape != (OPTAX_MULTISTART_ITERATIONS, OPTAX_B) or not np.isfinite(values).all():
+        raise AssertionError(f"main path 13 (b): values of shape {values.shape}, finite "
+                             f"{bool(np.isfinite(values).all())}")
+    singles = side["singles"]
+    only("(b) B = 1", singles["counts"], quad=OPTAX_MULTISTART_ITERATIONS * len(OPTAX_CHECKED))
+    log(f"  (b) B = 1 loops of candidates {OPTAX_CHECKED} (beside main path 2): "
+        f"{singles['counts']['quad']} kernel-1 launches, "
+        f"{singles['seconds'] / singles['counts']['quad']:.2f} s/iter")
+    for b, (single_values, single_design) in zip(OPTAX_CHECKED, singles["runs"]):
+        check(f"(b) candidate {b}: population values vs B = 1 loop",
+              rel_err(values[:, b], single_values), OPTAX_POPULATION_TOL)
+        check(f"(b) candidate {b}: evaluated design vs B = 1 loop",
+              rel_err(np.concatenate([x[b].cpu().numpy().ravel() for x in result.designs]),
+                      single_design), OPTAX_POPULATION_TOL)
+    out.update(optax_multistart_s=seconds, optax_multistart_designs_per_s=rate,
+               optax_single_s_per_iter=singles["seconds"] / singles["counts"]["quad"])
+
+    # (c) The checkpointed MMA on the 6 x 6 problem through kernel 1g.
+    c = side["c"]
+    log(f"main path 13 (c) (6x6 MMA, checkpoint every iteration, resumed): "
+        f"{c['counts']['quad_guarded']} kernel-1g launches, {c['seconds']:.2f} s, "
+        f"{len(c['steps'])} logged lines, values {c['values']}")
+    if c["counts"]["quad_guarded"] < sum(sc.CHECKPOINT_ITERATIONS) or any(
+            v for k, v in c["counts"].items() if k != "quad_guarded"):
+        raise AssertionError(f"main path 13 (c): launches {c['counts']}")
+    if c["steps"] != [1, 2]:
+        FAILED.append(f"main path 13 (c): the logger holds steps {c['steps']}, not [1, 2]")
+    if len(c["values"]) != len(sc.JAX_F64_CHECKPOINT_VALUES):
+        raise AssertionError(f"main path 13 (c): {len(c['values'])} history entries")
+    check("(c) resumed history values vs JAX float64",
+          rel_err(c["values"], sc.JAX_F64_CHECKPOINT_VALUES), MMA_TOL)
+    for k, (got, ref) in enumerate(zip(c["design_stats"], sc.JAX_F64_CHECKPOINT_DESIGN_STATS)):
+        check(f"(c) resumed history design {k} vs JAX float64 (summary)", rel_err(got, ref),
+              MMA_TOL)
+    for name, ref in sc.JAX_F64_CHECKPOINT_VIOLATIONS.items():
+        check(f"(c) resumed {name} violations vs JAX float64",
+              rel_err(c["violations"][name], ref), MMA_TOL)
+    out.update(checkpoint_mma_s=c["seconds"])
+
+    # (d) The periodic kagome's value and shift-triple gradient (kernel 1K).
+    d = side["d"]
+    only("(d)", d["counts"], kagome=1)
+    log(f"main path 13 (d) (periodic kagome 16x16, value and gradient): "
+        f"{d['counts']['kagome']} kernel-1K launch, {d['seconds']:.2f} s; value "
+        f"{d['value']!r} (JAX f64 {kg.JAX_F64_PERIODIC_OBJECTIVE!r})")
+    check("(d) periodic kagome value vs JAX float64",
+          rel_err(d["value"], kg.JAX_F64_PERIODIC_OBJECTIVE), PERIODIC_VALUE_TOL)
+    check("(d) periodic kagome shift gradient vs JAX float64",
+          rel_err(d["grad"], kg.JAX_F64_PERIODIC_GRAD), PERIODIC_GRAD_TOL)
+    out.update(periodic_kagome_fwd_grad_s=d["seconds"])
+
+    # (e) The dense runs on CUDA tensors against the same on the host.
+    dense = {}
+    for name, e in side["e"].items():
+        only(f"(e) {name}", e["counts"])  # plain torch: no kernel of this repository
+        ref_fields, _, ref_grads, ref_decisions = remnant_jobs[name].result()
+        if e["decisions"] != ref_decisions:
+            FAILED.append(f"main path 13 (e) {name}: the guard's decisions differ from the host's")
+        check(f"(e) {name} fields: CUDA vs host", rel_err(e["fields"], ref_fields),
+              REMNANT_TRAJ_TOL)
+        check(f"(e) {name} design gradient: CUDA vs host",
+              rel_err(np.concatenate([g.ravel() for g in e["grads"]]),
+                      np.concatenate([g.ravel() for g in ref_grads])), REMNANT_GRAD_TOL)
+        dense[name] = dict(s=e["seconds"], fired=sum(f for _, f in e["decisions"]),
+                           decisions=len(e["decisions"]))
+    log("main path 13 (e) (dense remnant lattice on CUDA tensors): " + ", ".join(
+        f"{k} {v['s']:.2f} s" + (f" (guard fired {v['fired']} of {v['decisions']})"
+                                 if v["decisions"] else "") for k, v in dense.items()))
+    out["dense_remnants"] = dense
+
+    # (f) One flagship fwd+grad under the profiler: the trace lists kernel 1.
+    f = side["f"]
+    only("(f)", f["counts"], quad=1)
+    n_kernels, n_quad, busy_us, span_us = f["scan"]
+    log(f"main path 13 (f) (flagship fwd+grad in observability.trace): 1 kernel-1 launch; the "
+        f"trace ({f['bytes']} bytes) lists {n_kernels} kernels, {n_quad} of them "
+        f"verlet_quad_kernel; kernels busy {busy_us / 1e6:.3f} s of the {span_us / 1e6:.3f} s "
+        f"from the first kernel to the last; {f['seconds']:.2f} s with the profiler on and the "
+        f"trace written; {card_line}")
+    if n_quad != f["counts"]["quad"]:
+        FAILED.append(f"main path 13 (f): the trace lists {n_quad} launches of kernel 1, the "
+                      f"wrapper counted {f['counts']['quad']}")
+    out.update(traced_fwd_grad_s=f["seconds"], trace_bytes=f["bytes"],
+               trace_kernel_events=n_kernels, trace_kernel_busy_us=busy_us,
+               trace_kernel_span_us=span_us)
+
+    results["verlet_quad"]["launches_by_path"]["13"] = (
+        singles["counts"]["quad"] + f["counts"]["quad"])
+    results["verlet_quad_population"].setdefault("launches_by_path", {
+        "8": results["verlet_quad_population"]["launches"]})["13"] = counts["quad"]
+    results["verlet_quad_guarded"]["launches_by_path"]["13"] = (
+        a["counts"]["quad_guarded"] + c["counts"]["quad_guarded"])
+    results["verlet_kagome"].setdefault("launches_by_path", {
+        "3": results["verlet_kagome"]["launches"]})["13"] = d["counts"]["kagome"]
+    out["main_path_13_s"] = time.perf_counter() - t13
+    return out
+
+
 def main():
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -483,17 +879,20 @@ def main():
     spawn = multiprocessing.get_context("spawn")
     pool = ProcessPoolExecutor(PLAIN_WORKERS, mp_context=spawn)
     side = ProcessPoolExecutor(SIDE_WORKERS, mp_context=spawn)
+    side13 = ProcessPoolExecutor(1, mp_context=spawn)
     try:
-        smoke(pool, side)
+        smoke(pool, side, side13)
     finally:
         pool.shutdown(cancel_futures=True)
         side.shutdown(cancel_futures=True)
+        side13.shutdown(cancel_futures=True)
 
 
-def smoke(pool, side):
+def smoke(pool, side, side13):
     """Everything but the set-up: ``pool`` runs the plain body's
     trajectories on host cores (see below), ``side`` main paths 10 and
-    11's plain-body yardsticks and main path 4 on the card."""
+    11's plain-body yardsticks and main path 4 on the card, ``side13`` main
+    path 13's parts beside main path 2 (:func:`main_path_13_side`)."""
 
     import torch
 
@@ -516,6 +915,7 @@ def smoke(pool, side):
     from difflexmm_tpu_torch.models import flagship as fl
     from difflexmm_tpu_torch.models import kagome_config as kg
     from difflexmm_tpu_torch.models import loaded_configs as lc
+    from difflexmm_tpu_torch.models import small_configs as sc
     from difflexmm_tpu_torch.ops.kernels import build, core, launch
     from difflexmm_tpu_torch.ops.kernels.verlet_grid import (
         carry_bytes,
@@ -659,6 +1059,8 @@ def smoke(pool, side):
     for label in deep_labels:
         submit(label)
     deep_grad_job = pool.submit(deep_small_value_and_grad)
+    # Main path 13 (e)'s host runs, needed at the script's end.
+    remnant_jobs = {name: pool.submit(remnant_reference, name) for name in sc.REMNANT_RUNS}
     log(f"plain body: {3 * len(cases) + 2} runs of {len(cases) + 1} cases sent to "
         f"{PLAIN_WORKERS} worker processes at {time.perf_counter() - started:.1f} s")
 
@@ -772,7 +1174,7 @@ def smoke(pool, side):
     import math
 
     from difflexmm_tpu_torch.models import kagome_focusing
-    from difflexmm_tpu_torch.models.runner import population_unflatten
+    from difflexmm_tpu_torch.optim.loops import population_unflatten
     from difflexmm_tpu_torch.parallel import population_value_and_grad
 
     kernel_path = {dt: fl.build_flagship(device=device, dtype=dt) for dt in dtypes}
@@ -1036,6 +1438,10 @@ def smoke(pool, side):
     # adjoint keeps a host core busy and the card mostly idle, as main path
     # 2's does, so the two run side by side.
     kagome_job = side.submit(kagome_mma)
+    # Main path 13's host-bound parts, in a process of their own beside main
+    # paths 2 and 4 (they end before main path 4 does, so the timed paths
+    # after it run alone).
+    side13_job = side13.submit(main_path_13_side)
 
     # -- main path 2: the guarded constrained MMA through kernel 1g ----------
     mma = {}
@@ -1128,10 +1534,10 @@ def smoke(pool, side):
 
     # Where an iteration's time goes besides fwd+grad: the constraints
     # with their Jacobian, and one MMA update, each timed alone.
-    from difflexmm_tpu_torch.models.runner import ravel_design
+    from difflexmm_tpu_torch.optim.loops import ravel_pytree
     from difflexmm_tpu_torch.optim.mma import mma_init, mma_update
 
-    flat, unflatten = ravel_design(design)
+    flat, unflatten = ravel_pytree(design)
     fns = [fn for _, fn in opt._design_constraints(
         fl.MMA_SETTINGS["min_void_angle"], fl.MMA_SETTINGS["min_block_angle"],
         fl.MMA_SETTINGS["min_edge_length"])]
@@ -2133,6 +2539,20 @@ def smoke(pool, side):
         log(f"  {label}: kernel float32 {r['ms']:.3f} ms, float64 {r['ms_float64']:.3f} ms "
             f"for {r['steps']} steps ({r['us_per_step']:.3f} us a step at float32), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {card_line}")
+    # Guarded 1L at levels 2: the 8 x 6 case with loads, timed as above.
+    label = "8x6 violent levels 2 loads"
+    args64 = cases[label]
+    args32 = kc.cast(args64, f32)
+    k64, summary, errors = deep[label]
+    core.trajectory_forward(args32)  # warm up
+    r = dict(ms=event_ms(trajectory(args32), 3), ms_float64=event_ms(trajectory(args64), 3),
+             fired_by_depth=summary["fired_by_depth"], refine=args64.spec.guard["refine"],
+             max_abs_err=errors["max_abs_err"], plain_ms=errors["plain_ms"])
+    r.update(kc.trajectory_bound(args32, k64[0], summary))
+    results["verlet_quad_loaded"]["levels2"] = r
+    log(f"  {label} (guarded 1L): kernel float32 {r['ms']:.3f} ms, float64 "
+        f"{r['ms_float64']:.3f} ms for {r['steps']} steps, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); {card_line}")
     stepped_s = force["levels2_flagship"]["s"]
     log(f"  flagship MMA iterate 1 at levels 2, float64 forward: kernel 1g "
         f"{deep_timing['verlet_quad_guarded']['ms_float64']:.3f} ms, the stepped forward of "
@@ -2235,6 +2655,10 @@ def smoke(pool, side):
     timings.update(rescue_n5=rescue_runs, levels2_stepped_s=stepped_s,
                    deep_small_fwd_grad_s=deep_s, deep_small_plain_s=plain_s)
     phase_done(f"main path 12 ({time.perf_counter() - t12:.1f} s)")
+
+    # -- main path 13: the rest of the optimizer and the solver remnants -------
+    timings.update(main_path_13(device, results, side13_job, remnant_jobs, card_line))
+    phase_done(f"main path 13 ({timings['main_path_13_s']:.1f} s)")
 
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
                 "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "

@@ -1,4 +1,4 @@
-from difflexmm_tpu_torch.geometry.kagome import KagomeGeometry  # noqa: F401
+from difflexmm_tpu_torch.geometry.kagome import KagomeGeometry, KagomePeriodicGeometry  # noqa: F401,E501
 from difflexmm_tpu_torch.geometry.polygon import (  # noqa: F401
     compute_inertia,
     polygon_area,

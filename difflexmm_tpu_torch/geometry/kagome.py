@@ -1,5 +1,6 @@
-"""Kagome lattice geometry (counterpart of ``KagomeGeometry`` and
-``_kagome_bond_data`` in ``difflexmm_tpu/geometry/kagome.py:28-157``).
+"""Kagome lattice geometries (counterpart of ``KagomeGeometry``,
+``KagomePeriodicGeometry`` and ``_kagome_bond_data`` in
+``difflexmm_tpu/geometry/kagome.py``).
 
 Each unit cell holds two triangular blocks: block ``2 * cell`` ("down",
 local nodes 0-2) and ``2 * cell + 1`` ("up", cell nodes 3-5). Cells are
@@ -8,6 +9,7 @@ internal [1, 3] of each cell, then boundary-1 [0 of cell (i, j+1), 5 of
 cell (i, j)], then boundary-2 [2 of cell (i+1, j), 4 of cell (i, j)].
 """
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -147,3 +149,82 @@ class KagomeGeometry(LatticeGeometry):
             torch.zeros((n1, n2 + 1, 2), **like),
             torch.zeros((n1, n2, 2), **like),
         )
+
+
+class KagomePeriodicGeometry(LatticeGeometry):
+    """Periodic kagome: one ``(3, 2)`` shift triple shared by every cell.
+
+    Block 2 of each cell is block 1 rotated by -60 degrees; the shifts move
+    block 1's nodes in the order (0, 1, 2) and block 2's in the order (1,
+    2, 0). The design maps take the shift triple (zero by default), follow
+    its device and dtype, and keep leading batch dimensions ``(..., 3,
+    2)`` of a population of designs. The bonds and reference bond vectors
+    are :class:`KagomeGeometry`'s, so the kagome grid energy and its
+    kernels take this geometry as they are; only the leaves differ.
+    """
+
+    def __init__(
+        self,
+        n1_cells: int,
+        n2_cells: int,
+        direct_basis=_DEFAULT_BASIS,
+        bond_length: float = 0.1,
+    ):
+        super().__init__(n1_cells=n1_cells, n2_cells=n2_cells, n_bpc=2,
+                         direct_basis=np.asarray(direct_basis, dtype=np.float64))
+        self.bond_length = bond_length
+        self.n_npb = 3
+        self.n_nodes = self.n_npb * self.n_blocks
+
+    def compute_geometry(self) -> None:
+        n1 = self.n1_cells
+        a1, a2 = torch.as_tensor(self.direct_basis, dtype=torch.float64)
+        _, _, ref_int, ref_b1, ref_b2 = (torch.as_tensor(x) for x in
+                                         _kagome_bond_data(1, 1, self.bond_length))
+        block_1_base = torch.stack([a1 / 2, a1 / 2 + a2 / 2, a2 / 2]) - 0.5 * torch.stack(
+            [ref_b1, ref_int, ref_b2])
+        block_1_centered = block_1_base - polygon_centroid(block_1_base)
+        c, s = math.cos(-math.pi / 3), math.sin(-math.pi / 3)
+        rotation = torch.tensor([[c, -s], [s, c]], dtype=torch.float64)
+        block_2_centered = block_1_centered @ rotation.T
+        centroid_1 = polygon_centroid(torch.stack([a1 / 2, a1 / 2 + a2 / 2, a2 / 2]))
+        centroid_2 = polygon_centroid(torch.stack([a1 / 2 + a2 / 2, a1 + a2 / 2, a1 / 2 + a2]))
+        base_centroids = torch.stack([centroid_1, centroid_2])  # (2, 2)
+        cell = np.arange(self.n_cells)
+        I, J = cell % n1, cell // n1
+        cell_origins = (torch.as_tensor(I[:, None] * 1.0) * a1
+                        + torch.as_tensor(J[:, None] * 1.0) * a2)  # (n_cells, 2)
+        order_2 = [1, 2, 0]
+
+        def default(shifts):
+            return torch.zeros((3, 2), dtype=torch.float64) if shifts is None else shifts
+
+        def cell_node_vectors(shifts):
+            """The shifted cell triangles, ``(..., 2, 3, 2)``."""
+
+            like = dict(dtype=shifts.dtype, device=shifts.device)
+            b1 = block_1_centered.to(**like) + shifts
+            b2 = block_2_centered.to(**like) + shifts[..., order_2, :]
+            return torch.stack([b1, b2], dim=-3)
+
+        def centroid_node_vectors(shifts=None):
+            cell_blocks = cell_node_vectors(default(shifts))
+            cnv = cell_blocks - polygon_centroid(cell_blocks)[..., None, :]
+            lead = cnv.shape[:-3]
+            return cnv[..., None, :, :, :].expand(lead + (self.n_cells, 2, 3, 2)).reshape(
+                lead + (self.n_blocks, 3, 2))
+
+        def block_centroids(shifts=None):
+            cell_blocks = cell_node_vectors(default(shifts))
+            like = dict(dtype=cell_blocks.dtype, device=cell_blocks.device)
+            shifted = base_centroids.to(**like) + polygon_centroid(cell_blocks)  # (..., 2, 2)
+            out = cell_origins.to(**like)[:, None, :] + shifted[..., None, :, :]
+            return out.reshape(out.shape[:-3] + (self.n_blocks, 2))
+
+        bonds, ref_vectors, *_ = _kagome_bond_data(n1, self.n2_cells, self.bond_length)
+        ref_bond_vecs = torch.as_tensor(ref_vectors)
+
+        self.centroid_node_vectors = centroid_node_vectors
+        self.block_centroids = block_centroids
+        self.bond_connectivity = lambda: bonds
+        self.reference_bond_vectors = lambda: ref_bond_vecs

@@ -68,6 +68,21 @@ JAX_F64_MMA_DESIGN_STATS = (
 )
 MMA_DESIGN_PROBE_SEED = 0
 
+#: The JAX package's f64 runner optax path on the flagship
+#: (``run_optimization_optax`` from the 25-degree design, ``optax.adam(1e-2)``,
+#: the runner's ``guard="auto"``, method "verlet_ckpt", 2 iterations;
+#: ``tests/jax_optimizer_references.py``): each iteration's objective, its
+#: design (the one evaluated) and the returned design (after the second
+#: step, never evaluated) as summaries of their change from the start, as
+#: JAX_F64_MMA_DESIGN_STATS's. Adam's first step moves every hinge by about
+#: its learning rate, 1e-2 mm.
+JAX_F64_OPTAX_VALUES = (4.925124011067685, 5.1163507621945215)
+JAX_F64_OPTAX_DESIGN_STATS = (
+    (0.0, 0.0, 0.0),
+    (0.3952154109102004, 0.15998033155752656, -0.4255200196724887),
+)
+JAX_F64_OPTAX_FINAL_STATS = (0.7886818373019393, 0.3388790651778074, -0.8360335629015176)
+
 #: Design gradients of the JAX package's f64 flagship objective (method
 #: "verlet_ckpt", ``jax.value_and_grad`` of ``objective_fn``), each as
 #: ``(|g|, sum(g), g . r)`` with the r of JAX_F64_MMA_DESIGN_STATS: unguarded

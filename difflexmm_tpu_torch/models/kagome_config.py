@@ -12,9 +12,14 @@ again and checks these constants. Summaries ``(|v|, sum v, v . r)`` are
 ``models/flagship.vector_stats``'s.
 """
 
+import numpy as np
 import torch
 
+from difflexmm_tpu_torch.geometry.kagome import KagomePeriodicGeometry
+from difflexmm_tpu_torch.geometry.polygon import compute_inertia
 from difflexmm_tpu_torch.models.kagome_focusing import ForwardProblem, OptimizationProblem
+from difflexmm_tpu_torch.ops.observables import trajectory_kinetic_energy
+from difflexmm_tpu_torch.utils.types import GeometricalParams
 
 #: examples/configs/kagome_focusing.json.
 KAGOME_CONFIG = {
@@ -93,3 +98,59 @@ def build_kagome(device="cuda", dtype=torch.float64, guard=None, method=None):
     )
     optimization.setup_objective()
     return optimization, problem.geometry.zero_design(device=device, dtype=dtype)
+
+
+#: The periodic kagome (``KagomePeriodicGeometry``, one (3, 2) shift triple
+#: for every cell) under the configuration's physics, drive and target
+#: (:func:`build_periodic_kagome`), at the shift triple
+#: PERIODIC_SHIFTS_SCALE * standard normal from numpy's
+#: ``default_rng(PERIODIC_SHIFTS_SEED)``: the JAX package's float64
+#: objective (method "verlet_ckpt") and its gradient with respect to the
+#: triple (row-major), made by ``tests/jax_optimizer_references.py``.
+PERIODIC_SHIFTS_SEED = 11
+PERIODIC_SHIFTS_SCALE = 0.02
+JAX_F64_PERIODIC_OBJECTIVE = 0.018814646559642136
+JAX_F64_PERIODIC_GRAD = (-0.04468650410220183, 0.04854945698622869, -0.07592448037457301,
+                         -0.1029425317813825, 0.12061098447677486, 0.05439307479515379)
+
+
+def periodic_shifts(device="cuda", dtype=torch.float64):
+    """The shift triple of JAX_F64_PERIODIC_OBJECTIVE."""
+
+    rng = np.random.default_rng(PERIODIC_SHIFTS_SEED)
+    return torch.tensor(PERIODIC_SHIFTS_SCALE * rng.standard_normal((3, 2)), device=device,
+                        dtype=dtype)
+
+
+def build_periodic_kagome(device="cuda", dtype=torch.float64, guard=None, method=None,
+                          **changes):
+    """``objective(shifts) -> scalar`` (or ``(B,)`` for ``(B, 3, 2)``
+    triples): the configuration's target kinetic energy with the lattice
+    made by ``KagomePeriodicGeometry`` (the same basis and bond length)
+    from one shift triple. It runs through the configuration's solver, the
+    kagome grid's fast path (kernel 1K on the card): the grid energy is the
+    same, only the geometry's leaves differ. ``changes``: ForwardProblem
+    keywords that cut the configuration to size."""
+
+    kwargs = dict(kagome_config(device, dtype, guard, method), **changes)
+    problem = ForwardProblem(**kwargs)
+    optimization = OptimizationProblem(
+        problem, target_size=tuple(KAGOME_CONFIG["optimization"]["target_size"]))
+    optimization.setup_objective()
+    geometry = KagomePeriodicGeometry(problem.n1_cells, problem.n2_cells,
+                                      direct_basis=problem.geometry.direct_basis,
+                                      bond_length=problem.bond_length)
+    block_centroids, centroid_node_vectors, _, _ = geometry.get_parametrization()
+    physics = problem.control_params(problem.geometry.zero_design(device=device, dtype=dtype))
+    target = torch.as_tensor(optimization.target_blocks, device=torch.device(device))
+
+    def objective(shifts):
+        cnv = centroid_node_vectors(shifts)
+        control_params = physics._replace(
+            geometrical_params=GeometricalParams(block_centroids(shifts), cnv))
+        fields = problem.solve_dynamics(problem.state0, problem.timepoints, control_params)
+        inertia = compute_inertia(cnv, problem.density)
+        return trajectory_kinetic_energy(fields[..., 1, target, :],
+                                         inertia[..., None, target, :])
+
+    return objective

@@ -65,7 +65,8 @@ class ForwardProblem:
     (the grid fast path) or the dense ``"verlet"`` on the gridded energy
     (``grid_energy``) or the bond-list energy. ``guard``: None, ``"auto"``
     or a spec dict (``base.resolve_model_guard``, travel scaled by
-    ``cell_size``; the dense ``"verlet"`` takes none yet, ROADMAP A4).
+    ``cell_size``; the dense ``"verlet"`` takes it on the dense layout,
+    translation "absolute").
     ``setup(excited_blocks_fn)`` replaces the pulse by
     ``excited_blocks_fn(t)`` of a scalar time.
     """

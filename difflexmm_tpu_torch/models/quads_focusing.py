@@ -57,7 +57,7 @@ class ForwardProblem:
     ``"verlet"`` on the gridded energy (``grid_energy``) or the bond-list
     energy. ``guard``: None, ``"auto"``
     or a spec dict (``base.resolve_model_guard``; the dense ``"verlet"``
-    takes none yet, ROADMAP A4).
+    takes it on the dense layout, translation "absolute").
     """
 
     # Geometry

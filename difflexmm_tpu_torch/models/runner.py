@@ -1,14 +1,16 @@
 """The optimization-runner mixin of the model families (counterpart of
 ``difflexmm_tpu/models/runner.py``: ``_ensure_guarded``,
 ``_guarded_objective_fn``, ``_design_constraints``,
-``run_optimization_mma``, ``run_multistart_mma``, ``_history_extras`` and
-``compute_best_forward``).
+``run_optimization_mma`` with its metrics, checkpoint and resume,
+``run_multistart_mma``, ``run_optimization_optax``, ``_history_extras``
+and ``compute_best_forward``).
 
 A model's ``OptimizationProblem`` supplies ``setup_objective`` (installing
 ``self.objective_fn``, maximized, and ``self.population_objective_fn`` for
 a population of designs) and inherits the constrained MMA driver, the
-batched multistart driver, the fabrication-constraint wiring and the
-iteration histories from here. The optax drivers are ROADMAP A7.
+batched multistart driver, the gradient loop (``torch.optim`` in place of
+optax), the fabrication-constraint wiring and the iteration histories from
+here.
 """
 
 import copy
@@ -19,39 +21,20 @@ import numpy as np
 import torch
 
 from difflexmm_tpu_torch.models import base
+from difflexmm_tpu_torch.optim.loops import (
+    _leaves,
+    _rebuild,
+    population_unflatten,
+    ravel_pytree,
+    run_optimization_optax,
+)
 from difflexmm_tpu_torch.optim.mma import run_mma, run_mma_fused
 from difflexmm_tpu_torch.parallel.multistart import reevaluate_finalists
 from difflexmm_tpu_torch.parallel.multistart import run_multistart_mma as _run_multistart
 
 
-def ravel_design(design):
-    """A design (tuple of tensors) -> (flat (n,) tensor, unflatten)."""
-
-    shapes = [x.shape for x in design]
-    sizes = [x.numel() for x in design]
-
-    def unflatten(flat):
-        return tuple(part.reshape(shape) for part, shape in zip(torch.split(flat, sizes), shapes))
-
-    return torch.cat([x.reshape(-1) for x in design]), unflatten
-
-
-def population_unflatten(design):
-    """For a design's structure (tuple of tensors): ``(B, n)`` flat
-    candidates -> the design tuple with a leading dimension B."""
-
-    shapes = [tuple(x.shape) for x in design]
-    sizes = [x.numel() for x in design]
-
-    def unflatten(xs):
-        return tuple(part.reshape((xs.shape[0],) + shape)
-                     for part, shape in zip(torch.split(xs, sizes, dim=1), shapes))
-
-    return unflatten
-
-
 class OptimizationRunnerMixin:
-    """Drives ``self.objective_fn`` (maximized) with MMA.
+    """Drives ``self.objective_fn`` (maximized) with MMA or a gradient loop.
 
     Requires on self: ``objective_fn``, ``objective_values``,
     ``design_values``, ``constraints_violation``, ``is_setup`` and either
@@ -166,6 +149,9 @@ class OptimizationRunnerMixin:
         min_edge_length: Optional[float] = None,
         boundary_angle_constraint: bool = False,
         verbose: bool = True,
+        metrics_logger=None,
+        checkpoint=None,
+        resume: bool = False,
         move_limit: float = 0.2,
         max_seconds: Optional[float] = None,
         guard="auto",
@@ -183,16 +169,45 @@ class OptimizationRunnerMixin:
         restore feasibility at termination (``None`` disables). The
         objective values, designs and per-group constraint maxima of every
         iteration are appended to ``self.objective_values``,
-        ``self.design_values`` and ``self.constraints_violation``. The JAX
-        package's ``metrics_logger``, ``checkpoint`` and ``resume`` are not
-        ported (ROADMAP A13).
+        ``self.design_values`` and ``self.constraints_violation`` (and each
+        target's objective to ``self.objective_values_individual`` where the
+        model has ``objective_fn_individual``).
+
+        ``metrics_logger``: a ``utils.observability.MetricsLogger``; each
+        iteration logs ``objective`` and ``constraint_violation`` at step
+        ``len(self.objective_values)``. ``checkpoint``: a
+        ``utils.observability.OptimizationCheckpoint``, saved when its
+        ``every`` divides that step, and forced when ``max_seconds``
+        stops the run. ``resume``: where ``checkpoint`` holds a snapshot,
+        restore the histories (and ``_history_extras``) and start from its
+        design with a fresh MMA state, as JAX does; a resumed run is
+        therefore not the uninterrupted one.
         """
 
         self._ensure_guarded(guard)
         if not self.is_setup:
             self.setup_objective()
 
-        flat0, unflatten = ravel_design(initial_guess)
+        if resume and checkpoint is not None and checkpoint.exists():
+            fp = self._forward_problems()[0]
+            saved = checkpoint.restore(device=torch.device(fp.device))
+
+            def cast(design):  # in the problem's dtype
+                return _rebuild(design, [x.to(fp.dtype) for x in _leaves(design)])
+
+            initial_guess = cast(saved["design"])
+            self.objective_values = list(saved["objective_values"])
+            self.design_values = [cast(d) for d in saved["design_values"]]
+            # The auxiliary histories too, index-aligned with the objective.
+            extras = saved.get("extras") or {}
+            if getattr(self, "constraints_violation", None) is not None:
+                for name, values in extras.get("constraints_violation", {}).items():
+                    self.constraints_violation[name] = list(values)
+            if hasattr(self, "objective_values_individual"):
+                self.objective_values_individual = list(
+                    extras.get("objective_values_individual", []))
+
+        flat0, unflatten = ravel_pytree(initial_guess)
         flat0 = flat0.detach()
 
         def objective_and_grad(x):
@@ -234,19 +249,38 @@ class OptimizationRunnerMixin:
         xmin = torch.full_like(flat0, lower_bound if lower_bound is not None else -10 * span)
         xmax = torch.full_like(flat0, upper_bound if upper_bound is not None else 10 * span)
 
+        individual = getattr(self, "objective_fn_individual", None)
+
+        def snapshot(force=False):
+            checkpoint.save(len(self.objective_values), self.design_values[-1],
+                            objective_values=self.objective_values,
+                            design_values=self.design_values, extras=self._history_extras(),
+                            force=force)
+
         def callback(it, x, value, violation, fi):
             self.objective_values.append(float(value))
-            self.design_values.append(unflatten(x))
+            self.design_values.append(unflatten(x.detach().clone()))
+            if individual is not None:
+                with torch.no_grad():
+                    self.objective_values_individual.append(individual(unflatten(x)))
             if constraints_and_jac is not None:
                 maxima = group_max(fi)
                 for name, m in zip(names, maxima):
                     self.constraints_violation[name].append(float(m))
+                violation = float(maxima.max())
+            if metrics_logger is not None:
+                metrics_logger.log(
+                    len(self.objective_values), objective=float(value),
+                    constraint_violation=float(violation) if constraints_and_jac is not None
+                    else 0.0)
+            if checkpoint is not None:
+                snapshot()
             if verbose:
                 print(f"Iteration: {len(self.objective_values)}\n"
                       f"Objective = {self.objective_values[-1]}")
 
         driver = run_mma_fused if device_loop else run_mma
-        x_final, _ = driver(
+        x_final, history = driver(
             objective_and_grad,
             flat0,
             xmin=xmin,
@@ -260,6 +294,8 @@ class OptimizationRunnerMixin:
             feasibility_tol=feasibility_tol,
             **(dict(chunk=chunk) if device_loop else {}),
         )
+        if history.get("stopped_early") and checkpoint is not None and self.design_values:
+            snapshot(force=True)
         if self.design_values:
             self.compute_best_forward()
         return unflatten(x_final)
@@ -301,8 +337,8 @@ class OptimizationRunnerMixin:
 
         if not self.is_setup:
             self.setup_objective()
-        designs = torch.stack([ravel_design(guess)[0] for guess in initial_guesses]).detach()
-        _, unflatten = ravel_design(initial_guesses[0])
+        designs = torch.stack([ravel_pytree(guess)[0] for guess in initial_guesses]).detach()
+        _, unflatten = ravel_pytree(initial_guesses[0])
         unflatten_population = population_unflatten(initial_guesses[0])
 
         def objective(xs):
@@ -350,14 +386,54 @@ class OptimizationRunnerMixin:
         self.design_values.append(unflatten(result.best_design))
         return result
 
+    def run_optimization_optax(
+        self,
+        initial_guess,
+        n_iterations: int,
+        optimizer=None,
+        lower_bound=None,
+        upper_bound=None,
+        verbose: bool = True,
+        guard="auto",
+    ):
+        """Unconstrained (box-projected) inverse design with a gradient
+        loop (``optim.loops.run_optimization_optax``; ``optimizer`` a
+        factory ``params -> torch.optim.Optimizer``, Adam at 1e-2 by
+        default); returns the design after the last step. ``guard``: as
+        for :meth:`run_optimization_mma`. Each iteration's value and design
+        (the one it evaluated) are appended to the histories, and the last
+        of them is solved by :meth:`compute_best_forward`."""
+
+        self._ensure_guarded(guard)
+        if not self.is_setup:
+            self.setup_objective()
+
+        def callback(it, design, value):
+            self.objective_values.append(value)
+            self.design_values.append(design)
+            if verbose:
+                print(f"Iteration: {len(self.objective_values)}\n"
+                      f"Objective = {value}")
+
+        result = run_optimization_optax(
+            self.objective_fn, initial_guess, n_iterations=n_iterations, optimizer=optimizer,
+            maximize=True, lower_bound=lower_bound, upper_bound=upper_bound, callback=callback,
+        )
+        if self.design_values:  # zero-iteration runs have no best design
+            self.compute_best_forward()
+        return result.design
+
     def _history_extras(self):
-        """Auxiliary per-iteration histories kept beside the objective."""
+        """Auxiliary per-iteration histories kept beside the objective (and
+        saved with checkpoints)."""
 
         extras = {}
         if getattr(self, "constraints_violation", None) is not None:
             extras["constraints_violation"] = {
                 name: list(values) for name, values in self.constraints_violation.items()
             }
+        if getattr(self, "objective_values_individual", None) is not None:
+            extras["objective_values_individual"] = list(self.objective_values_individual)
         return extras
 
     def compute_best_forward(self):

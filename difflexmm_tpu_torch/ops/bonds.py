@@ -27,6 +27,29 @@ def _reference(reference_vector, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(reference_vector, dtype=like.dtype, device=like.device)
 
 
+def simple_spring_energy(nodal_DOFs: Tuple[torch.Tensor, torch.Tensor],
+                         reference_vector=_UNIT_X, k_stretch=1.0) -> torch.Tensor:
+    """Linear spring on the change of the bond's length, per bond."""
+
+    DOFs1, DOFs2 = nodal_DOFs
+    r0 = _reference(reference_vector, DOFs1)
+    dU = DOFs2[..., :2] - DOFs1[..., :2]
+    length = torch.linalg.norm(dU + r0, dim=-1)
+    length0 = torch.linalg.norm(r0, dim=-1)
+    return k_stretch * (length - length0) ** 2 / 2
+
+
+def stretching_torsional_spring_energy(nodal_DOFs: Tuple[torch.Tensor, torch.Tensor],
+                                       k_stretch=1.0, k_rot=1.0) -> torch.Tensor:
+    """Zero-length spring: the stretching of the gap plus the relative
+    rotation, per bond."""
+
+    DOFs1, DOFs2 = nodal_DOFs
+    dU = DOFs2[..., :2] - DOFs1[..., :2]
+    dRot = DOFs2[..., 2] - DOFs1[..., 2]
+    return k_stretch * vdot(dU, dU) / 2 + k_rot * dRot**2 / 2
+
+
 def ligament_strains_linearized(DOFs1: torch.Tensor, DOFs2: torch.Tensor,
                                 reference_vector=_UNIT_X):
     """Linearized beam strains (axial, shear, rotational), per bond:

@@ -16,7 +16,7 @@ import torch
 
 from difflexmm_tpu_torch.geometry.polygon import signed_angle
 from difflexmm_tpu_torch.ops.bonds import ligament_energy
-from difflexmm_tpu_torch.ops.contact import contact_energy
+from difflexmm_tpu_torch.ops.contact import contact_energy, edges_distance
 from difflexmm_tpu_torch.ops.kinematics import block_to_node_kinematics
 from difflexmm_tpu_torch.utils.types import ControlParams, LigamentParams
 
@@ -65,12 +65,12 @@ def quad_grid_energy_core(
     use_contact: bool = True,
     angle_based: bool = True,
 ):
-    """Total strain (plus, with ``use_contact``, angle-based contact) energy
-    of a quad grid from block DOFs ``(n_blocks, 3)``, corner vectors
-    ``(n_blocks, 4, 2)`` and centroids ``(n_blocks, 2)``."""
+    """Total strain (plus, with ``use_contact``, contact) energy of a quad
+    grid from block DOFs ``(n_blocks, 3)``, corner vectors ``(n_blocks, 4,
+    2)`` and centroids ``(n_blocks, 2)``. The barrier acts on the void
+    angles at each bond, or (``angle_based=False``) on the distances
+    between the facing edges."""
 
-    if not angle_based:
-        raise NotImplementedError("distance-based contact is not ported yet: ROADMAP A3.")
     node_DOFs = block_to_node_kinematics(block_displacement, cnv).reshape(n2, n1, 4, 3)
     h1 = node_DOFs[:, :-1, 0, :]
     h2 = node_DOFs[:, 1:, 2, :]
@@ -90,16 +90,22 @@ def quad_grid_energy_core(
 
     def corner_edges(p_block, corner):
         node = p_block[..., corner, :]
-        return p_block[..., (corner + 1) % 4, :] - node, p_block[..., (corner - 1) % 4, :] - node
+        return (p_block[..., (corner + 1) % 4, :] - node,
+                p_block[..., (corner - 1) % 4, :] - node, node)
 
     def gaps(p1_block, c1, p2_block, c2):
-        """Void angles at bonds joining corner c1 of the first block set to
-        corner c2 of the second."""
+        """Void angles (or edge distances) at bonds joining corner c1 of
+        the first block set to corner c2 of the second."""
 
-        e1_next, e1_prev = corner_edges(p1_block, c1)
-        e2_next, e2_prev = corner_edges(p2_block, c2)
-        return (signed_angle(_unit(e2_prev), _unit(e1_next)),
-                signed_angle(_unit(e1_prev), _unit(e2_next)))
+        e1_next, e1_prev, node1 = corner_edges(p1_block, c1)
+        e2_next, e2_prev, node2 = corner_edges(p2_block, c2)
+        if angle_based:
+            return (signed_angle(_unit(e2_prev), _unit(e1_next)),
+                    signed_angle(_unit(e1_prev), _unit(e2_next)))
+        return (edges_distance(torch.stack([node1, node1 + e1_next], dim=-2),
+                               torch.stack([node2, node2 + e2_prev], dim=-2)),
+                edges_distance(torch.stack([node1, node1 + e1_prev], dim=-2),
+                               torch.stack([node2, node2 + e2_next], dim=-2)))
 
     vh1, vh2 = gaps(positions[:, :-1], 0, positions[:, 1:], 2)
     vv1, vv2 = gaps(positions[:-1, :], 1, positions[1:, :], 3)

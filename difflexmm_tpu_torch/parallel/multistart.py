@@ -1,7 +1,8 @@
 """Batched multistart inverse design: a population of candidates per update
 step (counterpart of ``difflexmm_tpu/parallel/multistart.py``:
-``population_value_and_grad``, ``run_multistart_mma``,
-``reevaluate_finalists`` and ``random_initial_designs``).
+``population_value_and_grad``, ``run_multistart_optax``,
+``run_multistart_mma``, ``reevaluate_finalists`` and
+``random_initial_designs``).
 
 A population is explicit: objectives take B designs at once (each design
 tensor with a leading dimension B) and return ``(B,)`` values, and one
@@ -18,8 +19,7 @@ Screening runs unguarded and only the top few candidates are re-evaluated
 guarded, forward only (:func:`reevaluate_finalists`): a guarded population
 gradient replays an interval eagerly wherever any design fired.
 
-``run_multistart_optax`` waits for the optax port (ROADMAP A7); ``mesh=``
-sharding waits for multi-GPU (ROADMAP A11).
+``mesh=`` sharding waits for multi-GPU (ROADMAP A11).
 """
 
 import math
@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from difflexmm_tpu_torch.optim.loops import _leaves, _rebuild, adam, optimizer_step
 from difflexmm_tpu_torch.optim.mma import mma_init, mma_update
 
 #: The backward chunk of ``grad_chunk="auto"``: a population larger than
@@ -40,6 +41,25 @@ from difflexmm_tpu_torch.optim.mma import mma_init, mma_update
 #: peaked at 2.81 GB for 128 designs at float64 (22 MB a design), so
 #: chunks of 2048 stay near 45 GB of the card's 80 GB.
 GRAD_CHUNK = 2048
+
+
+class MultistartResult(NamedTuple):
+    """Result of :func:`run_multistart_optax`.
+
+    Attrs:
+        designs: the last evaluated iterate of each candidate, in the
+            structure of the initial designs (leading dimension B).
+        objective_values: (n_iterations, B) objective at each evaluated
+            iterate.
+        best_index: population index of the best final candidate among
+            those whose final value is finite.
+        best_design: its design (no leading dimension).
+    """
+
+    designs: object
+    objective_values: torch.Tensor
+    best_index: int
+    best_design: object
 
 
 class MultistartMMAResult(NamedTuple):
@@ -90,18 +110,6 @@ class FinalistResult(NamedTuple):
     best_value: float
 
 
-def _leaves(designs):
-    """The tensors of a design structure: one tensor, or a tuple or list."""
-
-    return (designs,) if isinstance(designs, torch.Tensor) else tuple(designs)
-
-
-def _rebuild(designs, leaves):
-    """``leaves`` in the structure of ``designs``."""
-
-    return leaves[0] if isinstance(designs, torch.Tensor) else type(designs)(leaves)
-
-
 def _take(designs, index):
     """Every leaf of ``designs`` indexed along its leading dimension."""
 
@@ -148,6 +156,61 @@ def _ranked(values, maximize: bool):
 
     worst = torch.full_like(values, -math.inf if maximize else math.inf)
     return torch.where(torch.isfinite(values), values, worst)
+
+
+def run_multistart_optax(
+    objective_fn: Callable,
+    initial_designs,
+    n_iterations: int,
+    optimizer: Optional[Callable] = None,
+    maximize: bool = True,
+    lower_bound=None,
+    upper_bound=None,
+    mesh=None,
+    grad_chunk="auto",
+) -> MultistartResult:
+    """Advance a population of design candidates with one optimizer, all
+    at once.
+
+    Each iteration evaluates the whole population once
+    (:func:`population_value_and_grad`: on the card one launch of the
+    trajectory kernel with the batch on the grid) and takes one step of one
+    ``torch.optim`` optimizer over the stacked ``(B, ...)`` tensors, which
+    for an elementwise optimizer such as Adam is JAX's per-candidate
+    ``vmap(optimizer.update)``; then the box.
+
+    Args:
+        objective_fn: ``designs -> (B,)``, the whole population at once.
+        initial_designs: a tensor or a tuple of tensors, each with a
+            leading candidate dimension B.
+        optimizer: ``params -> torch.optim.Optimizer``; default Adam at a
+            learning rate of 1e-2 (``optax.adam(1e-2)``).
+        lower_bound, upper_bound: scalars (or per-tensor bounds).
+        mesh: sharding over several cards is not ported (ROADMAP A11).
+        grad_chunk: as for :func:`population_value_and_grad`.
+
+    Returns:
+        :class:`MultistartResult`. As in JAX, the designs returned are the
+        iterates that were evaluated, not the final proposal, and a
+        candidate whose final value is not finite never ranks best.
+    """
+
+    if mesh is not None:
+        raise NotImplementedError("mesh= (candidates sharded over several cards) is not "
+                                  "ported yet: ROADMAP A11.")
+    sign = -1.0 if maximize else 1.0
+    leaves = [x.detach().clone().requires_grad_() for x in _leaves(initial_designs)]
+    opt = (optimizer or adam)(leaves)
+    values = []
+    for _ in range(n_iterations):
+        evaluated = _rebuild(initial_designs, [x.detach().clone() for x in leaves])
+        value, grads = population_value_and_grad(objective_fn, evaluated, grad_chunk)
+        optimizer_step(opt, leaves, _leaves(grads), sign, lower_bound, upper_bound)
+        values.append(value)
+    values = torch.stack(values)
+    ranked = _ranked(values[-1], maximize)
+    best = int(torch.argmax(ranked) if maximize else torch.argmin(ranked))
+    return MultistartResult(evaluated, values, best, _take(evaluated, best))
 
 
 def run_multistart_mma(

@@ -1,8 +1,11 @@
 """Dynamic solver (counterpart of ``setup_dynamic_solver`` of
 ``difflexmm_tpu/solver/dynamics.py``): the quad-grid and kagome-grid fast
 paths (``dynamics.py:584-616``, ``:786-868`` and ``:870-964``), with fused
-force loading (``:588-632``, ``:740-757``), and the dense velocity-Verlet
-``method="verlet"`` (``_integrate_verlet``, ``:177-...``).
+force loading (``:588-632``, ``:740-757``), the dense velocity-Verlet
+``method="verlet"`` (``_integrate_verlet``, ``:177-...``) with its substep
+guard (``:132-150``, ``:509-530``), and the dense fixed-step integrators
+``"rk4"`` (the default, as in JAX) and ``"semi_implicit"``
+(``solver/integrate.py``, dispatched at ``:932``).
 
 The state stays dense, ``(2, n_blocks, 3)`` with a free-DOF mask. Forces on
 constrained DOFs are masked, their displacements come from the drive
@@ -26,10 +29,20 @@ import torch
 
 from difflexmm_tpu_torch.geometry.polygon import compute_inertia
 from difflexmm_tpu_torch.ops.assembly import constrain_energy
+from difflexmm_tpu_torch.ops.contact import void_angles
 from difflexmm_tpu_torch.ops.grid import split_grid_bond_data
 from difflexmm_tpu_torch.ops.kernels import core, verlet_grid, verlet_kagome
-from difflexmm_tpu_torch.ops.kinematics import DOFSet, build_constrained_kinematics
-from difflexmm_tpu_torch.ops.loading import build_damping_coefficients, build_loading
+from difflexmm_tpu_torch.ops.kinematics import (
+    DOFSet,
+    build_constrained_kinematics,
+    current_node_positions,
+)
+from difflexmm_tpu_torch.ops.loading import (
+    build_damping_coefficients,
+    build_loading,
+    build_viscous_damping,
+)
+from difflexmm_tpu_torch.solver.integrate import FIXED_STEPPERS, ODEINT_UNAVAILABLE, integrate
 from difflexmm_tpu_torch.utils.types import ControlParams, LigamentParams
 
 _EMPTY_PAIRS = np.zeros((0, 2), dtype=np.int64)
@@ -43,6 +56,10 @@ _EMPTY_PAIRS = np.zeros((0, 2), dtype=np.int64)
 #: "verlet", as in JAX.
 FAST_METHODS = ("verlet_pallas", "verlet_ckpt", "auto")
 
+#: The methods of the dense path (plain PyTorch on the dense state):
+#: velocity Verlet, and the explicit integrators of ``solver/integrate.py``.
+DENSE_METHODS = ("verlet",) + tuple(FIXED_STEPPERS)
+
 
 def setup_dynamic_solver(
     geometry,
@@ -52,14 +69,18 @@ def setup_dynamic_solver(
     constrained_block_DOF_pairs=_EMPTY_PAIRS,
     constrained_DOFs_fn: Callable = lambda t, **kwargs: 0.0,
     damped_blocks=None,
-    method: str = "auto",
+    method: str = "rk4",
     n_substeps: int = 64,
     quad_grid: Optional[dict] = None,
     kagome_grid: Optional[dict] = None,
     guard=None,
 ):
     """Set up the dynamic solver: the quad-grid or kagome-grid fast path
-    (``quad_grid`` / ``kagome_grid``), or the dense ``method="verlet"``.
+    (``quad_grid`` / ``kagome_grid`` with a method of :data:`FAST_METHODS`),
+    or the dense path (:data:`DENSE_METHODS`: ``"verlet"``, and ``"rk4"``,
+    the default as in JAX, and ``"semi_implicit"``, which ignore the
+    grids as JAX's do). ``"auto"`` without a grid is the dense
+    ``"verlet"``.
 
     Returns ``solve_dynamics(state0, timepoints, control_params)``: an
     initial ``(2, n_blocks, 3)`` state and ``(T,)`` timepoints to the full
@@ -91,7 +112,9 @@ def setup_dynamic_solver(
     of B designs; the output is then ``(B, T, 2, n_blocks, 3)``. Batches of
     different sizes raise.
     ``energy_fn(block_displacement, control_params)``: the energy of the
-    dense path (the fast path has its own plane energy and ignores it).
+    dense path (the fast path has its own plane energy and ignores it). The
+    dense path passes ``loading_fn`` the state ``(u, v)`` (Verlet) or the
+    stacked ``(2, n_blocks, 3)`` state (rk4, semi-implicit), as JAX does.
     ``quad_grid``: dict with n1, n2 (blocks) and optional linearized /
     use_contact. ``kagome_grid``: the same for a kagome lattice, n1 and n2
     counting cells (two triangles each). ``guard``: reactive substep
@@ -101,7 +124,12 @@ def setup_dynamic_solver(
     re-run as ``refine`` micro-steps, recursively to ``levels`` deep. CUDA
     tensors run the guarded kernel (any depth), or with
     ``method="verlet_ckpt"`` the stepped guarded body (any depth; quads on
-    the force kernel); CPU tensors the plain guarded body (any depth).
+    the force kernel); CPU tensors the plain guarded body (any depth). The
+    dense ``"verlet"`` takes the guard too, on the dense layout: theta is
+    DOF 2, translation ``"absolute"`` by default (``"relative"`` raises: the
+    dense layout has no neighbours to difference), and a proximity gate
+    needs a ``geometry`` with ``bond_connectivity``; ``"rk4"`` and
+    ``"semi_implicit"`` take none (ValueError, as in JAX).
 
     Options of the JAX solver that this port does not implement yet raise
     ``NotImplementedError`` naming the ROADMAP item; none is ignored.
@@ -111,20 +139,24 @@ def setup_dynamic_solver(
     grid = kagome_grid if is_kagome else quad_grid
     if method == "auto" and grid is None:
         method = "verlet"
-    if method not in FAST_METHODS + ("verlet",):
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP A12: 'rk4', 'semi_implicit', "
-            f"'odeint'); use 'verlet' or one of {FAST_METHODS}."
-        )
+    if method == "odeint":
+        raise NotImplementedError(ODEINT_UNAVAILABLE)
+    if method not in FAST_METHODS + DENSE_METHODS:
+        raise ValueError(f"unknown method {method!r}: one of {FAST_METHODS + DENSE_METHODS}")
+    if guard is not None and method in FIXED_STEPPERS:
+        raise ValueError(
+            f"guard is only supported by the fixed-step Verlet backends ('verlet', "
+            f"'verlet_pallas', 'verlet_ckpt'), not method={method!r}. The odeint backend is "
+            "already adaptive; for rk4/semi_implicit use method='verlet'.")
     n_blocks = geometry if isinstance(geometry, int) else geometry.n_blocks
     # As in JAX, loads need both the pairs and the function.
     has_loading = loaded_block_DOF_pairs is not None and loading_fn is not None
     load_pairs = (np.asarray(loaded_block_DOF_pairs, dtype=np.int64).reshape(-1, 2)
                   if has_loading else None)
-    if method == "verlet":
-        return _dense_verlet_solver(
-            n_blocks, energy_fn, load_pairs, loading_fn, constrained_block_DOF_pairs,
-            constrained_DOFs_fn, damped_blocks, n_substeps, guard,
+    if method in DENSE_METHODS:
+        return _dense_solver(
+            method, geometry, n_blocks, energy_fn, load_pairs, loading_fn,
+            constrained_block_DOF_pairs, constrained_DOFs_fn, damped_blocks, n_substeps, guard,
         )
     if grid is None:
         raise ValueError(
@@ -444,24 +476,82 @@ def _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn, cparams, like):
     return torch.stack([u, v], dim=-3)
 
 
-def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
-                         constrained_block_DOF_pairs, constrained_DOFs_fn, damped_blocks,
-                         n_substeps, guard):
-    """The dense ``method="verlet"`` (JAX ``_integrate_verlet``): velocity
-    Verlet with exact implicit diagonal damping on the dense masked state,
-    the force ``-dE/du`` of the constrained energy by autograd plus the
-    loads (``loading_fn((u, v), t, ...)`` at each step's end time, with the
-    step's predicted velocity ``v + dt a``). Plain PyTorch, differentiated
-    by ordinary autograd through every step: the port's own cross-check of
-    the fast path."""
+def _dense_guard(geometry, guard):
+    """``(resolved guard, gap_fn or None)`` of the dense ``"verlet"``
+    (JAX ``dynamics.py:509-530``)."""
 
-    if guard is not None:
-        raise NotImplementedError(
-            "guard with the dense method='verlet' is not ported yet: ROADMAP A4 (use the "
-            "quad_grid/kagome_grid fast path)."
-        )
+    dense_guard = core.resolve_guard(guard, theta_channels=(2,), default_translation="absolute")
+    if dense_guard["translation"] == "relative":
+        raise ValueError(
+            "guard translation='relative' needs the grid plane layout; method='verlet' (dense) "
+            "supports only 'absolute' (or use 'verlet_pallas'/'verlet_ckpt').")
+    gap_fn = None
+    if dense_guard.get("proximity") is not None:
+        bond_conn = getattr(geometry, "bond_connectivity", None)
+        if bond_conn is None:
+            raise ValueError(
+                "guard 'proximity' with method='verlet' needs a geometry object with bond "
+                "connectivity (got a bare n_blocks int); use the grid backends or drop the "
+                "proximity gate.")
+        gap_fn = _dense_gap_fn(bond_conn() if callable(bond_conn) else bond_conn)
+    return dense_guard, gap_fn
+
+
+def _dense_guard_travel(v, a, dt, guard):
+    """The guard's risk metric on the dense ``(n_blocks, 3)`` layout (JAX
+    ``dynamics.py:132-145``): the largest predicted rotation in one step,
+    plus, with ``length_scale``, the largest predicted translation over it
+    (absolute: any block's own motion)."""
+
+    travel = torch.amax(torch.abs(v[..., 2]) * dt + (0.5 * dt * dt) * torch.abs(a[..., 2]))
+    if guard["length_scale"] is not None:
+        trans = torch.amax(torch.abs(v[..., :2]) * dt + (0.5 * dt * dt) * torch.abs(a[..., :2]))
+        travel = travel + trans / guard["length_scale"]
+    return travel
+
+
+def _dense_gap_fn(bond_connectivity):
+    """``gap_fn(u, control_params)``: the least void angle minus the
+    barrier's cutoff on the dense layout (JAX ``dynamics.py:148-174``), at
+    the free state ``u`` as JAX takes it; +inf where contact is absent or
+    its stiffness is zero (no barrier to be near)."""
+
+    def gap_fn(u, control_params):
+        cpar = control_params.mechanical_params.contact_params
+        inf = u.new_full((), float("inf"))
+        if cpar is None:
+            return inf
+        gp = control_params.geometrical_params
+        nodes = current_node_positions(u, gp.block_centroids, gp.centroid_node_vectors)
+        gap = torch.min(void_angles(nodes, bond_connectivity)) - cpar.cutoff_angle
+        return torch.where(torch.as_tensor(cpar.k_contact, device=u.device) > 0, gap, inf)
+
+    return gap_fn
+
+
+def _dense_solver(method, geometry, n_blocks, energy_fn, load_pairs, loading_fn,
+                  constrained_block_DOF_pairs, constrained_DOFs_fn, damped_blocks, n_substeps,
+                  guard):
+    """The dense path, plain PyTorch on the dense masked state,
+    differentiated by ordinary autograd through every step: the port's own
+    cross-check of the fast path.
+
+    ``"verlet"`` (JAX ``_integrate_verlet``): velocity Verlet with exact
+    implicit diagonal damping, the force ``-dE/du`` of the constrained
+    energy by autograd plus the loads (``loading_fn((u, v), t, ...)`` at
+    each step's end time, with the step's predicted velocity ``v + dt a``);
+    with ``guard``, a substep whose risk predicate fires re-runs as
+    ``refine`` micro-steps, recursively to ``levels`` deep
+    (``make_guarded_stepper``). ``"rk4"`` and ``"semi_implicit"``: the
+    right-hand side of JAX ``build_RHS`` (the force plus the loads and the
+    viscous damping ``-c v``, over the inertia, on the free DOFs) stepped by
+    ``solver.integrate``. The solver's attribute ``decisions`` lists the
+    guard's decisions of its last solve (depth, fired), in the order they
+    were taken."""
+
     if energy_fn is None:
-        raise ValueError("method='verlet' needs energy_fn(block_displacement, control_params)")
+        raise ValueError(f"method={method!r} needs energy_fn(block_displacement, control_params)")
+    dense_guard, gap_fn = _dense_guard(geometry, guard) if guard is not None else (None, None)
     kinematics = build_constrained_kinematics(n_blocks, constrained_block_DOF_pairs,
                                               constrained_DOFs_fn)
     dof_set = kinematics.dof_set
@@ -469,9 +559,13 @@ def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
     loading = None if load_pairs is None else build_loading(n_blocks, load_pairs, loading_fn)
     if damped_blocks is not None:
         damping_coeffs = build_damping_coefficients(n_blocks, damped_blocks)
+        viscous = build_viscous_damping(n_blocks, damped_blocks)
     else:
         def damping_coeffs(damping):
             return damping.new_zeros((n_blocks, 3))
+
+        viscous = None
+    decisions = []
 
     def solve_dynamics(state0, timepoints, control_params: ControlParams) -> torch.Tensor:
         """Integrate the dynamics; output (T, 2, n_blocks, 3)."""
@@ -480,7 +574,7 @@ def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
         cnv = control_params.geometrical_params.centroid_node_vectors
         if cnv.dim() != 3 or _batched_keys(control_params.constraint_params or {}) or \
                 _batched_keys(control_params.loading_params or {}):
-            raise ValueError("the dense method='verlet' solves one design in one scenario; a "
+            raise ValueError(f"the dense method={method!r} solves one design in one scenario; a "
                              "population of designs or a batch of scenarios runs on the "
                              "quad_grid/kagome_grid fast path")
         like = dict(dtype=cnv.dtype, device=cnv.device)
@@ -489,42 +583,100 @@ def _dense_verlet_solver(n_blocks, energy_fn, load_pairs, loading_fn,
         mask = torch.as_tensor(dof_set.free_mask, **like)
         y0 = torch.as_tensor(state0, **like) * mask
         ts = torch.as_tensor(timepoints, **like)
-        c = damping_coeffs(torch.as_tensor(mp.damping, **like))
+        damping = torch.as_tensor(mp.damping, **like)
         lparams = control_params.loading_params or {}
-        inv_m = mask / inertia
         # Keep the force's graph only where something takes a gradient.
         create_graph = torch.is_grad_enabled() and _any_requires_grad(
             (state0, timepoints, control_params))
 
-        def force(u, v, t):
+        def potential_force(u, t):
             with torch.enable_grad():
                 uu = u if u.requires_grad else u.detach().requires_grad_()
                 (grad,) = torch.autograd.grad(constrained_energy(uu, t, control_params), uu,
                                               create_graph=create_graph)
-            f = -grad
-            if loading is not None:
-                f = f + loading((u, v), t, lparams)
-            return f
+            return -grad
 
-        u, v = y0[0], y0[1]
-        a = (force(u, v, ts[0]) - c * v) * inv_m
-        out = [y0]
-        steps = torch.arange(n_substeps, **like)
-        for k in range(ts.shape[0] - 1):
-            dt = (ts[k + 1] - ts[k]) / n_substeps
-            starts = ts[k] + dt * steps
-            for i in range(n_substeps):
-                t1 = starts[i] + dt
-                u1 = u + dt * v + (0.5 * dt * dt) * a
-                f1 = force(u1, v + dt * a, t1)
-                v_hat = v + 0.5 * dt * (a + f1 * inv_m)
-                v1 = v_hat / (1.0 + 0.5 * dt * c / inertia)
-                v1 = v1 * mask
-                a = (f1 - c * v1) * inv_m
-                u, v = u1, v1
-            out.append(torch.stack([u, v]))
-        ys = torch.stack(out)
+        decisions.clear()
+        if method == "verlet":
+            ys = _dense_verlet(potential_force, loading, lparams, y0, ts, inertia, mask,
+                               damping_coeffs(damping), n_substeps, dense_guard,
+                               None if gap_fn is None else (lambda u: gap_fn(u, control_params)),
+                               decisions)
+        else:
+            def rhs(state, t):
+                f = potential_force(state[0], t)
+                external = (0.0 if loading is None else loading(state, t, lparams)) + \
+                    (0.0 if viscous is None else viscous(state, t, damping))
+                f = f + external
+                return torch.stack([state[1] * mask, f / inertia * mask])
+
+            ys = integrate(rhs, y0, ts, method=method, n_substeps=n_substeps)
         return _driven_overwrite(ys, ts, dof_set, constrained_DOFs_fn,
                                  control_params.constraint_params, like)
 
+    solve_dynamics.decisions = decisions
     return solve_dynamics
+
+
+def _dense_verlet(potential_force, loading, lparams, y0, ts, inertia, mask, c, n_substeps,
+                  guard, gap_fn, decisions):
+    """Velocity Verlet on the dense state (JAX ``_integrate_verlet``, same
+    operations and order), guarded where ``guard`` is given."""
+
+    inv_m = mask / inertia
+
+    def force(u, v, t):
+        f = potential_force(u, t)
+        if loading is not None:
+            f = f + loading((u, v), t, lparams)
+        return f
+
+    def one_step(carry, t_start, dt):
+        u, v, a = carry
+        t1 = t_start + dt
+        u1 = u + dt * v + (0.5 * dt * dt) * a
+        f1 = force(u1, v + dt * a, t1)
+        v_hat = v + 0.5 * dt * (a + f1 * inv_m)
+        v1 = v_hat / (1.0 + 0.5 * dt * c / inertia)
+        v1 = v1 * mask
+        a1 = (f1 - c * v1) * inv_m
+        return u1, v1, a1
+
+    if guard is None:
+        stepper = one_step
+    else:
+        risk = core.make_risk_predicate(
+            guard, lambda v, a, dt: _dense_guard_travel(v, a, dt, guard), gap_fn)
+        refine = guard["refine"]
+
+        def guarded(level, carry, t_start, dt):
+            """``make_guarded_stepper``'s step at ``level`` (0: a plain
+            step): where the predicate fires, ``refine`` micro-steps of the
+            next level down."""
+
+            if level == 0:
+                return one_step(carry, t_start, dt)
+            with torch.no_grad():
+                fired = bool(risk(carry, dt))
+            decisions.append((guard["levels"] - level, fired))
+            if not fired:
+                return one_step(carry, t_start, dt)
+            ddt = dt / refine
+            for j in range(refine):
+                carry = guarded(level - 1, carry, t_start + j * ddt, ddt)
+            return carry
+
+        def stepper(carry, t_start, dt):
+            return guarded(guard["levels"], carry, t_start, dt)
+
+    u, v = y0[0], y0[1]
+    a = (force(u, v, ts[0]) - c * v) * inv_m
+    carry, out = (u, v, a), [y0]
+    steps = torch.arange(n_substeps, dtype=ts.dtype, device=ts.device)
+    for k in range(ts.shape[0] - 1):
+        dt = (ts[k + 1] - ts[k]) / n_substeps
+        starts = ts[k] + dt * steps
+        for i in range(n_substeps):
+            carry = stepper(carry, starts[i], dt)
+        out.append(torch.stack(carry[:2]))
+    return torch.stack(out)

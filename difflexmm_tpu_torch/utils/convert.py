@@ -8,6 +8,9 @@ included) as this port's ``ForwardProblem`` of the same family (the dict's
 ``reference_design_from_config`` does the same for a run configuration
 file's ``"forward"`` section (``examples/configs/pulse_forward.json``),
 ``loading_params_from_numpy`` turns JAX loading parameters into tensors,
+``params_from_numpy`` turns a JAX parameter container (``LigamentParams``,
+``StretchingTorsionalSpringParams``, ``MagneticParams``, ``ContactParams``,
+``MechanicalParams`` ...; numpy leaves) into the port's same-named one,
 and
 ``optimization_problem_from_jax_dict`` does the same for a JAX
 ``OptimizationProblem`` of any family (targets, weights, forward inputs,
@@ -31,6 +34,7 @@ from difflexmm_tpu_torch.models import (
     quads_static_tuning,
     reference_design,
 )
+from difflexmm_tpu_torch.utils import types
 from difflexmm_tpu_torch.utils.types import SolutionData, load_data
 
 #: The model families the port has, by the JAX problem's ``name``.
@@ -138,6 +142,24 @@ def loading_params_from_numpy(loading_params: dict, device="cuda", dtype=torch.f
 
     return {k: torch.tensor(np.asarray(v), device=device, dtype=dtype)
             for k, v in loading_params.items()}
+
+
+def params_from_numpy(params, device="cuda", dtype=torch.float64):
+    """A JAX parameter container -> the port's container of the same name
+    (``utils.types``), nested containers and dicts too, every numeric leaf
+    a tensor (floats in ``dtype``); None stays None."""
+
+    if params is None or isinstance(params, str):
+        return params
+    if isinstance(params, tuple) and hasattr(params, "_fields"):
+        cls = getattr(types, type(params).__name__, None)
+        if not (isinstance(cls, type) and issubclass(cls, tuple) and hasattr(cls, "_fields")):
+            raise TypeError(f"{type(params).__name__} has no counterpart in the port's "
+                            "utils.types")
+        return cls(*(params_from_numpy(x, device, dtype) for x in params))
+    if isinstance(params, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in params.items()}
+    return _tensor(params, device, dtype)
 
 
 def forward_input_from_numpy(family, forward_input, device="cuda", dtype=torch.float64):

@@ -67,19 +67,39 @@ class LigamentParams(NamedTuple):
     reference_vector: Any
 
 
+class StretchingTorsionalSpringParams(NamedTuple):
+    """Zero-length stretching and torsional spring bonds: scalar or
+    (n_bonds,) stiffnesses."""
+
+    k_stretch: Any
+    k_rot: Any
+
+
+BondParams = Union[LigamentParams, StretchingTorsionalSpringParams]
+
+
 class ContactParams(NamedTuple):
-    """Parameters of the C^1 angle-based contact barrier."""
+    """Parameters of the C^1 contact barrier: angles for the angle-based
+    barrier, distances for the distance-based one."""
 
     min_angle: Any
     cutoff_angle: Any
     k_contact: Any
 
 
+class MagneticParams(NamedTuple):
+    """Magnetic dipole parameters: per-block dipole angles and strengths
+    (the magnetic energy that reads them is ROADMAP A12)."""
+
+    dipole_angles: Any
+    dipole_strengths: Any
+
+
 class MechanicalParams(NamedTuple):
     """Bond parameters, density, optional inertia (n_blocks, 3), damping
     (scalar or (n_damped_blocks, 3)) and optional contact parameters."""
 
-    bond_params: LigamentParams
+    bond_params: BondParams
     density: Any
     inertia: Optional[Any] = None
     damping: Any = 0.0

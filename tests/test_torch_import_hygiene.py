@@ -1,6 +1,6 @@
 """The PyTorch port imports no JAX, and no source file of it names jax;
 loading a pickle that the JAX package wrote (with numpy arrays) imports
-neither JAX nor the JAX package."""
+neither JAX nor the JAX package; and the JAX package imports no torch."""
 
 import pkgutil
 import re
@@ -10,6 +10,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "difflexmm_tpu_torch"
+# Modules of the optimizer and solver slice, which the walk must reach.
+NEW_MODULES = ("difflexmm_tpu_torch.optim.loops", "difflexmm_tpu_torch.utils.observability",
+               "difflexmm_tpu_torch.solver.integrate")
 
 
 def test_importing_the_port_imports_no_jax():
@@ -19,6 +22,8 @@ sys.path.insert(0, {str(REPO)!r})
 import difflexmm_tpu_torch
 for info in pkgutil.walk_packages(difflexmm_tpu_torch.__path__, "difflexmm_tpu_torch."):
     importlib.import_module(info.name)
+for name in {NEW_MODULES!r}:
+    assert name in sys.modules, name
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "difflexmm_tpu.")))
 assert not leaked, leaked
 print("NO_JAX")
@@ -26,6 +31,24 @@ print("NO_JAX")
     result = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                             timeout=300)
     assert "NO_JAX" in result.stdout, (result.stdout, result.stderr[-2000:])
+
+
+def test_importing_the_jax_package_imports_no_torch():
+    script = f"""
+import sys, importlib, pkgutil
+sys.path.insert(0, {str(REPO)!r})
+import difflexmm_tpu
+assert "torch" not in sys.modules
+for info in pkgutil.walk_packages(difflexmm_tpu.__path__, "difflexmm_tpu."):
+    importlib.import_module(info.name)
+leaked = sorted(m for m in sys.modules if m == "torch" or m.startswith(("torch.",
+                                                                          "difflexmm_tpu_torch")))
+assert not leaked, leaked
+print("NO_TORCH")
+"""
+    result = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                            timeout=300)
+    assert "NO_TORCH" in result.stdout, (result.stdout, result.stderr[-2000:])
 
 
 def test_no_port_source_imports_jax():

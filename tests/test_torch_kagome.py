@@ -632,13 +632,14 @@ def test_kagome_config_is_the_example_json():
 def test_kagome_solver_checks_its_grid():
     geo = KagomeGeometry(N1, N2)
     with pytest.raises(ValueError, match="does not match"):
-        setup_dynamic_solver(geometry=geo, kagome_grid=dict(n1=N1, n2=N2 + 1))
+        setup_dynamic_solver(geometry=geo, method="auto", kagome_grid=dict(n1=N1, n2=N2 + 1))
     with pytest.raises(ValueError, match="unknown kagome_grid keys"):
-        setup_dynamic_solver(geometry=geo, kagome_grid=dict(n1=N1, n2=N2, tiled=True))
+        setup_dynamic_solver(geometry=geo, method="auto",
+                             kagome_grid=dict(n1=N1, n2=N2, tiled=True))
     # Loads map each (block, DOF) pair to a plane slot: triangle b % 2 at
     # channel offset 3 * (b % 2), cell b // 2; a pair named twice keeps both
     # columns (they add).
-    loaded = setup_dynamic_solver(geometry=geo, kagome_grid=dict(n1=N1, n2=N2),
+    loaded = setup_dynamic_solver(geometry=geo, method="auto", kagome_grid=dict(n1=N1, n2=N2),
                                   loaded_block_DOF_pairs=[[0, 0], [3, 2], [3, 2]],
                                   loading_fn=lambda s, t: 1.0)
     # A CUDA tensor launches the kernel or raises; a tensor on any other

@@ -213,17 +213,20 @@ def test_kernel_wrapper_runs_plain_body_only_for_cpu_tensors():
 
 
 @pytest.mark.parametrize(
-    "option, roadmap",
+    "option, error, match",
     [
-        (dict(method="rk4"), "A12"),
-        # The dense "verlet" is ported, but not with a guard.
-        (dict(method="verlet", energy_fn=lambda u, cp: u.sum(), guard=dict(window=0.1)), "A4"),
+        # The adaptive odeint stays the JAX package's oracle.
+        (dict(method="odeint"), NotImplementedError, "A12"),
+        # The dense "verlet" takes a guard, but the dense layout has no
+        # neighbours for relative translation (as in JAX).
+        (dict(method="verlet", energy_fn=lambda u, cp: u.sum(),
+              guard=dict(window=0.1, translation="relative")), ValueError, "relative"),
     ],
 )
-def test_unported_solver_options_raise(option, roadmap):
+def test_unported_solver_options_raise(option, error, match):
     kwargs = dict(geometry=QuadGeometry(3, 3), quad_grid=dict(n1=3, n2=3))
     kwargs.update(option)
-    with pytest.raises(NotImplementedError, match=roadmap):
+    with pytest.raises(error, match=match):
         setup_dynamic_solver(**kwargs)
 
 

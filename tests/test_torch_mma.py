@@ -7,6 +7,7 @@ small problem) and, marked ``slow``, the flagship itself.
 """
 
 import dataclasses
+import inspect
 import math
 import time
 
@@ -373,8 +374,11 @@ def test_runner_rearms_the_guard_only_where_asked():
     assert opt.forward_problem.guard == "auto" and not opt.is_setup
     opt.setup_objective()
     assert opt._guarded_objective_fn("auto") is opt.objective_fn
-    with pytest.raises(TypeError, match="checkpoint"):  # not ported: ROADMAP A13
-        opt.run_optimization_mma(None, 1, checkpoint=object())
+    # The runner takes JAX's metrics, checkpoint and resume keywords
+    # (tests/test_torch_observability.py runs them).
+    params = inspect.signature(opt.run_optimization_mma).parameters
+    assert {"metrics_logger", "checkpoint", "resume"} <= set(params)
+    assert params["resume"].default is False
 
 
 def _small_jax_problem():

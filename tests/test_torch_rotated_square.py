@@ -229,8 +229,11 @@ def test_reference_design_round_trips_through_the_converter():
     params = loading_params_from_numpy(dict(amplitude=0.5, rate=np.array(0.25)), device="cpu")
     assert {k: float(v) for k, v in params.items()} == dict(amplitude=0.5, rate=0.25)
     assert all(v.dtype == torch.float64 for v in params.values())
-    with pytest.raises(NotImplementedError, match="A4"):
-        reference_design_from_config(forward, device="cpu", guard="auto").setup()
+    # The dense "verlet" takes the model's guard (ported in the solver
+    # remnants slice): it sets up, and each solve records its decisions.
+    guarded = reference_design_from_config(forward, device="cpu", guard="auto")
+    guarded.setup()
+    assert guarded.solve_dynamics.decisions == []
 
 
 def test_reference_design_angle_gradient_through_the_fast_path():
