@@ -12,7 +12,7 @@ identical at float64), the kagome kernels (1K and 1Kg, the same) and the
 fused external loads (1L) in all four of them. The plain version's runs, and
 the dense ``method="verlet"`` runs of the loaded problems, go to worker
 processes on the host's CPU cores while the kernels build. Then it drives
-thirteen main paths.
+fourteen main paths.
 On the paper flagship (24 x 16 quads, 200 timepoints, 10 substeps): the
 value and design gradient of ``OptimizationProblem.objective_fn`` (kernel
 1), and the guarded constrained optimizer
@@ -82,7 +82,23 @@ distance-based contact and node loads on CUDA tensors against the same on
 the host; and one flagship value and gradient inside
 ``utils.observability.trace``, whose Chrome trace must list kernel 1's
 launch. All of it but (b)'s population runs in a process of its own on
-the card beside main paths 2 and 4, whose work is host-bound too.
+the card beside main paths 2 and 4, whose work is host-bound too. Statics
+and linear analysis (main path 14, ``models/analysis_configs.py``, all at
+float64 against the JAX package's recorded results): the hinge fit of
+``examples/hinge_characterization_fit.py`` (3 x 3-cell samples in tension
+and shear) through kernel 1 (value, stiffness gradient, two GD iterations)
+and through Newton (``method="static"``, the same Newton iterations as
+JAX's); the flagship lattice's static tension (1,152 DOFs, 8 load steps:
+the curve, its gradient, the seconds of a Jacobian and a solve) and its
+lowest 20 modes; the snap-through continuation (60 steps, both folds, the
+limit load's gradient); the 8 x 3-cell strip's transmission at 80
+frequencies and its cell's Bloch gap; the kagome gap and its shift
+gradient, the effective constants, the Poisson ratio's gradient and the
+waveguide's guided branch; all of that in a process of its own beside
+main paths 2, 4 and 13. In the main process after main path 13: the
+tunneling report of the n = 5 rescue's trajectories (kernel 1, NaN; kernel
+1g), the space-time cross-correlation of the flagship's field against the
+rescued one, and the magnetic energy and gradient on a flagship state.
 Objectives and float64 design gradients are checked against the JAX
 package's float64 values, and the kernels are timed against their plain
 versions. Fails
@@ -295,6 +311,31 @@ PERIODIC_VALUE_TOL, PERIODIC_GRAD_TOL = 1e-8, 1e-7
 # separates them, carried through 16 damped (micro-)steps; the guard's
 # decisions must be the same.
 REMNANT_TRAJ_TOL, REMNANT_GRAD_TOL = 1e-10, 1e-9
+# Main path 14 (statics and linear analysis, models/analysis_configs.py),
+# against the JAX package's float64 results recorded there:
+# - (a) the hinge fit through kernel 1 ("verlet_pallas") against JAX's
+#   "verlet_ckpt": the squared error within HINGE_VALUE_TOL and its
+#   stiffness gradient and two GD iterations within HINGE_GRAD_TOL (the
+#   kernel forward's rounding, as the flagship's value and gradient);
+# - equilibria, reactions and curves (statics, the hinge fit through Newton,
+#   continuation paths) within EQ_TOL: the two packages' LU factorizations
+#   order their sums differently, a few ulps amplified by the Newton
+#   matrix's conditioning; Newton iterations equal;
+# - gradients through implicit adjoints (statics, relax_cell, continuation)
+#   within IFT_TOL: one more solve and the residual's second derivatives;
+# - eigenvalues, bands and moduli within EIG_TOL (cuSOLVER against LAPACK);
+#   transmission within TRANSMISSION_TOL (ratios of complex solves near
+#   resonances); derivatives of non-degenerate eigenvalues within IFT_TOL;
+# - the cross-correlation and the magnetic energy and gradient within
+#   CLOSED_FORM_TOL (FFTs and closed forms; the magnetic state is made from
+#   a seed, the xcorr's fields are the kernels' at float64, 1e-9 of their
+#   scale, whose correlation peak moves by far less);
+# - the tunneling report: identical first non-finite timepoint and risky
+#   intervals.
+HINGE_VALUE_TOL, HINGE_GRAD_TOL = 1e-10, 1e-9
+EQ_TOL, IFT_TOL, EIG_TOL, TRANSMISSION_TOL = 1e-9, 1e-7, 1e-9, 1e-8
+CLOSED_FORM_TOL = 1e-12
+XCORR_TOL = 1e-9
 
 
 def log(*parts):
@@ -562,13 +603,13 @@ def counted(fn):
     return result, seconds, counts
 
 
-def only(label, counts, **expected):
+def only(label, counts, path="13", **expected):
     """The run went through the kernels ``expected`` names, that many
     times, and through nothing else."""
 
     want = dict(dict.fromkeys(counts, 0), **expected)
     if counts != want:
-        raise AssertionError(f"main path 13 {label}: launches {counts}, expected {want}")
+        raise AssertionError(f"main path {path} {label}: launches {counts}, expected {want}")
 
 
 def scan_trace(path, kernel, category="kernel"):
@@ -868,6 +909,267 @@ def main_path_13(device, results, side_job, remnant_jobs, card_line):
     return out
 
 
+def main_path_14_side():
+    """Main path 14's parts (a)-(f) beside main path 2 (a process of its own
+    on the card): the hinge fit through kernel 1 and through Newton, the
+    flagship's static tension and modes, the snap-through continuation, the
+    strip's transmission and Bloch gap, and the Bloch and homogenization
+    examples. Returns each part's numbers, launch counts and seconds (host
+    clock); main_path_14 checks them."""
+
+    import torch
+
+    from difflexmm_tpu_torch.models import analysis_configs as ac
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    f64 = torch.float64
+    out = {}
+    for method in ("verlet_pallas", "static"):
+        result, seconds, counts = counted(lambda method=method: ac.run_hinge(
+            method, device, f64, gd=method == "verlet_pallas"))
+        out[f"a_{method}"] = dict(result, seconds=seconds, counts=counts)
+    parts = {"b": lambda: ac.run_flagship_static(device, f64),
+             "c": lambda: ac.flagship_modes(device, f64),
+             "d": lambda: ac.run_snap(device, f64),
+             "e_transmission": lambda: ac.strip_transmission(device, f64),
+             "e_gap": lambda: ac.bloch_gap(device, f64),
+             "f_kagome": lambda: ac.run_kagome_gap(device, f64),
+             "f_effective": lambda: ac.effective_row(device, f64),
+             "f_poisson": lambda: ac.run_poisson(device, f64),
+             "f_waveguide": lambda: ac.run_waveguide(device, f64)}
+    for name, fn in parts.items():
+        result, seconds, counts = counted(fn)
+        out[name] = dict(result=result, seconds=seconds, counts=counts)
+    out["ended_at"] = time.time()
+    return out
+
+
+def rescue_plain_first_nonfinite():
+    """The first non-finite timepoint of the unguarded n = 5 rescue through
+    the plain body on a host core (float64): where kernel 1's trajectory
+    must turn non-finite too."""
+
+    import torch
+
+    from difflexmm_tpu_torch.models import flagship as fl
+    from difflexmm_tpu_torch.solver.diagnose import first_nonfinite_timepoint
+
+    torch.set_num_threads(1)
+    opt, design = fl.build_flagship(n_substeps=fl.RESCUE_N5_SUBSTEPS, device="cpu",
+                                    dtype=torch.float64)
+    with torch.no_grad():
+        return first_nonfinite_timepoint(opt.forward_problem.solve(design).fields)
+
+
+def main_path_14(device, results, side_job, nan_job, card_line):
+    """Main path 14: statics and linear analysis through the entry points a
+    user calls. (a)-(f) come from ``side_job`` (:func:`main_path_14_side`,
+    run beside main path 2); (g) runs here: the tunneling report of the n =
+    5 rescue's trajectories (unguarded through kernel 1, NaN; the
+    travel-only guard through kernel 1g; ``nan_job`` gives the plain body's
+    first non-finite timepoint of the unguarded one), the space-time
+    cross-correlation
+    of main path 1's flagship field (its forward again through kernel 1)
+    against the rescued one, and the magnetic energy and gradient on a
+    flagship state.
+    Checks every part against models/analysis_configs.py's JAX float64
+    results; returns the timings and adds the launches to ``results``."""
+
+    import numpy as np
+    import torch
+
+    from difflexmm_tpu_torch.models import analysis_configs as ac
+    from difflexmm_tpu_torch.models import flagship as fl
+    from difflexmm_tpu_torch.objectives import compute_space_time_xcorr
+    from difflexmm_tpu_torch.solver.diagnose import contact_tunneling_report
+
+    t14 = time.perf_counter()
+    side = side_job.result()
+    out = {}
+
+    # (a) The hinge fit through kernel 1: each forward one launch per sample.
+    a = side["a_verlet_pallas"]
+    forwards = 1 + ac.HINGE_GD_ITERATIONS + 1  # the value, GD's, the fitted responses
+    only("(a)", a["counts"], path="14", quad=forwards * len(ac.HINGE_LOADINGS))
+    ref = ac.JAX_F64_HINGE_VERLET_CKPT
+    log(f"main path 14 (a) (hinge fit, 3x3-cell samples, tension and shear, 25 timepoints, 48 "
+        f"substeps, verlet_pallas, beside main path 2): {a['counts']['quad']} kernel-1 launches, "
+        f"{a['seconds']:.2f} s for the value, gradient and {ac.HINGE_GD_ITERATIONS} GD "
+        f"iterations; squared error {a['value']!r} (JAX verlet_ckpt {ref['value']!r})")
+    check("(a) hinge squared error through kernel 1 vs JAX float64",
+          rel_err(a["value"], ref["value"]), HINGE_VALUE_TOL)
+    check("(a) hinge stiffness gradient through kernel 1 vs JAX float64",
+          rel_err(a["grad"], ref["grad"]), HINGE_GRAD_TOL)
+    for key in ("gd_values", "gd_designs", "gd_final"):
+        check(f"(a) hinge GD {key} vs JAX float64", rel_err(a[key], ref[key]), HINGE_GRAD_TOL)
+    s = side["a_static"]
+    only("(a) static", s["counts"], path="14")
+    ref = ac.JAX_F64_HINGE_STATIC
+    log(f"  (a) the same through Newton (method='static'): {s['seconds']:.2f} s, Newton "
+        f"iterations {s['iterations']} (JAX {ref['iterations']}); squared error {s['value']!r} "
+        f"(JAX {ref['value']!r})")
+    check("(a) hinge squared error through Newton vs JAX float64",
+          rel_err(s["value"], ref["value"]), EQ_TOL)
+    check("(a) hinge stiffness gradient through Newton vs JAX float64",
+          rel_err(s["grad"], ref["grad"]), IFT_TOL)
+    for lt in ac.HINGE_LOADINGS:
+        if list(s["iterations"][lt]) != list(ref["iterations"][lt]):
+            FAILED.append(f"main path 14 (a) {lt}: Newton iterations {s['iterations'][lt]}, "
+                          f"JAX {list(ref['iterations'][lt])}")
+
+    # (b) Static tension of the flagship lattice (1,152 DOFs, 8 load steps).
+    b = side["b"]
+    only("(b)", b["counts"], path="14")
+    r, ref = b["result"], ac.JAX_F64_FLAGSHIP_STATIC
+    log(f"main path 14 (b) (flagship static tension, {ac.FLAGSHIP_STATIC_STEPS} load steps): "
+        f"{b['seconds']:.2f} s (curve and its stiffness gradient {r['seconds']:.2f} s); one "
+        f"Newton Jacobian {r['jacobian_s'] * 1e3:.1f} ms, one solve {r['solve_s'] * 1e3:.1f} ms "
+        f"at the last equilibrium; Newton iterations {r['iterations']} (JAX "
+        f"{list(ref['iterations'])}); {card_line}")
+    check("(b) flagship static curve vs JAX float64", rel_err(r["curve"], ref["curve"]), EQ_TOL)
+    check("(b) flagship static stiffness gradient vs JAX float64",
+          rel_err(r["grad"], ref["grad"]), IFT_TOL)
+    if list(r["iterations"]) != list(ref["iterations"]):
+        FAILED.append(f"main path 14 (b): Newton iterations {r['iterations']}, JAX "
+                      f"{list(ref['iterations'])}")
+
+    # (c) The flagship's lowest 20 modes.
+    c = side["c"]
+    only("(c)", c["counts"], path="14")
+    log(f"main path 14 (c) (flagship modes, 1,152 DOFs): {c['seconds']:.2f} s (Hessian and "
+        f"eigh); lowest {ac.N_MODES} omega^2 from {float(c['result'][0])!r} to "
+        f"{float(c['result'][-1])!r}")
+    check("(c) flagship lowest 20 eigenvalues vs JAX float64",
+          rel_err(c["result"], ac.JAX_F64_FLAGSHIP_MODES), EIG_TOL)
+
+    # (d) The snap-through path and the limit load's gradient.
+    d = side["d"]
+    only("(d)", d["counts"], path="14")
+    r, ref = d["result"], ac.JAX_F64_SNAP
+    log(f"main path 14 (d) (snap-through, 60 steps at ds 0.04, limit load over 12 at 0.03): "
+        f"{d['seconds']:.2f} s; folds {[int(i) for i in r['folds']]} (JAX "
+        f"{list(ref['folds'])}); limit load {r['limit']!r} (JAX {ref['limit']!r}), d/dh "
+        f"{r['limit_grad']!r}")
+    if not r["converged"] or list(r["folds"]) != list(ref["folds"]):
+        FAILED.append(f"main path 14 (d): converged {r['converged']}, folds {r['folds']}")
+    check("(d) snap-through load factors vs JAX float64",
+          rel_err(r["load_factor"], ref["load_factor"]), EQ_TOL)
+    check("(d) snap-through apex drops vs JAX float64", rel_err(r["drop"], ref["drop"]), EQ_TOL)
+    check("(d) stability eigenvalues vs JAX float64",
+          rel_err(r["stability"], ref["stability"]), EIG_TOL)
+    check("(d) limit load vs JAX float64", rel_err(r["limit"], ref["limit"]), EQ_TOL)
+    check("(d) limit load gradient vs JAX float64",
+          rel_err(r["limit_grad"], ref["limit_grad"]), IFT_TOL)
+
+    # (e) Transmission of the 8 x 3-cell strip and its cell's Bloch gap.
+    e, g = side["e_transmission"], side["e_gap"]
+    log(f"main path 14 (e) (transmission, 8x3 cells, 80 frequencies): {e['seconds']:.2f} s; "
+        f"Bloch gap {g['result']} at {ac.BLOCH_GRID}x{ac.BLOCH_GRID} k-points "
+        f"{g['seconds']:.2f} s (JAX {ac.JAX_F64_BLOCH_GAP})")
+    check("(e) transmission vs JAX float64",
+          rel_err(e["result"], ac.JAX_F64_TRANSMISSION), TRANSMISSION_TOL)
+    check("(e) Bloch gap vs JAX float64", rel_err(g["result"], ac.JAX_F64_BLOCH_GAP), EIG_TOL)
+
+    # (f) Bloch design and homogenization.
+    fk, fe, fp, fw = (side[k] for k in ("f_kagome", "f_effective", "f_poisson", "f_waveguide"))
+    log(f"main path 14 (f) (kagome gap and shift gradient {fk['seconds']:.2f} s, effective "
+        f"row {fe['seconds']:.2f} s, Poisson ratio and gradient {fp['seconds']:.2f} s, "
+        f"waveguide {fw['seconds']:.2f} s): gap {fk['result']['value']!r}, (E_x, nu_xy, G_xy) "
+        f"{[float(x) for x in fe['result']]}, nu {fp['result']['nu']!r}, guided frequency at "
+        f"kx = 0.3 b1 "
+        f"{fw['result']['guided_op']!r}")
+    check("(f) kagome gap vs JAX float64",
+          rel_err(fk["result"]["value"], ac.JAX_F64_KAGOME_GAP["value"]), EIG_TOL)
+    check("(f) kagome gap shift gradient vs JAX float64",
+          rel_err(fk["result"]["grad"], ac.JAX_F64_KAGOME_GAP["grad"]), IFT_TOL)
+    check("(f) effective constants vs JAX float64",
+          rel_err(fe["result"], ac.JAX_F64_EFFECTIVE_ROW), EIG_TOL)
+    check("(f) Poisson ratio vs JAX float64",
+          rel_err(fp["result"]["nu"], ac.JAX_F64_POISSON["nu"]), EIG_TOL)
+    check("(f) Poisson loss gradient vs JAX float64",
+          rel_err(fp["result"]["grad"], ac.JAX_F64_POISSON["grad"]), IFT_TOL)
+    for key in ("gap", "guided", "weight", "guided_op"):
+        check(f"(f) waveguide {key} vs JAX float64",
+              rel_err(fw["result"][key], ac.JAX_F64_WAVEGUIDE[key]), EIG_TOL)
+    check("(f) guided frequency's derivative in log k_rot vs JAX float64",
+          rel_err(fw["result"]["guided_op_grad"], ac.JAX_F64_WAVEGUIDE["guided_op_grad"]),
+          IFT_TOL)
+    # Plain PyTorch: no kernel of this repository in (e) and (f).
+    for name in ("e_transmission", "e_gap", "f_kagome", "f_effective", "f_poisson",
+                 "f_waveguide"):
+        only(f"({name})", side[name]["counts"], path="14")
+
+    # (g) Here: the tunneling report of the n = 5 rescue's trajectories, and
+    # main path 1's flagship field.
+    def field(n_substeps, guard):
+        opt, design = fl.build_flagship(n_substeps=n_substeps, device=device,
+                                        dtype=torch.float64, guard=guard)
+        fp_ = opt.forward_problem
+        with torch.no_grad():
+            sol = fp_.solve(design)
+        return sol.fields, sol.timepoints, fp_
+
+    fields, seconds_g, counts_g = counted(lambda: {
+        "flagship": field(fl.N_SUBSTEPS, None),
+        "n5_plain": field(fl.RESCUE_N5_SUBSTEPS, None),
+        "n5_guarded": field(fl.RESCUE_N5_SUBSTEPS, fl.RESCUE_N5_GUARDS["levels1"])})
+    only("(g)", counts_g, path="14", quad=2, quad_guarded=1)
+    flagship_fields = fields.pop("flagship")[0]
+    # After the unguarded trajectory blows up (|u| ~ 1e21 mm at timepoint 30,
+    # growing a thousandfold an interval), JAX's XLA forward turns NaN one
+    # interval later, the port's only when squares overflow (|u| ~ 1e158):
+    # its first non-finite timepoint is held against the plain body's on the
+    # host, JAX's is logged beside it; the risky intervals against JAX's.
+    plain_first = nan_job.result()
+    for name, (f, ts, fp_) in fields.items():
+        report = contact_tunneling_report(f, ts, fl.RESCUE_N5_SUBSTEPS, fp_.min_angle,
+                                          fp_.cutoff_angle)
+        ref = ac.JAX_F64_TUNNELING[name]
+        risky = np.nonzero(report.risky_intervals.cpu().numpy())[0]
+        want = plain_first if name == "n5_plain" else ref["first_nonfinite"]
+        plain_note = f"plain body on the host {plain_first}, " if name == "n5_plain" else ""
+        log(f"main path 14 (g) tunneling report of the n = 5 rescue, {name}: first non-finite "
+            f"timepoint {report.first_nonfinite} ({plain_note}JAX {ref['first_nonfinite']}), "
+            f"{len(risky)} risky intervals (JAX {len(ref['risky'])})")
+        if report.first_nonfinite != want or list(risky) != list(ref["risky"]):
+            FAILED.append(f"main path 14 (g) {name}: report ({report.first_nonfinite}, "
+                          f"{list(risky)}) differs from ({want}, {list(ref['risky'])})")
+        if name == "n5_plain" and report.first_nonfinite is None:
+            FAILED.append("main path 14 (g): the unguarded n = 5 rescue stayed finite")
+
+    def space_time(f):
+        return torch.linalg.norm(f[:, 0, :, :2], dim=-1).T
+
+    t0 = time.perf_counter()
+    value, delay = compute_space_time_xcorr(space_time(flagship_fields),
+                                            space_time(fields["n5_guarded"][0]))
+    value, delay = float(value), int(delay)
+    xcorr_s = time.perf_counter() - t0
+    log(f"  (g) space-time xcorr of main path 1's flagship field against the rescued n = 5 "
+        f"field: {value!r}, delay {delay} (JAX {ac.JAX_F64_XCORR}), {xcorr_s * 1e3:.1f} ms")
+    check("(g) space-time xcorr vs JAX float64", rel_err(value, ac.JAX_F64_XCORR[0]), XCORR_TOL)
+    if delay != ac.JAX_F64_XCORR[1]:
+        FAILED.append(f"main path 14 (g): xcorr delay {delay}, JAX {ac.JAX_F64_XCORR[1]}")
+    magnetic, magnetic_s, counts_m = counted(lambda: ac.run_magnetic(device, torch.float64))
+    only("(g) magnetic", counts_m, path="14")
+    log(f"  (g) magnetic energy on a flagship state (384 dipoles, CUDA): "
+        f"{magnetic['energy']!r} (JAX {ac.JAX_F64_MAGNETIC['energy']!r}), {magnetic_s:.3f} s")
+    check("(g) magnetic energy vs JAX float64",
+          rel_err(magnetic["energy"], ac.JAX_F64_MAGNETIC["energy"]), CLOSED_FORM_TOL)
+    check("(g) magnetic gradient vs JAX float64 (summary)",
+          stats_err(magnetic["grad_stats"], ac.JAX_F64_MAGNETIC["grad_stats"]), CLOSED_FORM_TOL)
+
+    results["verlet_quad"]["launches_by_path"]["14"] = a["counts"]["quad"] + counts_g["quad"]
+    results["verlet_quad_guarded"]["launches_by_path"]["14"] = counts_g["quad_guarded"]
+    out.update({f"main_path_14_{k}_s": v["seconds"] for k, v in side.items()
+                if isinstance(v, dict)},
+               main_path_14_flagship_jacobian_s=side["b"]["result"]["jacobian_s"],
+               main_path_14_flagship_solve_s=side["b"]["result"]["solve_s"],
+               main_path_14_g_s=seconds_g + xcorr_s + magnetic_s)
+    out["main_path_14_s"] = time.perf_counter() - t14
+    return out
+
+
 def main():
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -880,19 +1182,22 @@ def main():
     pool = ProcessPoolExecutor(PLAIN_WORKERS, mp_context=spawn)
     side = ProcessPoolExecutor(SIDE_WORKERS, mp_context=spawn)
     side13 = ProcessPoolExecutor(1, mp_context=spawn)
+    side14 = ProcessPoolExecutor(1, mp_context=spawn)
     try:
-        smoke(pool, side, side13)
+        smoke(pool, side, side13, side14)
     finally:
         pool.shutdown(cancel_futures=True)
         side.shutdown(cancel_futures=True)
         side13.shutdown(cancel_futures=True)
+        side14.shutdown(cancel_futures=True)
 
 
-def smoke(pool, side, side13):
+def smoke(pool, side, side13, side14):
     """Everything but the set-up: ``pool`` runs the plain body's
     trajectories on host cores (see below), ``side`` main paths 10 and
     11's plain-body yardsticks and main path 4 on the card, ``side13`` main
-    path 13's parts beside main path 2 (:func:`main_path_13_side`)."""
+    path 13's parts beside main path 2 (:func:`main_path_13_side`),
+    ``side14`` main path 14's (a)-(f) beside them (:func:`main_path_14_side`)."""
 
     import torch
 
@@ -1442,6 +1747,10 @@ def smoke(pool, side, side13):
     # paths 2 and 4 (they end before main path 4 does, so the timed paths
     # after it run alone).
     side13_job = side13.submit(main_path_13_side)
+    # Main path 14's parts (a)-(f), host-bound too (small dense solves and
+    # Newton loops), in a process of their own beside them.
+    side14_job = side14.submit(main_path_14_side)
+    nan_job = pool.submit(rescue_plain_first_nonfinite)
 
     # -- main path 2: the guarded constrained MMA through kernel 1g ----------
     mma = {}
@@ -1594,6 +1903,7 @@ def smoke(pool, side, side13):
 
     # -- main path 4: the kagome MMA through kernel 1Kg (run beside main path 2) --
     km = kagome_job.result()
+    kagome_done_at = time.time()
     launches, plain_calls, per_iter = km["launches"], km["plain_calls"], km["per_iter"]
     log(f"main path 4 (kagome MMA, {MMA_ITERATIONS} iterations at float64, in a process of "
         f"its own beside main path 2): {launches} guarded kernel launches, {plain_calls} "
@@ -2659,6 +2969,13 @@ def smoke(pool, side, side13):
     # -- main path 13: the rest of the optimizer and the solver remnants -------
     timings.update(main_path_13(device, results, side13_job, remnant_jobs, card_line))
     phase_done(f"main path 13 ({timings['main_path_13_s']:.1f} s)")
+
+    # -- main path 14: statics and linear analysis -------------------------------
+    timings.update(main_path_14(device, results, side14_job, nan_job, card_line))
+    side14_lead = kagome_done_at - side14_job.result()["ended_at"]
+    log(f"  main path 14's side process ended {side14_lead:.1f} s before main path 4 did")
+    timings["main_path_14_side_lead_s"] = side14_lead
+    phase_done(f"main path 14 ({timings['main_path_14_s']:.1f} s)")
 
     replaces = {"verlet_quad": "difflexmm_tpu/ops/pallas/core.py:822",
                 "verlet_quad_guarded": "difflexmm_tpu/ops/pallas/core.py:822 (guarded: "

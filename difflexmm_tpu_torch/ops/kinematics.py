@@ -95,6 +95,14 @@ class DOFSet:
         blocks, dofs, ids = self.tensors(values.dtype, values.device)[1]
         return dense.index_put((blocks, dofs), values[ids])
 
+    def gather_constrained(self, dense: torch.Tensor) -> torch.Tensor:
+        """(n_constrained,) values of a dense (n_blocks, 3) field, in pair
+        order."""
+
+        index = tuple(torch.as_tensor(x, device=dense.device)
+                      for x in (self.constrained_blocks, self.constrained_dofs))
+        return dense[index]
+
 
 def build_constrained_kinematics(geometry, constrained_block_DOF_pairs=np.zeros((0, 2)),
                                  constrained_DOFs_fn: Callable = lambda t, **kwargs: 0.0):

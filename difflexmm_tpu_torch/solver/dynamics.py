@@ -61,6 +61,18 @@ FAST_METHODS = ("verlet_pallas", "verlet_ckpt", "auto")
 DENSE_METHODS = ("verlet",) + tuple(FIXED_STEPPERS)
 
 
+def _resolve_inertia(control_params: ControlParams) -> torch.Tensor:
+    """The blocks' ``(n_blocks, 3)`` inertia: the mechanical parameters'
+    where given, else the polygons' at the density (JAX
+    ``solver/dynamics.py:362-368``)."""
+
+    mp = control_params.mechanical_params
+    if mp.inertia is None:
+        return compute_inertia(control_params.geometrical_params.centroid_node_vectors,
+                               mp.density)
+    return mp.inertia
+
+
 def setup_dynamic_solver(
     geometry,
     energy_fn: Optional[Callable] = None,

@@ -40,9 +40,9 @@ def semi_implicit_euler_step(rhs: Callable, y: torch.Tensor, t, dt, args) -> tor
 
 #: Why ``method="odeint"`` raises.
 ODEINT_UNAVAILABLE = (
-    "method='odeint' has no counterpart in the port: torchdiffeq is not installed, and the "
-    "JAX package's odeint stays the accuracy oracle (ROADMAP A12). Use 'rk4', "
-    "'semi_implicit' or a Verlet method.")
+    "method='odeint' is not ported, by design: the JAX package keeps its adaptive odeint as "
+    "the accuracy oracle that the port's fixed-step methods are held against (and torchdiffeq "
+    "is not installed). Use 'rk4', 'semi_implicit' or a Verlet method.")
 
 FIXED_STEPPERS = {
     "rk4": rk4_step,

@@ -14,8 +14,10 @@ file's ``"forward"`` section (``examples/configs/pulse_forward.json``),
 and
 ``optimization_problem_from_jax_dict`` does the same for a JAX
 ``OptimizationProblem`` of any family (targets, weights, forward inputs,
-the restricted space's initial guess and the iteration histories), so that
-one dict and one numpy design drive both packages.
+the restricted space's initial guess, the hinge fit's target and fitted
+curves and the iteration histories), so that one dict and one numpy design
+drive both packages, and ``bloch_cell_from_numpy`` turns a JAX
+``BlochCell`` (numpy leaves) into the port's.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from difflexmm_tpu_torch.models import (
+    hinge_characterization,
     kagome_focusing,
     quads_energy_splitting,
     quads_focusing,
@@ -47,11 +50,13 @@ FAMILIES = {
     "quads_focusing_restricted_space": quads_focusing_restricted_space,
     "quads_spin": quads_spin,
     "quads_kinetic_energy_static_tuning": quads_static_tuning,
+    "hinge_characterization": hinge_characterization,
+    "hinge_characterization_quads": hinge_characterization,
 }
 
-#: Families that wait for a solver the port lacks, with the ROADMAP item.
-_WAITING = {"hinge_characterization": "A12 (it needs solver/statics.py)",
-            "hinge_characterization_quads": "A12 (it needs solver/statics.py)"}
+#: Forward problem classes of the families whose class is not the module's
+#: ``ForwardProblem``.
+_FORWARD_CLASSES = {"hinge_characterization_quads": hinge_characterization.ForwardProblemQuads}
 
 # JAX ForwardProblem fields that this port does not carry:
 # atol / rtol tune the odeint backend only, which the fast path never runs.
@@ -60,9 +65,6 @@ _INERT_FIELDS = ("atol", "rtol")
 
 def _family(d: dict):
     name = d.get("name", "quads_focusing")
-    if name in _WAITING:
-        raise NotImplementedError(f"model family {name!r} is not ported yet: ROADMAP "
-                                  f"{_WAITING[name]}")
     if name not in FAMILIES:
         raise NotImplementedError(f"model family {name!r} is not ported yet")
     return FAMILIES[name]
@@ -115,7 +117,7 @@ def forward_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float64):
     """This port's ``ForwardProblem`` from the dict of the JAX
     ``ForwardProblem.to_dict()``. Options the port lacks raise."""
 
-    ForwardProblem = _family(d).ForwardProblem
+    ForwardProblem = _FORWARD_CLASSES.get(d.get("name"), _family(d).ForwardProblem)
     data = {k: v for k, v in d.items() if k not in _INERT_FIELDS}
     if data.pop("pallas_interpret", False):
         raise ValueError("pallas_interpret has no meaning in the port (there is no Pallas)")
@@ -215,6 +217,9 @@ def optimization_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float
     for key in ("target_size", "target_shift", "target_sizes", "target_shifts"):
         if key in data:
             data[key] = _pairs(data[key])
+    for key in ("target_responses", "fitted_responses"):
+        if data.get(key) is not None:
+            data[key] = {k: _tensor(v, device, dtype) for k, v in data[key].items()}
     if "weights" in data:
         data["weights"] = tuple(float(w) for w in np.asarray(data["weights"]).reshape(-1))
     data["objective_values"] = [float(v) for v in data.get("objective_values") or []]
@@ -228,3 +233,23 @@ def optimization_problem_from_jax_dict(d: dict, device="cuda", dtype=torch.float
         data["constraints_violation"] = {k: [float(v) for v in vs] for k, vs in violation.items()}
     data["is_setup"] = False
     return OptimizationProblem(**data)
+
+
+def bloch_cell_from_numpy(cell, device="cuda", dtype=torch.float64):
+    """A JAX ``BlochCell`` (numpy leaves, or its ``_asdict()``) -> the
+    port's ``solver.bloch.BlochCell``: float arrays as tensors in
+    ``dtype``, the bond tables as int64 tensors, numbers in
+    ``bond_params`` kept as they are."""
+
+    from difflexmm_tpu_torch.solver.bloch import BlochCell
+
+    fields = cell if isinstance(cell, dict) else cell._asdict()
+
+    def leaf(x):
+        return x if isinstance(x, (int, float)) else _tensor(x, device, dtype)
+
+    data = {k: leaf(v) for k, v in fields.items() if k != "bond_params"}
+    for key in ("bond_blocks", "bond_nodes", "bond_offsets"):
+        data[key] = data[key].to(torch.int64)
+    data["bond_params"] = {k: leaf(v) for k, v in fields["bond_params"].items()}
+    return BlochCell(**data)

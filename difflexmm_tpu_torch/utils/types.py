@@ -88,8 +88,9 @@ class ContactParams(NamedTuple):
 
 
 class MagneticParams(NamedTuple):
-    """Magnetic dipole parameters: per-block dipole angles and strengths
-    (the magnetic energy that reads them is ROADMAP A12)."""
+    """Magnetic dipole parameters: per-block dipole angles ``(n_blocks,
+    2)`` (in-plane angle, pitch) and scalar or ``(n_blocks,)`` strengths,
+    read by ``ops.magnetic.build_magnetic_energy``."""
 
     dipole_angles: Any
     dipole_strengths: Any
@@ -111,6 +112,7 @@ class ControlParams(NamedTuple):
 
     geometrical_params: GeometricalParams
     mechanical_params: MechanicalParams
+    magnetic_params: Optional[MagneticParams] = None
     loading_params: Dict = dict()
     constraint_params: Dict = dict()
 

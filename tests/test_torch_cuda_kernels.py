@@ -1034,3 +1034,58 @@ def test_kagome_population_of_any_block_equals_single_launches(device, dtype):
             for b in range(B):
                 for x, y in zip(batch, single[b % B0]):
                     assert torch.equal(x[b], y[0])
+
+
+def test_hinge_fit_through_kernel_1_and_newton(device):
+    """Main path 14 (a) at a small size: the hinge fit's squared error and
+    stiffness gradient through kernel 1 (one launch per sample and
+    forward) against the plain body on the CPU (1e-9), and through Newton
+    on the card against the CPU (the same iterations, 1e-9 / 1e-7)."""
+
+    from difflexmm_tpu_torch.models import analysis_configs as ac
+
+    small = dict(n1_cells=1, n2_cells=2, n_timepoints=7)
+    targets = {lt: np.stack([np.linspace(0.0, 0.05, 7), np.linspace(0.0, 1e-3, 7)])
+               for lt in ac.HINGE_LOADINGS}
+    out = {}
+    for dev in (device, "cpu"):
+        for method in ("verlet_pallas", "static"):
+            fit = ac.hinge_fit(method, dev, torch.float64, targets, **small)
+            launches = verlet_quad_trajectory.launches
+            k = tuple(torch.tensor(x, dtype=torch.float64, device=dev, requires_grad=True)
+                      for x in ac.HINGE_GUESS)
+            value = fit.objective_fn(k)
+            grad = torch.autograd.grad(value, k)
+            if dev != "cpu" and method == "verlet_pallas":
+                assert verlet_quad_trajectory.launches - launches == 2
+            iterations = [p.solve_equilibrium.iterations for p in fit.forward_problems
+                          if method == "static"]
+            out[(dev == "cpu", method)] = (float(value.detach()), [float(g) for g in grad],
+                                           iterations)
+    for method, (vtol, gtol) in (("verlet_pallas", (1e-9, 1e-9)), ("static", (1e-9, 1e-7))):
+        card, host = out[(False, method)], out[(True, method)]
+        assert abs(card[0] - host[0]) <= vtol * abs(host[0])
+        assert max(abs(a - b) for a, b in zip(card[1], host[1])) <= gtol * max(map(abs, host[1]))
+        assert card[2] == host[2]
+
+
+def test_linear_analysis_on_the_card(device):
+    """Main path 14 (d)-(f) at a small size: the snap-through path, a strip's
+    transmission, the kagome gap's gradient and a Poisson ratio on the card
+    against the CPU."""
+
+    from difflexmm_tpu_torch.models import analysis_configs as ac
+
+    def run(dev):
+        snap = ac.run_snap(device=dev)
+        trans = ac.strip_transmission(device=dev, cells=(3, 2), omegas=(0.3, 10.0, 12))
+        gap = ac.run_kagome_gap(device=dev)
+        return snap, trans, gap
+
+    (snap, trans, gap), (snap_h, trans_h, gap_h) = run(device), run("cpu")
+    assert list(snap["folds"]) == list(snap_h["folds"])
+    assert np.max(np.abs(snap["load_factor"] - snap_h["load_factor"])) <= 1e-9 * np.max(
+        np.abs(snap_h["load_factor"]))
+    assert abs(snap["limit_grad"] - snap_h["limit_grad"]) <= 1e-7 * abs(snap_h["limit_grad"])
+    assert np.max(np.abs(trans - trans_h)) <= 1e-8 * np.max(trans_h)
+    assert np.max(np.abs(gap["grad"] - gap_h["grad"])) <= 1e-7 * np.max(np.abs(gap_h["grad"]))

@@ -112,7 +112,7 @@ def test_forward_problem_dict_roundtrip(small):
     "change, error",
     [
         (dict(pallas_interpret=True), ValueError),
-        (dict(name="hinge_characterization"), NotImplementedError),
+        (dict(name="no_such_family"), NotImplementedError),
         (dict(not_a_field=1), ValueError),
     ],
 )

@@ -10,9 +10,13 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "difflexmm_tpu_torch"
-# Modules of the optimizer and solver slice, which the walk must reach.
+# Modules of the optimizer, solver and analysis slices, which the walk must
+# reach.
 NEW_MODULES = ("difflexmm_tpu_torch.optim.loops", "difflexmm_tpu_torch.utils.observability",
-               "difflexmm_tpu_torch.solver.integrate")
+               "difflexmm_tpu_torch.solver.integrate", "difflexmm_tpu_torch.solver.statics",
+               "difflexmm_tpu_torch.solver.continuation", "difflexmm_tpu_torch.solver.bloch",
+               "difflexmm_tpu_torch.models.hinge_characterization",
+               "difflexmm_tpu_torch.objectives")
 
 
 def test_importing_the_port_imports_no_jax():

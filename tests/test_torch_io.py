@@ -101,3 +101,71 @@ def test_solution_data_crosses_over(tmp_path):
             assert np.array_equal(solution.bond_connectivity.numpy(),
                                   arrays["bond_connectivity"])
     assert solution_data_from_numpy(None) is None
+
+
+def test_hinge_pickle_crosses_over(tmp_path):
+    """A hinge fit the JAX package pickled (its ``to_dict()`` with numpy
+    arrays, both samples' dicts inside) loads without JAX, converts, and
+    reproduces the JAX force-displacement curve (1e-9) and squared error
+    (1e-10) of ``tests/data/analysis_small.npz``."""
+
+    from jax_analysis_references import HINGE_SMALL, hinge_jax
+    from jax_references import stored
+
+    from difflexmm_tpu.models import hinge_characterization as jax_hinge
+    from difflexmm_tpu_torch.models import analysis_configs as ac
+    from difflexmm_tpu_torch.models import hinge_characterization
+
+    ref = stored("analysis_small")
+    targets = {lt: ref[f"hinge_targets_{lt}"] for lt in ac.HINGE_LOADINGS}
+    fit = jax_hinge.OptimizationProblem(
+        [hinge_jax(lt, "verlet_ckpt") for lt in ac.HINGE_LOADINGS], targets,
+        objective_values=[1.0], design_values=[tuple(np.asarray(ac.HINGE_GUESS))])
+    jax_types.save_data(tmp_path / "fit.pkl", fit.to_dict())
+    loaded = load_data(tmp_path / "fit.pkl", device="cpu")
+    port = optimization_problem_from_jax_dict(loaded, device="cpu")
+    assert isinstance(port, hinge_characterization.OptimizationProblem)
+    assert [type(p).__name__ for p in port.forward_problems] == ["ForwardProblem"] * 2
+    assert port.forward_problems[0].n2_cells == HINGE_SMALL["n2_cells"]
+    # The noise-free curve at the true stiffnesses: the targets' noise undone.
+    rng = np.random.default_rng(ac.HINGE_SEED)
+    for problem in port.forward_problems:
+        u, f_noisy, _ = targets[problem.loading_type]
+        noise = 1 + ac.HINGE_NOISE * rng.standard_normal(f_noisy.shape)
+        problem.setup()
+        curve = problem.force_displacement(*problem.solve(ac.HINGE_TRUE_K)).detach()
+        assert np.max(np.abs(curve[0].numpy() - u)) <= 1e-15 * np.max(np.abs(u))
+        assert np.max(np.abs(curve[1].numpy() - f_noisy / noise)) <= 1e-9 * np.max(np.abs(f_noisy))
+    port.setup_objective()
+    value = float(port.objective_fn(ac.HINGE_GUESS))
+    assert abs(value - float(ref["hinge_verlet_ckpt_value"])) <= 1e-10 * abs(value)
+    quads = forward_problem_from_jax_dict(
+        {**jax_hinge.ForwardProblemQuads(
+            n1_blocks=4, n2_blocks=3, spacing=1.0, bond_length=0.1,
+            horizontal_shifts=np.zeros((5, 3, 2)), vertical_shifts=np.zeros((4, 4, 2)),
+            k_stretch=1.0, k_shear=0.05, k_rot=0.01, density=1.0, damping=1.0).to_dict()},
+        device="cpu")
+    assert isinstance(quads, hinge_characterization.ForwardProblemQuads)
+
+
+def test_bloch_cell_crosses_over():
+    """A JAX ``BlochCell`` with numpy leaves becomes the port's: the cell
+    the port builds itself."""
+
+    import jax
+
+    from difflexmm_tpu.solver import bloch as jax_bloch
+    from difflexmm_tpu_torch.solver import bloch
+    from difflexmm_tpu_torch.utils.convert import bloch_cell_from_numpy
+
+    cell = jax.tree_util.tree_map(np.asarray, jax_bloch.rotated_square_cell(0.3, k_rot=0.02))
+    port = bloch_cell_from_numpy(cell, device="cpu")
+    assert port.bond_blocks.dtype == torch.int64 and port.bond_params["k_shear"] == 1.0
+    built = bloch.rotated_square_cell(0.3, k_rot=0.02, device="cpu")
+    for got, want in zip(port, built):
+        if isinstance(got, dict):
+            assert sorted(got) == sorted(want)
+            got, want = (torch.as_tensor(got["reference_vector"]),
+                         torch.as_tensor(want["reference_vector"]))
+        assert got.dtype == want.dtype
+        assert float(torch.max(torch.abs(got - want))) <= 1e-15

@@ -601,8 +601,8 @@ def test_kagome_problems_cross_over_from_jax_dicts():
     assert opt.target_shift == (1, 0) and opt.objective_values == [1.0, 2.0]
     assert [len(d) for d in opt.design_values] == [3, 3]
     assert rel(flat_numpy(opt.design_values[1]), flat_numpy(history[1])) == 0.0
-    with pytest.raises(NotImplementedError, match="family.*A12"):
-        forward_problem_from_jax_dict({**_jax_dict(jp), "name": "hinge_characterization"},
+    with pytest.raises(NotImplementedError, match="family.*not ported"):
+        forward_problem_from_jax_dict({**_jax_dict(jp), "name": "no_such_family"},
                                       device="cpu")
 
 

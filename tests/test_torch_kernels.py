@@ -216,7 +216,7 @@ def test_kernel_wrapper_runs_plain_body_only_for_cpu_tensors():
     "option, error, match",
     [
         # The adaptive odeint stays the JAX package's oracle.
-        (dict(method="odeint"), NotImplementedError, "A12"),
+        (dict(method="odeint"), NotImplementedError, "oracle"),
         # The dense "verlet" takes a guard, but the dense layout has no
         # neighbours for relative translation (as in JAX).
         (dict(method="verlet", energy_fn=lambda u, cp: u.sum(),
